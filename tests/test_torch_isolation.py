@@ -1,0 +1,72 @@
+"""The port imports nothing of JAX: no module of iterative_solver_torch/ and
+not chip_smoke.py imports ``jax``, ``jaxlib`` or ``iterative_solver_tpu``
+(which would run iterative_solver_tpu/__init__.py and import JAX)."""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+FORBIDDEN = {"jax", "jaxlib", "iterative_solver_tpu"}
+PORT_FILES = sorted((ROOT / "iterative_solver_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module.split(".")[0]
+
+
+def test_port_files_found():
+    names = {p.name for p in PORT_FILES}
+    assert {"fused_davidson.py", "symm.py", "chain.py", "chip_smoke.py"} <= names
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_import(path):
+    bad = FORBIDDEN & set(_imported_roots(path))
+    assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
+
+
+_PROBE = r"""
+import importlib.abc, sys
+FORBIDDEN = {"jax", "jaxlib", "iterative_solver_tpu"}
+for name in list(sys.modules):
+    if name.split(".")[0] in FORBIDDEN:
+        del sys.modules[name]
+
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in FORBIDDEN:
+            raise ImportError(f"the port must not import {name}")
+        return None
+
+sys.meta_path.insert(0, Refuse())
+import iterative_solver_torch
+import iterative_solver_torch.convert
+import iterative_solver_torch.array.vector_ops
+import iterative_solver_torch.ops.kernels._build
+import iterative_solver_torch.ops.kernels.chain
+import iterative_solver_torch.ops.kernels.symm
+import iterative_solver_torch.solvers._finite
+import iterative_solver_torch.solvers._symmetry
+import iterative_solver_torch.solvers.fused_davidson
+import chip_smoke
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in FORBIDDEN)
+assert not loaded, loaded
+print("ISOLATED")
+"""
+
+
+def test_port_imports_under_a_finder_that_refuses_jax():
+    out = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "ISOLATED" in out.stdout

@@ -1,0 +1,219 @@
+"""The port's packed symmetric operator (iterative_solver_torch/ops/kernels/
+symm.py) against the JAX package's (iterative_solver_tpu/ops/kernels/
+symm_pallas.py), on the CPU.
+
+Storage must be bit-identical (one host packing feeds both packages). The
+plain f64 action must match the JAX XLA path and the interpreted Pallas
+kernel K1 to 1e-12; with f32 x the plain versions must match the
+interpreted K1 (bf16 tiles) and K3 to 1e-6, the f32 order-of-sum level.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from iterative_solver_tpu.ops.kernels import symm_pallas as J
+from iterative_solver_torch.ops.kernels import symm as T
+
+_TDTYPE = {"f64": torch.float64, "f32": torch.float32, "bf16": torch.bfloat16}
+_JDTYPE = {"f64": jnp.float64, "f32": jnp.float32, "bf16": jnp.bfloat16}
+
+
+def _random_symmetric(n, seed=0, scale=1.0):
+    rng = np.random.default_rng(seed)
+    a = rng.standard_normal((n, n)) * scale
+    return (a + a.T) / 2
+
+
+def _bits(x):
+    """Raw bits of a torch tensor or a JAX/numpy array, as an integer array."""
+    if isinstance(x, torch.Tensor):
+        x = x.contiguous()
+        width = {8: torch.int64, 4: torch.int32, 2: torch.int16}[x.element_size()]
+        return x.view(width).numpy()
+    x = np.asarray(x)
+    return x.view({8: np.int64, 4: np.int32, 2: np.int16}[x.dtype.itemsize])
+
+
+@pytest.mark.parametrize("n,b,dtype", [
+    (96, 32, "f64"), (128, 64, "f32"), (80, 32, "bf16"), (300, 128, "bf16"),
+])
+def test_from_dense_bit_identical(n, b, dtype):
+    mat = _random_symmetric(n, seed=n)
+    js = J.SymmetricBlocked.from_dense(mat, b=b, dtype=_JDTYPE[dtype])
+    ts = T.SymmetricBlocked.from_dense(mat, b=b, dtype=_TDTYPE[dtype])
+    assert ts.shape == js.shape and ts.b == js.b and ts.n_pairs == js.n_pairs
+    assert ts.values.dtype == _TDTYPE[dtype]
+    np.testing.assert_array_equal(_bits(ts.values), _bits(js.values))
+    np.testing.assert_array_equal(ts.ii.numpy(), np.asarray(js.ii))
+    np.testing.assert_array_equal(ts.jj.numpy(), np.asarray(js.jj))
+    assert ts.ii.dtype == torch.int32 and ts.jj.dtype == torch.int32
+    np.testing.assert_array_equal(_bits(ts.diagonal), _bits(js.diagonal))
+
+
+def test_from_dense_tile_dropping_matches():
+    mat = _random_symmetric(128, seed=3)
+    mat[64:, :64] = 0.0
+    mat[:64, 64:] = 0.0
+    js = J.SymmetricBlocked.from_dense(mat, b=32, tol=0.0)
+    ts = T.SymmetricBlocked.from_dense(mat, b=32, tol=0.0)
+    assert ts.n_pairs == js.n_pairs < 10
+    np.testing.assert_array_equal(ts.ii.numpy(), np.asarray(js.ii))
+    np.testing.assert_array_equal(ts.jj.numpy(), np.asarray(js.jj))
+    np.testing.assert_array_equal(ts.values.numpy(), np.asarray(js.values))
+
+
+@pytest.mark.parametrize("n,b,scale", [(96, 32, 10.0), (200, 64, 1e-3)])
+def test_split_from_dense_bit_identical(n, b, scale):
+    mat = _random_symmetric(n, seed=7, scale=scale)
+    js = J.SymmetricBlockedSplit.from_dense(mat, b=b)
+    ts = T.SymmetricBlockedSplit.from_dense(mat, b=b)
+    assert ts.hi.dtype == torch.bfloat16 and ts.lo.dtype == torch.bfloat16
+    np.testing.assert_array_equal(_bits(ts.hi), _bits(js.hi))
+    np.testing.assert_array_equal(_bits(ts.lo), _bits(js.lo))
+    assert np.abs(ts.lo.float().numpy()).max() > 0.0
+    np.testing.assert_array_equal(ts.ii.numpy(), np.asarray(js.ii))
+    np.testing.assert_array_equal(ts.jj.numpy(), np.asarray(js.jj))
+    np.testing.assert_array_equal(_bits(ts.diagonal), _bits(js.diagonal))
+
+
+def _split_inputs():
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal((5, 64)) * np.logspace(-6, 6, 64)
+    special = np.array([0.0, -0.0, 1.0, -1.0, 3.0, 1.0 + 2.0 ** -8, 1.0 + 2.0 ** -9,
+                        1.0 + 3 * 2.0 ** -9, np.float32(np.pi), -np.float32(np.e),
+                        6.1e-5, -1e30, 2.0 ** -100, 65504.0, 1e-30, 7.0])
+    # no subnormal parts: XLA on the CPU flushes them to zero, PyTorch keeps them
+    return np.concatenate([x.ravel(), special])
+
+
+@pytest.mark.parametrize("dtype", ["f32", "f64"])
+def test_bf16_split_bit_identical(dtype):
+    x = _split_inputs().astype(np.float32 if dtype == "f32" else np.float64)
+    jh, jl = J.bf16_split(jnp.asarray(x))
+    th, tl = T.bf16_split(torch.from_numpy(x))
+    np.testing.assert_array_equal(_bits(th), _bits(jh))
+    np.testing.assert_array_equal(_bits(tl), _bits(jl))
+
+
+def test_bf16_split_truncates_not_rounds():
+    x = torch.tensor([1.0 + 3 * 2.0 ** -9], dtype=torch.float32)  # rounds up in bf16
+    hi, lo = T.bf16_split(x)
+    assert float(hi) == 1.0                        # top 16 bits kept, the rest cut
+    assert float(x.bfloat16()) == 1.0 + 2.0 ** -7  # rounding would go up
+    assert float(hi) + float(lo) == float(x)
+
+
+def _x(m, n, seed, dtype=np.float64):
+    return np.random.default_rng(seed).standard_normal((m, n)).astype(dtype)
+
+
+@pytest.mark.parametrize("n,b,m", [(96, 32, 3), (128, 64, 4), (300, 128, 5)])
+def test_plain_f64_matches_jax(n, b, m):
+    mat = _random_symmetric(n, seed=2)
+    js = J.SymmetricBlocked.from_dense(mat, b=b)
+    ts = T.SymmetricBlocked.from_dense(mat, b=b)
+    npad = ts.shape[0]
+    x = np.zeros((m, npad))
+    x[:, :n] = _x(m, n, seed=3)
+    y = T.symm_matmat(torch.from_numpy(x), ts).numpy()
+    y_xla = np.asarray(J.symm_matmat(jnp.asarray(x), js))
+    y_k1 = np.asarray(J.symm_matmat_pallas(jnp.asarray(x), js, interpret=True))
+    scale = np.abs(y_xla).max()
+    np.testing.assert_allclose(y, y_xla, rtol=0, atol=1e-12 * scale)
+    np.testing.assert_allclose(y, y_k1, rtol=0, atol=1e-12 * scale)
+    np.testing.assert_allclose(y[:, :n], x[:, :n] @ mat, rtol=0, atol=1e-12 * scale)
+
+
+@pytest.mark.parametrize("n,b", [(96, 32), (128, 64)])
+def test_bf16_tiles_f32_x_match_interpreted_k1(n, b):
+    mat = _random_symmetric(n, seed=10)
+    js = J.SymmetricBlocked.from_dense(mat, b=b, dtype=jnp.bfloat16)
+    ts = T.SymmetricBlocked.from_dense(mat, b=b, dtype=torch.bfloat16)
+    x = _x(3, n, seed=11, dtype=np.float32)
+    y = T.symm_matmat(torch.from_numpy(x), ts)
+    assert y.dtype == torch.float32
+    y_k1 = np.asarray(J.symm_matmat_pallas(jnp.asarray(x), js, interpret=True))
+    np.testing.assert_allclose(y.numpy(), y_k1, rtol=0, atol=1e-6 * np.abs(y_k1).max())
+    # x is rounded to bf16 before the product, as in the kernel: the exact
+    # bf16 x bf16 products in f64 land on the same values
+    xr = torch.from_numpy(x).bfloat16().double().numpy()
+    dense = np.zeros((n, n))
+    for t in range(ts.n_pairs):
+        i, j = int(ts.ii[t]), int(ts.jj[t])
+        tile = ts.values[t].double().numpy()
+        dense[i * b:(i + 1) * b, j * b:(j + 1) * b] = tile
+        dense[j * b:(j + 1) * b, i * b:(i + 1) * b] = tile.T
+    np.testing.assert_allclose(y.numpy(), xr @ dense, rtol=0, atol=1e-6 * np.abs(y_k1).max())
+
+
+def test_bf16_tiles_f64_x_not_rounded():
+    """With f64 x (the CPU test tier) the plain version widens the tiles and
+    does not round x, as the JAX portable path does."""
+    n, b = 64, 32
+    mat = _random_symmetric(n, seed=12)
+    js = J.SymmetricBlocked.from_dense(mat, b=b, dtype=jnp.bfloat16)
+    ts = T.SymmetricBlocked.from_dense(mat, b=b, dtype=torch.bfloat16)
+    x = _x(2, n, seed=13)
+    y = T.symm_matmat(torch.from_numpy(x), ts)
+    assert y.dtype == torch.float64
+    y_xla = np.asarray(J.symm_matmat(jnp.asarray(x), js))
+    np.testing.assert_allclose(y.numpy(), y_xla, rtol=0, atol=1e-12 * np.abs(y_xla).max())
+
+
+@pytest.mark.parametrize("n,b,xdtype", [(96, 32, np.float32), (128, 64, np.float32),
+                                        (128, 64, np.float64)])
+def test_split_matches_jax(n, b, xdtype):
+    mat = _random_symmetric(n, seed=8)
+    js = J.SymmetricBlockedSplit.from_dense(mat, b=b)
+    ts = T.SymmetricBlockedSplit.from_dense(mat, b=b)
+    x = _x(4, n, seed=9, dtype=xdtype)
+    y = T.symm_matmat_split(torch.from_numpy(x), ts)
+    assert y.dtype == torch.from_numpy(x).dtype
+    y_xla = np.asarray(J.symm_matmat_split(jnp.asarray(x), js))
+    x32 = jnp.asarray(x.astype(np.float32))
+    y_k3 = np.asarray(J.symm_matmat_split_pallas(x32, js, interpret=True))
+    scale = np.abs(y_xla).max()
+    np.testing.assert_allclose(y.numpy(), y_xla, rtol=0, atol=1e-6 * scale)
+    np.testing.assert_allclose(y.numpy(), y_k3, rtol=0, atol=1e-6 * scale)
+    # double-bf16: ~2^-16 relative accuracy against the f64 product
+    assert np.abs(y.numpy() - x @ mat).max() < 1e-4 * scale
+
+
+def test_padding_to_block_multiple():
+    n, b = 80, 32
+    mat = _random_symmetric(n, seed=4)
+    ts = T.SymmetricBlocked.from_dense(mat, b=b)
+    assert ts.shape == (96, 96)
+    x = np.zeros((2, 96))
+    x[:, :n] = _x(2, n, seed=5)
+    y = T.symm_matmat(torch.from_numpy(x), ts).numpy()
+    np.testing.assert_allclose(y[:, :n], x[:, :n] @ mat, atol=1e-12)
+    np.testing.assert_allclose(y[:, n:], 0.0, atol=0.0)
+    split = T.SymmetricBlockedSplit.from_dense(mat, b=b)
+    assert split.shape == (96, 96)
+    ys = T.symm_matmat_split(torch.from_numpy(x), split).numpy()
+    np.testing.assert_allclose(ys[:, n:], 0.0, atol=0.0)
+
+
+def test_rejects_asymmetric():
+    mat = np.arange(16.0).reshape(4, 4)
+    with pytest.raises(ValueError):
+        T.SymmetricBlocked.from_dense(mat, b=4)
+    with pytest.raises(ValueError):
+        T.SymmetricBlockedSplit.from_dense(mat, b=4)
+
+
+def test_wrappers_take_plain_version_on_cpu():
+    """On a CPU tensor the kernel wrappers run the plain version and count
+    no launch."""
+    mat = _random_symmetric(64, seed=14)
+    x = torch.from_numpy(_x(3, 64, seed=15, dtype=np.float32))
+    before = dict(T.LAUNCHES)
+    for dtype in (torch.float32, torch.bfloat16):
+        ts = T.SymmetricBlocked.from_dense(mat, b=32, dtype=dtype)
+        assert torch.equal(T.symm_matmat_kernel(x, ts), T.symm_matmat(x, ts))
+    split = T.SymmetricBlockedSplit.from_dense(mat, b=32)
+    assert torch.equal(T.symm_matmat_split_kernel(x, split), T.symm_matmat_split(x, split))
+    assert T.LAUNCHES == before
