@@ -1,36 +1,57 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one CUDA card.
 
-    python3 chip_smoke.py    # build, check, solve, profile; about a minute
+    python3 chip_smoke.py    # build, check, solve, profile; a few minutes
 
 It drives the port's main path, ``FusedDavidson.from_dense_symmetric`` then
 ``run_on_device``, at the size of bench.py's headline leg: a dense symmetric
 8192 x 8192 operator (the bench matrix: spectrum linspace(-2, 3, 32) and
 linspace(6, 50, N-32), couplings 0.05/sqrt(N), ``default_rng(0)``), 16
-roots, a 64-row basis. It imports nothing of JAX or of the JAX package.
+roots, a 64-row basis; and ``FusedPPCG`` at bench.py's flagship leg: 64
+roots of a packed int8 operator of n = 32768 generated directly
+(``synthetic_packed_int8(32768, b=1024, seed=0)``). It imports nothing of
+JAX or of the JAX package.
 
 Phases, one JSON line each:
 
 1. the card (nvidia-smi name and power limit, torch and CUDA versions);
 2. the build of every kernel from ``iterative_solver_torch/ops/kernels/csrc``
    with nvcc for sm_90a, all sources compiled in parallel;
-3. every kernel (K1 with bf16 and with f32 tiles, K2, K3) against its plain
-   PyTorch version on the same inputs on the card, at the main path's
-   shapes (x 16 x 8192; K2 with a 64-row basis). Tolerance: 1e-5 of the
-   plain result's max magnitude; the kernels add partial sums with f32
-   atomics, which changes the order of the sum. Times from CUDA events,
-   kernel and plain timed in turns (plain, kernel, kernel, plain);
+3. every kernel against its plain PyTorch version on the same inputs on the
+   card, at the main path's shapes. K1 (bf16 and f32 tiles), K2 and K3 at
+   x 16 x 8192 (K2 with a 64-row basis), tolerance 1e-5 of the plain
+   result's max magnitude: they add partial sums with f32 atomics, which
+   changes the order of the sum. K4 at 16 x 8192 and at 64 x 32768 (the
+   flagship operator) and K5 at 16 x 8192, tolerance 0: they add integer
+   partial sums and round the epilogue in the plain version's order, so y
+   must be bit-identical. Times from CUDA events, kernel and plain timed in
+   turns (plain, kernel, kernel, plain);
 4. the headline solve: tier "fast", rr "window", fused chain, tol 2e-4;
 5. the "precise" solve: rr "full", tol 1e-5 (bench.py's precise leg);
 6. the "exact" solve, same settings as 5, which drives K1's f32 tiles;
-7. a torch.profiler breakdown of one more headline solve: device time by
-   kernel family and the device's idle share.
+7. the "int8" solve (bench.py's turbo_int8 leg): rr "window", tol 5e-3;
+8. the "int8_precise" solve (bench.py's int8_precise leg): rr "anchored",
+   anchor_every 2, tol 1e-5;
+9. the PPCG flagship: n = 32768, 64 roots, rr_every 8, tol 5e-3, max_iter
+   400, the one-hot guess on the 64 lowest diagonal entries, and a
+   torch.profiler breakdown of one more such solve;
+10. the same flagship at tol 1e-3, which takes more than rr_every
+    iterations, so the periodic full Rayleigh-Ritz and its re-anchoring
+    action run at this size too;
+11. a torch.profiler breakdown of one more headline solve: device time by
+    kernel family and the device's idle share.
 
-Each solve reports iterations, convergence, time per iteration, the f64
-residual ||A x - rho x|| of each normalised Ritz vector against the dense
-f64 matrix, the 4 lowest Rayleigh quotients against REFERENCE_EIGENVALUES,
-and the launches of each kernel wrapper counted during the solve, which
-must equal init + symmetry probe + iterations + restarts (K2: iterations).
+Each Davidson solve reports iterations, convergence, time per iteration,
+the f64 residual ||A x - rho x|| of each normalised Ritz vector against the
+dense f64 matrix, the 4 lowest Rayleigh quotients against
+REFERENCE_EIGENVALUES, and the launches of each kernel wrapper counted
+during the solve, which must equal init + symmetry probe + iterations +
+restarts (K2: iterations). The PPCG flagship reports the f64 residual
+against the implied operator (applied tile by tile on the card), the
+orthonormality of X, how far the sorted Rayleigh quotients lie from the 64
+lowest diagonal entries (a skipped root would be 0.079 off), and K4's
+launches, which must equal init + probe + iterations + re-anchors
+(iterations // rr_every).
 
 Then one JSON line ``{"kernels": [...]}`` with each kernel's launches on the
 main path, error, times and bound; the card's nvidia-smi line; and as the
@@ -58,10 +79,30 @@ REFERENCE_EIGENVALUES = [
 ]
 KERNEL_TOL = 1e-5
 
+# the PPCG flagship (bench.py:1315-1360)
+FLAGSHIP_N = 32768
+FLAGSHIP_ROOTS = 64
+FLAGSHIP_RR_EVERY = 8
+FLAGSHIP_TOL = 5e-3
+# limits set from calibrate_int8_cpu.py at n=8192 (PERF.md gives the margins):
+# the f64 residual against the implied operator, max|X X^T - I|, and the
+# distance of the sorted Rayleigh quotients from the 64 lowest diagonal
+# entries (those are 0.079 apart, so a skipped root would be 0.079 off)
+FLAGSHIP_RES_LIMIT = 1e-2
+# the tighter flagship solve that must reach a full RR, and its residual limit
+FLAGSHIP_RR_TOL = 1e-3
+FLAGSHIP_RR_RES_LIMIT = 2e-3
+FLAGSHIP_ORTHO_LIMIT = 1e-4
+FLAGSHIP_SKIP_LIMIT = 0.01
+# (f64 residual limit, Rayleigh-quotient limit) of the int8 Davidson solves,
+# from the same calibration
+INT8_LIMITS = {"int8": (5e-3, 1e-6), "int8_precise": (1e-4, 1e-8)}
+
 # H100 SXM data-sheet peaks (dense): memory 3.35 TB/s; bf16 tensor cores
-# 989 TFLOP/s; float32 outside the tensor cores 67 TFLOP/s
+# 989 TFLOP/s; int8 tensor cores 1979 TOP/s; float32 outside the tensor
+# cores 67 TFLOP/s
 PEAK_BYTES = 3.35e12
-PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
+PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12, "int8": 1979e12}
 
 
 def emit(obj) -> None:
@@ -98,6 +139,42 @@ def time_ms(fn, device, reps: int = 20) -> float:
     end.record()
     torch.cuda.synchronize(device)
     return start.elapsed_time(end) / reps
+
+
+def device_events(prof):
+    """(name, count, device µs) of each device event in a profiler's
+    key averages; older torch names the time ``self_cuda_time_total``."""
+    import torch
+
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0.0)
+        yield ev.key, ev.count, us
+
+
+def device_ms(fn, device, pattern: str, calls: int = 10) -> tuple:
+    """Device time per call, from torch.profiler over ``calls`` calls: of
+    the kernels whose names contain ``pattern``, and of all the device work
+    the call does. Beside the CUDA-event time of a call, this separates the
+    kernel from the host's work around it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize(device)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize(device)
+    mine = total = 0.0
+    for name, _, us in device_events(prof):
+        total += us
+        if pattern in name:
+            mine += us
+    return mine / calls / 1e3, total / calls / 1e3
 
 
 def in_turns(plain, kernel, device):
@@ -152,6 +229,8 @@ def check_kernels(matrix: np.ndarray, device) -> list:
         if not rel <= KERNEL_TOL:
             raise AssertionError(f"{name}: max relative error {rel:.3e} > {KERNEL_TOL}")
         kernel_ms, plain_ms = in_turns(lambda: plain(x, sym), lambda: kernel(x, sym), device)
+        kernel_device_ms, call_device_ms = device_ms(lambda: kernel(x, sym), device,
+                                                     "symm_packed")
         a_lib = dense32.to(lib_dtype)
         x_lib = x.to(lib_dtype)
         library_ms = time_ms(lambda: torch.matmul(x_lib, a_lib), device)
@@ -164,7 +243,8 @@ def check_kernels(matrix: np.ndarray, device) -> list:
             "replaces": replaces, "max_abs_err": abs_err, "max_rel_err": rel,
             "tolerance": KERNEL_TOL, "ms": kernel_ms, "kernel_ms": kernel_ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms,
+            "library_ms": library_ms, "kernel_device_ms": kernel_device_ms,
+            "call_device_ms": call_device_ms,
             "shapes": {"m": NROOTS, "n": n, "b": sym.b, "n_pairs": sym.n_pairs},
         })
 
@@ -206,6 +286,8 @@ def check_kernels(matrix: np.ndarray, device) -> list:
     kernel_ms, plain_ms = in_turns(lambda: chain.expand_chain(r, v, mask, diag, evals),
                                    lambda: chain.fused_expand_chain(r, v, mask, diag, evals),
                                    device)
+    kernel_device_ms, call_device_ms = device_ms(
+        lambda: chain.fused_expand_chain(r, v, mask, diag, evals), device, "chain_")
     rn = NROOTS * n
     nbytes = 4 * (2 * rn + M_MAX * n + M_MAX + n + NROOTS + 2 * NROOTS + NROOTS * NROOTS)
     # Jacobi (3), n0 (2), two GS passes (2 x 2 x 2 x M), n2 (2), g (2 R)
@@ -218,9 +300,125 @@ def check_kernels(matrix: np.ndarray, device) -> list:
         "max_abs_err": max(e[0] for e in errs), "max_rel_err": rel,
         "tolerance": KERNEL_TOL, "ms": kernel_ms, "kernel_ms": kernel_ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": None,
+        "library_ms": None, "kernel_device_ms": kernel_device_ms,
+        "call_device_ms": call_device_ms,
         "shapes": {"r": NROOTS, "m_max": M_MAX, "n": n, "active": 48},
     })
+    return results
+
+
+def dense_int8(q, ii, jj, b: int, n: int):
+    """The dense symmetric int8 matrix that packed lower tiles imply."""
+    import torch
+
+    dense = torch.zeros((n, n), dtype=torch.int8, device=q.device)
+    for t, (i, j) in enumerate(zip(ii.tolist(), jj.tolist())):
+        dense[i * b:(i + 1) * b, j * b:(j + 1) * b] = q[t]
+        if i != j:
+            dense[j * b:(j + 1) * b, i * b:(i + 1) * b] = q[t].T
+    return dense
+
+
+def int_mm_library(xs_planes, q_planes, products, sym, n, device):
+    """(ms, note, equal): one ``torch._int_mm`` per int8 product of the
+    action, qx against the dense int8 matrix the tiles imply. ``_int_mm``
+    takes more than 16 rows, so x is padded to 32. ``equal`` says whether
+    its first product equals the plain version's int32 accumulator."""
+    import torch
+
+    from iterative_solver_torch.ops.kernels import symm_int8
+
+    m = xs_planes[0].shape[0]
+    rows = max(32, m)
+    dense = [dense_int8(q, sym.ii, sym.jj, sym.b, n) for q in q_planes]
+    padded = []
+    for xp in xs_planes:
+        pad = torch.zeros((rows, n), dtype=torch.int8, device=device)
+        pad[:m] = xp
+        padded.append(pad)
+    pairs = [(padded[a], dense[k]) for a, k in products]
+    note = (f"torch._int_mm x{len(pairs)} ({rows} x {n}) @ ({n} x {n}) int8"
+            + (f", x padded from {m} to {rows} rows" if rows != m else ""))
+    try:
+        got = torch._int_mm(*pairs[0])[:m]
+        ref = symm_int8._symm_matmat_int8_plain(xs_planes[0], q_planes[0], sym.ii, sym.jj,
+                                                sym.b, n // sym.b)
+        equal = bool(torch.equal(got, ref))
+        ms = time_ms(lambda: [torch._int_mm(a, d) for a, d in pairs], device)
+    except RuntimeError as err:  # a yardstick only: record the refusal
+        return None, f"{note}: refused ({str(err).splitlines()[0]})", None
+    return ms, note, equal
+
+
+def check_int8_kernels(matrix: np.ndarray, flagship, device) -> list:
+    """K4 and K5 against their plain versions, bit for bit, at the main
+    path's shapes: K4 at 16 x 8192 (the bench matrix) and at 64 x 32768
+    (the flagship operator), K5 at 16 x 8192."""
+    import torch
+
+    from iterative_solver_torch.ops.kernels import symm_int8
+
+    rng = np.random.default_rng(2)
+    results = []
+
+    def int8_case(name, sym, m, planes, replaces):
+        n = sym.shape[0]
+        x = torch.as_tensor(rng.standard_normal((m, n)), dtype=torch.float32, device=device)
+        if planes == 1:
+            kernel, plain = symm_int8.symm_matmat_int8_kernel, symm_int8.symm_matmat_int8
+            q_planes = (sym.q,)
+            xs_planes = symm_int8.quantize_rows(x * sym.gq[None, :])[:1]
+            pairs = ((0, 0),)
+        else:
+            kernel = symm_int8.symm_matmat_int8_split_kernel
+            plain = symm_int8.symm_matmat_int8_split
+            q_planes = (sym.q1, sym.q2)
+            xs_planes = symm_int8.quantize_rows_split(x * sym.gq[None, :])[:2]
+            pairs = ((0, 0), (0, 1), (1, 0))   # p1 Q1, p1 Q2, p2 Q1
+        y = kernel(x, sym)
+        y_ref = plain(x, sym)
+        torch.cuda.synchronize(device)
+        abs_err = float((y - y_ref).abs().max())
+        if not torch.equal(y, y_ref):
+            raise AssertionError(f"{name}: not bit-identical to the plain version "
+                                 f"(max abs err {abs_err:.3e})")
+        kernel_ms, plain_ms = in_turns(lambda: plain(x, sym), lambda: kernel(x, sym), device)
+        # the main kernel and its epilogue, and all the call's device work
+        # (the quantization of x in torch ops included)
+        kernel_device_ms, call_device_ms = device_ms(lambda: kernel(x, sym), device,
+                                                     "symm_int8")
+        library_ms, library_note, library_equal = int_mm_library(
+            xs_planes, q_planes, pairs, sym, n, device)
+        # the bytes the replaced function moves; its int32 accumulators live
+        # in on-chip scratch, so their traffic here (atomics into device
+        # memory, then the epilogue's read) is reported apart, not bounded
+        nbytes = (planes * sym.n_pairs * sym.b * sym.b     # tiles
+                  + planes * m * n                         # quantized x planes
+                  + 2 * 4 * m * n                          # xf read, y written
+                  + 4 * m + 8 * n + 8 * sym.n_pairs)       # sx, gq, d, ii, jj
+        bound_ms, bound_by = bound(nbytes, symm_flops(sym, m, len(pairs)), "int8")
+        scratch_bytes = planes * 2 * 4 * m * n             # accumulators written, read
+        results.append({
+            "name": name, "route": "cuda",
+            "source": "iterative_solver_torch/ops/kernels/csrc/symm_int8.cu",
+            "replaces": replaces, "max_abs_err": abs_err, "bit_identical": True,
+            "tolerance": 0.0, "ms": kernel_ms, "kernel_ms": kernel_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_bytes": nbytes, "scratch_bytes": scratch_bytes,
+            "library_ms": library_ms, "library_note": library_note,
+            "library_equals_plain_accumulator": library_equal,
+            "kernel_device_ms": kernel_device_ms, "call_device_ms": call_device_ms,
+            "shapes": {"m": m, "n": n, "b": sym.b, "n_pairs": sym.n_pairs},
+        })
+
+    k4 = "iterative_solver_tpu/ops/kernels/symm_int8.py:344"
+    sym = symm_int8.SymmetricBlockedInt8.from_dense(matrix, b=1024, device=device)
+    int8_case("K4@n8192", sym, NROOTS, 1, k4)
+    del sym
+    int8_case("K4", flagship, FLAGSHIP_ROOTS, 1, k4)
+    sym = symm_int8.SymmetricBlockedInt8Split.from_dense(matrix, b=1024, device=device)
+    int8_case("K5", sym, NROOTS, 2, "iterative_solver_tpu/ops/kernels/symm_int8.py:430")
+    del sym
     return results
 
 
@@ -233,32 +431,46 @@ def expected_restarts(iters: int, nroots: int, m_max: int) -> int:
     return restarts
 
 
+def launch_counters() -> tuple:
+    """Every kernel wrapper's launch counts (the keys are distinct)."""
+    from iterative_solver_torch.ops.kernels import chain, symm, symm_int8
+
+    return symm.LAUNCHES, symm_int8.LAUNCHES, chain.LAUNCHES
+
+
+def reset_launches() -> None:
+    for d in launch_counters():
+        for key in d:
+            d[key] = 0
+
+
+def read_launches(key: str) -> int:
+    return next(d[key] for d in launch_counters() if key in d)
+
+
 def solve_phase(matrix, ref_evals, device, tier, rr, tol, res_limit, rq_limit,
-                action_key) -> dict:
+                action_key, **solver_kw) -> dict:
     """One solve through the public entry points; raises on a failed check.
     Returns the phase record with the launches counted during the solve."""
     import torch
 
     from iterative_solver_torch import FusedDavidson
-    from iterative_solver_torch.ops.kernels import chain, symm
 
     diag = np.diagonal(matrix)
     t0 = time.perf_counter()
     solver = FusedDavidson.from_dense_symmetric(
         matrix, NROOTS, tier=tier, m_max=M_MAX, rr=rr,
-        convergence_threshold=tol, max_iter=60)
+        convergence_threshold=tol, max_iter=60, **solver_kw)
     setup_s = time.perf_counter() - t0
     v0 = guess(diag, NROOTS)
 
-    for d in (symm.LAUNCHES, chain.LAUNCHES):
-        for key in d:
-            d[key] = 0
+    reset_launches()
     torch.cuda.synchronize(device)
     t0 = time.perf_counter()
     evals, x, errors, iters = solver.run_on_device(v0)
     torch.cuda.synchronize(device)
     wall = time.perf_counter() - t0
-    launches = {"action": symm.LAUNCHES[action_key], "chain": chain.LAUNCHES["chain"]}
+    launches = {"action": read_launches(action_key), "chain": read_launches("chain")}
 
     # a second solve from the same guess (no symmetry probe): steady time
     torch.cuda.synchronize(device)
@@ -290,7 +502,7 @@ def solve_phase(matrix, ref_evals, device, tier, rr, tol, res_limit, rq_limit,
         "f64_max_residual": res, "f64_residual_limit": res_limit,
         "rayleigh_quotients": rq_low.tolist(), "rq_max_abs_err": rq_err,
         "rq_limit": rq_limit, "launches": launches, "expected_launches": expected,
-        "action_kernel": action_key,
+        "action_kernel": action_key, **solver_kw,
     }
     emit(rec)
     failures = []
@@ -307,19 +519,119 @@ def solve_phase(matrix, ref_evals, device, tier, rr, tol, res_limit, rq_limit,
     return rec
 
 
-def profile_headline(matrix, device) -> dict:
-    """Device time by kernel family, and the host's waits on the device, over
-    one headline solve."""
+def make_flagship(device):
+    """The flagship operator, generated directly on the host and moved to
+    the card (bench.py:1332-1334). Returns (sym, diag, seconds)."""
+    from iterative_solver_torch.models.synthetic_fci import synthetic_packed_int8
+
+    t0 = time.perf_counter()
+    sym, diag = synthetic_packed_int8(FLAGSHIP_N, b=1024, seed=0, device=device)
+    return sym, diag, time.perf_counter() - t0
+
+
+def ppcg_quality(x, sym, diag, nroots: int) -> dict:
+    """The flagship's checks on returned Ritz rows ``x``: the f64 residual
+    ||A x - rho x|| of each normalised row against the implied operator
+    (diag(d) + gq gq^T * unpack(q), applied tile by tile in f64 on x's
+    device), max|X X^T - I|, and the largest distance of the sorted Rayleigh
+    quotients from the sorted ``nroots`` lowest diagonal entries."""
+    import torch
+
+    from iterative_solver_torch.models.synthetic_fci import implied_matmat_int8
+
+    x64 = x.to(torch.float64)
+    xs = x64 / torch.linalg.norm(x64, dim=1, keepdim=True)
+    ax = implied_matmat_int8(xs, sym, diag)
+    rq = torch.sum(xs * ax, dim=1)
+    res = float(torch.max(torch.linalg.norm(ax - rq[:, None] * xs, dim=1)))
+    eye = torch.eye(nroots, dtype=torch.float64, device=x.device)
+    ortho = float(torch.max(torch.abs(x64 @ x64.T - eye)))
+    rq_sorted = np.sort(rq.cpu().numpy())
+    low = np.sort(np.asarray(diag))[:nroots]
+    return {"f64_max_residual": res, "orthonormality": ortho,
+            "rq_minus_diag_max": float(np.max(np.abs(rq_sorted - low))),
+            "rayleigh_quotients_head": rq_sorted[:4].tolist()}
+
+
+def solve_ppcg_flagship(sym, diag, gen_s, device, tol=FLAGSHIP_TOL,
+                        res_limit=FLAGSHIP_RES_LIMIT, min_iters=0,
+                        phase="solve_ppcg_flagship") -> dict:
+    """bench.py:1315-1360 through the public entry point: FusedPPCG on the
+    K4 matvec; raises on a failed check. ``min_iters`` is the least
+    iteration count the solve must take (rr_every: a full RR ran)."""
+    import torch
+
+    from iterative_solver_torch import FusedPPCG
+    from iterative_solver_torch.ops.kernels.symm_int8 import int8_matvec
+
+    t0 = time.perf_counter()
+    matvec, operand = int8_matvec(sym)
+    solver = FusedPPCG(matvec, diag, FLAGSHIP_N, FLAGSHIP_ROOTS,
+                       rr_every=FLAGSHIP_RR_EVERY, convergence_threshold=tol,
+                       max_iter=400, operand=operand)
+    v0 = guess(diag, FLAGSHIP_ROOTS)
+    setup_s = gen_s + time.perf_counter() - t0
+
+    reset_launches()
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    evals, x, errors, iters = solver.run_on_device(v0)
+    torch.cuda.synchronize(device)
+    wall = time.perf_counter() - t0
+    launches = read_launches("symm_int8")
+
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    _, _, _, iters2 = solver.run_on_device(v0)
+    torch.cuda.synchronize(device)
+    wall2 = time.perf_counter() - t0
+
+    expected = 1 + 2 + iters + iters // FLAGSHIP_RR_EVERY
+    converged = bool(np.max(errors) <= tol)
+    quality = ppcg_quality(x, sym, diag, FLAGSHIP_ROOTS)
+    rec = {
+        "phase": phase, "n": FLAGSHIP_N, "nroots": FLAGSHIP_ROOTS,
+        "b": sym.b, "n_pairs": sym.n_pairs, "rr_every": FLAGSHIP_RR_EVERY,
+        "tol": tol, "iterations": iters, "min_iterations": min_iters,
+        "full_rr_steps": iters // FLAGSHIP_RR_EVERY, "converged": converged,
+        "max_error": float(np.max(errors)), "seconds": wall,
+        "seconds_per_iteration": wall / max(iters, 1), "steady_seconds": wall2,
+        "steady_iterations": iters2, "steady_seconds_per_iteration": wall2 / max(iters2, 1),
+        "setup_seconds": setup_s, "generation_seconds": gen_s, **quality,
+        "f64_residual_limit": res_limit, "orthonormality_limit": FLAGSHIP_ORTHO_LIMIT,
+        "rq_minus_diag_limit": FLAGSHIP_SKIP_LIMIT,
+        "launches": {"action": launches}, "expected_launches": {"action": expected},
+        "action_kernel": "symm_int8",
+    }
+    emit(rec)
+    failures = []
+    if not converged:
+        failures.append(f"not converged: max error {np.max(errors):.3e} > {tol}")
+    if iters < min_iters:
+        failures.append(f"{iters} iterations < {min_iters}: no full RR ran")
+    if not quality["f64_max_residual"] <= res_limit:
+        failures.append(f"f64 residual {quality['f64_max_residual']:.3e} > {res_limit}")
+    if not quality["orthonormality"] <= FLAGSHIP_ORTHO_LIMIT:
+        failures.append(f"max|X X^T - I| {quality['orthonormality']:.3e} > "
+                        f"{FLAGSHIP_ORTHO_LIMIT}")
+    if not quality["rq_minus_diag_max"] <= FLAGSHIP_SKIP_LIMIT:
+        failures.append(f"a root is skipped: Rayleigh quotients off the lowest diagonal "
+                        f"entries by {quality['rq_minus_diag_max']:.3e} > {FLAGSHIP_SKIP_LIMIT}")
+    if launches != expected or launches == 0:
+        failures.append(f"K4 launches {launches} != expected {expected}")
+    if failures:
+        raise AssertionError(f"{phase}: " + "; ".join(failures))
+    if min_iters == 0:
+        emit(profile_solve(solver, v0, device, "profile_ppcg_flagship"))
+    return rec
+
+
+def profile_solve(solver, v0, device, phase: str) -> dict:
+    """Device time by kernel family, the device's idle share, and the host's
+    waits on the device, over one more solve of a warm solver."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from iterative_solver_torch import FusedDavidson
-
-    solver = FusedDavidson.from_dense_symmetric(
-        matrix, NROOTS, tier="fast", m_max=M_MAX, rr="window",
-        convergence_threshold=2e-4, max_iter=60)
-    v0 = guess(np.diagonal(matrix), NROOTS)
-    solver.run_on_device(v0)  # warm: probe, library handles
     torch.cuda.synchronize(device)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -327,6 +639,7 @@ def profile_headline(matrix, device) -> dict:
         torch.cuda.synchronize(device)
         wall = time.perf_counter() - t0
     families = {"K1 symm_packed": ("symm_packed",), "K2 chain": ("chain_",),
+                "K4/K5 symm_int8": ("symm_int8",),
                 "eigh, cholesky, trsm (cuSOLVER)": (
                     "syev", "sytrd", "ormtr", "stedc", "steqr", "orgtr", "lansy",
                     "potrf", "getrf", "trsm", "trsv", "row_rotate", "cusolver", "magma"),
@@ -342,30 +655,39 @@ def profile_headline(matrix, device) -> dict:
     # cuSOLVER's info checks) and the copies behind them
     sync_names = ("aten::_local_scalar_dense", "cudaStreamSynchronize",
                   "cudaDeviceSynchronize", "cudaMemcpyAsync")
-    syncs = {}
-    for ev in prof.key_averages():
-        if ev.key in sync_names:
-            syncs[ev.key] = {"count": ev.count, "cpu_ms": ev.self_cpu_time_total / 1e3}
-        dev_us = getattr(ev, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(ev, "self_cuda_time_total", 0.0)
-        if not dev_us or ev.device_type != torch.autograd.DeviceType.CUDA:
+    syncs = {ev.key: {"count": ev.count, "cpu_ms": ev.self_cpu_time_total / 1e3}
+             for ev in prof.key_averages() if ev.key in sync_names}
+    launches = 0
+    for name, count, dev_us in device_events(prof):
+        if not dev_us:
             continue
-        name = ev.key
         fam = next((k for k, pats in families.items()
                     if any(p in name.lower() for p in pats)), "other")
         by_family[fam] += dev_us / 1e3
-        top.append((dev_us / 1e3, ev.count, name[:80]))
+        launches += count
+        top.append((dev_us / 1e3, count, name[:80]))
     top.sort(reverse=True)
     busy = sum(by_family.values())
     if not busy > 0:
         raise AssertionError("the profiler recorded no device time")
     return {
-        "phase": "profile_fast", "iterations": iters, "wall_ms": wall * 1e3,
+        "phase": phase, "iterations": iters, "wall_ms": wall * 1e3,
         "device_busy_ms": busy, "device_idle_share": 1.0 - busy / (wall * 1e3),
-        "ms_by_family": by_family, "host_syncs": syncs,
+        "device_ops": launches, "ms_by_family": by_family, "host_syncs": syncs,
         "top_kernels": [{"ms": t, "count": c, "name": nm} for t, c, nm in top[:12]],
     }
+
+
+def profile_headline(matrix, device) -> dict:
+    """``profile_solve`` over one headline solve."""
+    from iterative_solver_torch import FusedDavidson
+
+    solver = FusedDavidson.from_dense_symmetric(
+        matrix, NROOTS, tier="fast", m_max=M_MAX, rr="window",
+        convergence_threshold=2e-4, max_iter=60)
+    v0 = guess(np.diagonal(matrix), NROOTS)
+    solver.run_on_device(v0)  # warm: probe, library handles
+    return profile_solve(solver, v0, device, "profile_fast")
 
 
 def main() -> int:
@@ -395,6 +717,8 @@ def main() -> int:
 
     matrix = bench_matrix(N)
     kernels = check_kernels(matrix, device)
+    flagship, flagship_diag, gen_s = make_flagship(device)
+    kernels += check_int8_kernels(matrix, flagship, device)
     emit({"phase": "kernel_checks", "kernels": kernels})
 
     fast = solve_phase(matrix, REFERENCE_EIGENVALUES, device, "fast", "window",
@@ -403,22 +727,40 @@ def main() -> int:
                           1e-5, 1e-4, 1e-8, "symm_split")
     exact = solve_phase(matrix, REFERENCE_EIGENVALUES, device, "exact", "full",
                         1e-5, 1e-4, 1e-8, "symm_f32")
+    int8 = solve_phase(matrix, REFERENCE_EIGENVALUES, device, "int8", "window",
+                       5e-3, *INT8_LIMITS["int8"], "symm_int8")
+    int8_precise = solve_phase(matrix, REFERENCE_EIGENVALUES, device, "int8_precise",
+                               "anchored", 1e-5, *INT8_LIMITS["int8_precise"],
+                               "symm_int8_split", anchor_every=2)
+    ppcg = solve_ppcg_flagship(flagship, flagship_diag, gen_s, device)
+    ppcg_rr = solve_ppcg_flagship(flagship, flagship_diag, 0.0, device,
+                                  tol=FLAGSHIP_RR_TOL, res_limit=FLAGSHIP_RR_RES_LIMIT,
+                                  min_iters=FLAGSHIP_RR_EVERY,
+                                  phase="solve_ppcg_flagship_full_rr")
+    del flagship
     emit(profile_headline(matrix, device))
 
+    davidson = (fast, precise, exact, int8, int8_precise)
     launches = {
         "K1-bf16": fast["launches"]["action"],
         "K1-f32": exact["launches"]["action"],
         "K3": precise["launches"]["action"],
-        "K2": sum(p["launches"]["chain"] for p in (fast, precise, exact)),
+        "K2": sum(p["launches"]["chain"] for p in davidson),
+        "K4": sum(p["launches"]["action"] for p in (int8, ppcg, ppcg_rr)),
+        "K5": int8_precise["launches"]["action"],
     }
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     line = []
     for k in kernels:
+        if k["name"] not in launches:
+            continue  # a second shape of a kernel already on the line
         k["launches"] = launches[k["name"]]
         if k["launches"] == 0:
             raise AssertionError(f"{k['name']} was not launched on the main path")
         line.append({key: k[key] for key in keys})
+    if sorted(k["name"] for k in line) != sorted(launches):
+        raise AssertionError(f"the kernels line lists {[k['name'] for k in line]}")
     emit({"kernels": line})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -17,7 +17,8 @@ Importing this package needs no card.
 
 from . import config as config  # noqa: F401  (pins matmul precision)
 from .solvers.fused_davidson import FusedDavidson
+from .solvers.fused_ppcg import FusedPPCG
 
 __version__ = "0.1.0"
 
-__all__ = ["FusedDavidson"]
+__all__ = ["FusedDavidson", "FusedPPCG"]

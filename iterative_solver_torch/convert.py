@@ -18,7 +18,9 @@ import numpy as np
 import torch
 
 from .ops.kernels.symm import SymmetricBlocked, SymmetricBlockedSplit
+from .ops.kernels.symm_int8 import SymmetricBlockedInt8, SymmetricBlockedInt8Split
 from .solvers.fused_davidson import DavidsonState
+from .solvers.fused_ppcg import PPCGState
 
 
 def tensor_from_numpy(a, device="cpu", dtype=None) -> torch.Tensor:
@@ -57,6 +59,44 @@ def symmetric_blocked_split(hi, lo, ii, jj, shape: Tuple[int, int], b: int,
         b=int(b),
         diagonal=None if diagonal is None else tensor_from_numpy(diagonal, device),
     )
+
+
+def symmetric_blocked_int8(q, gq, ii, jj, shape: Tuple[int, int], b: int,
+                           diagonal=None, device="cpu") -> SymmetricBlockedInt8:
+    """The port's SymmetricBlockedInt8 from the JAX one's fields."""
+    return SymmetricBlockedInt8(
+        q=tensor_from_numpy(q, device, torch.int8),
+        gq=tensor_from_numpy(gq, device, torch.float32),
+        ii=tensor_from_numpy(ii, device, torch.int32),
+        jj=tensor_from_numpy(jj, device, torch.int32),
+        shape=tuple(int(s) for s in shape),
+        b=int(b),
+        diagonal=None if diagonal is None else tensor_from_numpy(diagonal, device),
+    )
+
+
+def symmetric_blocked_int8_split(q1, q2, gq, ii, jj, shape: Tuple[int, int], b: int,
+                                 diagonal=None, device="cpu") -> SymmetricBlockedInt8Split:
+    """The port's SymmetricBlockedInt8Split from the JAX one's fields."""
+    return SymmetricBlockedInt8Split(
+        q1=tensor_from_numpy(q1, device, torch.int8),
+        q2=tensor_from_numpy(q2, device, torch.int8),
+        gq=tensor_from_numpy(gq, device, torch.float32),
+        ii=tensor_from_numpy(ii, device, torch.int32),
+        jj=tensor_from_numpy(jj, device, torch.int32),
+        shape=tuple(int(s) for s in shape),
+        b=int(b),
+        diagonal=None if diagonal is None else tensor_from_numpy(diagonal, device),
+    )
+
+
+def ppcg_state(x, ax, p, ap, evals, errors, it, device="cpu") -> PPCGState:
+    """The port's PPCGState from the JAX one's fields (``it`` becomes a
+    host int)."""
+    def t(a):
+        return tensor_from_numpy(a, device)
+
+    return PPCGState(t(x), t(ax), t(p), t(ap), t(evals), t(errors), int(np.asarray(it)))
 
 
 def davidson_state(v, w, mask, k, evals, x, r, errors, c: Optional[np.ndarray] = None,

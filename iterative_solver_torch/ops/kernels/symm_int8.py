@@ -1,0 +1,402 @@
+"""Int8-quantized packed symmetric operator action (port of
+iterative_solver_tpu/ops/kernels/symm_int8.py).
+
+The operator is split into its exact diagonal and the off-diagonal part E,
+and E is equilibrated symmetrically with one scale vector:
+
+    g[P] = sqrt(max_Q |E[P,Q]|)  (1 on zero rows),   B = D^-1 E D^-1, D = diag(g)
+
+so |B| <= 1 quantizes with the scalar scale 1/127:
+
+    E[P,Q] ~= gq[P] gq[Q] Q[P,Q],   Q = round(127 B) in int8,   gq = g/sqrt(127).
+
+x is pre-scaled by gq and row-quantized (xs = x*gq, sx = rowmax|xs|/127,
+qx = round(xs/sx)), so every per-tile product is int8 x int8 summed in an
+exact int32 accumulator, and the action is
+
+    y = acc * sx * gq + x * d.
+
+Two tiers: ``SymmetricBlockedInt8`` (one plane, the bf16 accuracy class)
+and ``SymmetricBlockedInt8Split`` (Q1 + Q2/254, the split double-bf16
+class). The storage (``q``, ``q1``, ``q2``, ``gq``, diagonal, ``ii``,
+``jj``) is byte-identical to the JAX package's, so one host packing feeds
+both packages (``convert.py``).
+
+Kernels (CUDA C++ for sm_90a, ``csrc/symm_int8.cu``):
+
+- ``symm_matmat_int8_kernel`` replaces ``symm_matmat_int8_pallas`` /
+  ``_symm_matmat_int8_impl`` (K4);
+- ``symm_matmat_int8_split_kernel`` replaces
+  ``symm_matmat_int8_split_pallas`` / ``_symm_matmat_int8_split_impl`` (K5).
+
+x is quantized in the wrapper with the same torch ops as the plain version
+(the JAX package quantizes outside its Pallas kernels too). The kernels add
+integer partial sums with atomics, which is exact in any order, and the
+epilogue rounds in the plain version's order, so on the card y equals the
+plain version bit for bit. Each wrapper launches for a CUDA tensor (or
+raises) and counts one launch per action call in ``LAUNCHES``; for a CPU
+tensor it runs the plain version (``symm_matmat_int8``,
+``symm_matmat_int8_split``).
+
+Int32 headroom: each accumulator entry receives at most 127*127*b per int8
+product per tile column, so the one-plane tier is exact up to
+2^31/127^2 ~= 133k columns and the split tier, whose lo accumulator takes
+two products per tile, up to half that. ``from_dense`` refuses larger
+operators (``_check_acc_headroom``): wraparound would be silent garbage.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from ... import config as _config  # noqa: F401  (precision pins)
+from . import _build
+from .symm import _check_operands
+
+Tensor = torch.Tensor
+
+# launches of each kernel, counted once per action call by the wrappers
+LAUNCHES = {"symm_int8": 0, "symm_int8_split": 0}
+
+_SQRT127 = float(np.sqrt(127.0))
+
+
+def _pack_lower(matrix: np.ndarray, b: int):
+    """Padded f64 working copy, edited in place by the equilibration (one
+    full-size temporary; symm_int8.py:86-103)."""
+    matrix = np.asarray(matrix, dtype=np.float64)
+    n = matrix.shape[0]
+    if matrix.shape != (n, n):
+        raise ValueError(f"operator must be square, got {matrix.shape}")
+    if not np.allclose(matrix, matrix.T, atol=0.0, rtol=0.0):
+        raise ValueError("int8 symmetric packing requires an exactly symmetric matrix")
+    b = min(b, n)
+    n_pad = ((n + b - 1) // b) * b
+    if n_pad == n:
+        work = matrix.astype(np.float64, copy=True)
+    else:
+        work = np.zeros((n_pad, n_pad))
+        work[:n, :n] = matrix
+    return work, n_pad, b
+
+
+def _equilibrate_inplace(work: np.ndarray):
+    """Diagonal split and off-diagonal row maxima: on return ``work`` holds
+    E = A - diag(d). Returns (g, d), g[P] = sqrt(rowmax |E[P,:]|), 1 on zero
+    rows."""
+    d = np.diagonal(work).copy()
+    np.fill_diagonal(work, 0.0)
+    rowmax = np.abs(work).max(axis=1)
+    g = np.sqrt(np.where(rowmax > 0.0, rowmax, 1.0))
+    return g, d
+
+
+def _check_acc_headroom(n_pad: int, b: int, dots_per_tile: int, what: str):
+    """Refuse an operator whose worst-case int32 accumulation would wrap:
+    ``dots_per_tile`` int8 products of at most 127*127*b per tile column."""
+    worst = dots_per_tile * (n_pad // b) * 127 * 127 * b
+    if worst >= 2 ** 31:
+        limit = 2 ** 31 // (dots_per_tile * 127 * 127)
+        raise ValueError(
+            f"{what}: operator dimension {n_pad} exceeds the exact-int32 "
+            f"accumulation headroom (max ~{limit} columns for this tier); "
+            "shard the operator over a mesh (ShardedSymmetric.from_int8 "
+            "bounds the per-device tile count) or use a float tier")
+
+
+def _tile_pairs(B: np.ndarray, n_pad: int, b: int, tol_mask):
+    """Lower tile pairs in row-major order by one reshape/swap view and one
+    fancy index. Returns (tiles, ii int32, jj int32)."""
+    nb = n_pad // b
+    iis, jjs = np.tril_indices(nb)
+    if tol_mask is not None:
+        keep = tol_mask[iis, jjs]
+        iis, jjs = iis[keep], jjs[keep]
+    if iis.size == 0:
+        iis = np.zeros(1, dtype=np.int64)
+        jjs = np.zeros(1, dtype=np.int64)
+    grid = B.reshape(nb, b, nb, b).swapaxes(1, 2)
+    return grid[iis, jjs], iis.astype(np.int32), jjs.astype(np.int32)
+
+
+def _tol_mask(E_scaled_src: np.ndarray, n_pad: int, b: int, tol: Optional[float]):
+    if tol is None:
+        return None
+    nb = n_pad // b
+    grid = E_scaled_src.reshape(nb, b, nb, b).swapaxes(1, 2)
+    return np.abs(grid).max(axis=(2, 3)) > tol
+
+
+def _equilibrated_tiles(matrix, b, tol, dots_per_tile, what):
+    """The shared packing pipeline of both tiers: (B tiles f64, g, d, ii,
+    jj, n_pad, b)."""
+    work, n_pad, b = _pack_lower(matrix, b)
+    _check_acc_headroom(n_pad, b, dots_per_tile, what)
+    g, d = _equilibrate_inplace(work)             # work == E
+    mask = _tol_mask(work, n_pad, b, tol)
+    work /= g[:, None]
+    work /= g[None, :]                            # work == B, in place
+    tiles, ii, jj = _tile_pairs(work, n_pad, b, mask)
+    return tiles, g, d, ii, jj, n_pad, b
+
+
+@dataclasses.dataclass
+class SymmetricBlockedInt8:
+    """Packed lower triangle of the off-diagonal part in one int8 plane,
+    the exact diagonal, and the equilibration vector."""
+
+    q: Tensor            # (n_pairs, b, b) int8, round(127 B) tiles
+    gq: Tensor           # (n_pad,) float32, g/sqrt(127)
+    ii: Tensor           # (n_pairs,) int32 block row
+    jj: Tensor           # (n_pairs,) int32 block col (jj <= ii)
+    shape: Tuple[int, int]
+    b: int
+    diagonal: Optional[Tensor] = None   # (n_pad,) float32 exact diagonal
+
+    @property
+    def n_pairs(self) -> int:
+        return self.q.shape[0]
+
+    @classmethod
+    def from_dense(cls, matrix: np.ndarray, b: int = 512, tol: Optional[float] = None,
+                   device="cpu") -> "SymmetricBlockedInt8":
+        """symm_int8.py:175-195. With ``tol`` set, tiles whose largest
+        off-diagonal magnitude is <= tol are dropped."""
+        tiles, g, d, ii, jj, n_pad, b = _equilibrated_tiles(
+            matrix, b, tol, 1, "SymmetricBlockedInt8")
+        q = np.clip(np.rint(127.0 * tiles), -127, 127).astype(np.int8)
+        return cls(
+            q=torch.as_tensor(q, device=device),
+            gq=torch.as_tensor((g / _SQRT127).astype(np.float32), device=device),
+            ii=torch.as_tensor(ii, device=device),
+            jj=torch.as_tensor(jj, device=device),
+            shape=(n_pad, n_pad),
+            b=b,
+            diagonal=torch.as_tensor(d, dtype=torch.float32, device=device),
+        )
+
+
+@dataclasses.dataclass
+class SymmetricBlockedInt8Split:
+    """Two int8 planes, E ~= gq gq^T ⊙ unpack(Q1 + Q2/254), plus the exact
+    diagonal."""
+
+    q1: Tensor           # (n_pairs, b, b) int8, round(127 B)
+    q2: Tensor           # (n_pairs, b, b) int8, round(254 (127 B - Q1))
+    gq: Tensor           # (n_pad,) float32
+    ii: Tensor
+    jj: Tensor
+    shape: Tuple[int, int]
+    b: int
+    diagonal: Optional[Tensor] = None   # (n_pad,) float32 exact diagonal
+
+    @property
+    def n_pairs(self) -> int:
+        return self.q1.shape[0]
+
+    @classmethod
+    def from_dense(cls, matrix: np.ndarray, b: int = 512, tol: Optional[float] = None,
+                   device="cpu") -> "SymmetricBlockedInt8Split":
+        """symm_int8.py:217-241; the split kernel's lo accumulator takes two
+        products per tile, so half the one-plane headroom."""
+        tiles, g, d, ii, jj, n_pad, b = _equilibrated_tiles(
+            matrix, b, tol, 2, "SymmetricBlockedInt8Split")
+        b127 = 127.0 * tiles
+        q1 = np.clip(np.rint(b127), -127, 127)
+        q2 = np.clip(np.rint(254.0 * (b127 - q1)), -127, 127).astype(np.int8)
+        return cls(
+            q1=torch.as_tensor(q1.astype(np.int8), device=device),
+            q2=torch.as_tensor(q2, device=device),
+            gq=torch.as_tensor((g / _SQRT127).astype(np.float32), device=device),
+            ii=torch.as_tensor(ii, device=device),
+            jj=torch.as_tensor(jj, device=device),
+            shape=(n_pad, n_pad),
+            b=b,
+            diagonal=torch.as_tensor(d, dtype=torch.float32, device=device),
+        )
+
+
+def _diag_or_zeros(sym) -> Tensor:
+    """The diagonal, or float32 zeros where the operand has none."""
+    if sym.diagonal is not None:
+        return sym.diagonal
+    return torch.zeros(sym.shape[0], dtype=torch.float32, device=sym.gq.device)
+
+
+def quantize_rows(xs: Tensor) -> Tuple[Tensor, Tensor]:
+    """Per-row int8 quantization xs ~= sx * qx (symm_int8.py:252-261), in
+    the JAX package's order of float32 operations. Returns (qx int8 (m, n),
+    sx float32 (m, 1)); a zero row gives zeros with sx = 1/127."""
+    xs = xs.to(torch.float32)
+    amax = torch.amax(torch.abs(xs), dim=1, keepdim=True)
+    sx = torch.where(amax > 0.0, amax, 1.0) / 127.0
+    qx = torch.clamp(torch.round(xs / sx), -127, 127).to(torch.int8)
+    return qx, sx
+
+
+def quantize_rows_split(xs: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
+    """Double-int8 row split xs ~= sx*(p1 + p2/254) (symm_int8.py:264-272)."""
+    xs = xs.to(torch.float32)
+    amax = torch.amax(torch.abs(xs), dim=1, keepdim=True)
+    sx = torch.where(amax > 0.0, amax, 1.0) / 127.0
+    scaled = xs / sx
+    p1 = torch.clamp(torch.round(scaled), -127, 127)
+    p2 = torch.clamp(torch.round(254.0 * (scaled - p1)), -127, 127).to(torch.int8)
+    return p1.to(torch.int8), p2, sx
+
+
+def _symm_matmat_int8_plain(qx: Tensor, q: Tensor, ii: Tensor, jj: Tensor,
+                            b: int, nb: int) -> Tensor:
+    """The int32 accumulator of the packed action (symm_int8.py:280-292):
+    acc_i += qx_j Q^T for every pair, acc_j += qx_i Q for strict-lower
+    pairs. PyTorch has no int32 batched product on CUDA, so the contraction
+    runs in float64: every product and partial sum is an integer below
+    2^31 < 2^53 (``_check_acc_headroom``), so it is exact in any order, and
+    the cast back to int32 is exact too."""
+    m = qx.shape[0]
+    f64 = torch.float64
+    ii, jj = ii.long(), jj.long()
+    xt = qx.reshape(m, nb, b).transpose(0, 1).to(f64)          # (nb, m, b)
+    qt = q.to(f64)
+    acc = torch.zeros((nb, m, b), dtype=f64, device=qx.device)
+    acc.index_add_(0, ii, torch.einsum("kmn,kin->kmi", xt[jj], qt))
+    strict = (ii != jj).to(f64)
+    contrib_j = torch.einsum("kmn,kni->kmi", xt[ii], qt)
+    acc.index_add_(0, jj, contrib_j * strict[:, None, None])
+    return acc.transpose(0, 1).reshape(m, nb * b).to(torch.int32)
+
+
+def symm_matmat_int8(x: Tensor, sym: SymmetricBlockedInt8) -> Tensor:
+    """Plain PyTorch version of K4 (symm_int8.py:295-302): float32 whatever
+    the dtype of x, cast back to it."""
+    nb = sym.shape[0] // sym.b
+    xf = x.to(torch.float32)
+    qx, sx = quantize_rows(xf * sym.gq[None, :])
+    acc = _symm_matmat_int8_plain(qx, sym.q, sym.ii, sym.jj, sym.b, nb)
+    y = acc.to(torch.float32) * sx * sym.gq[None, :] + xf * _diag_or_zeros(sym)[None, :]
+    return y.to(x.dtype)
+
+
+def symm_matmat_int8_split(x: Tensor, sym: SymmetricBlockedInt8Split) -> Tensor:
+    """Plain PyTorch version of K5 (symm_int8.py:305-317): three int32
+    contractions p1 Q1 + (p1 Q2 + p2 Q1)/254, dropping the p2 Q2 term."""
+    nb = sym.shape[0] // sym.b
+    xf = x.to(torch.float32)
+    p1, p2, sx = quantize_rows_split(xf * sym.gq[None, :])
+    a1 = _symm_matmat_int8_plain(p1, sym.q1, sym.ii, sym.jj, sym.b, nb)
+    a2 = _symm_matmat_int8_plain(p1, sym.q2, sym.ii, sym.jj, sym.b, nb)
+    a2 = a2 + _symm_matmat_int8_plain(p2, sym.q1, sym.ii, sym.jj, sym.b, nb)
+    acc = a1.to(torch.float32) + a2.to(torch.float32) * (1.0 / 254.0)
+    y = acc * sx * sym.gq[None, :] + xf * _diag_or_zeros(sym)[None, :]
+    return y.to(x.dtype)
+
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+@functools.cache
+def _int8_lib():
+    lib = _build.load("symm_int8")
+    lib.symm_int8.argtypes = [_P] * 10 + [_I] * 4 + [_P]
+    lib.symm_int8_split.argtypes = [_P] * 13 + [_I] * 4 + [_P]
+    lib.symm_int8.restype = _I
+    lib.symm_int8_split.restype = _I
+    return lib
+
+
+def _check_scales(x: Tensor, sym) -> Tuple[Tensor, Tensor]:
+    """gq and the diagonal as the kernels take them: float32, contiguous,
+    one entry per column, on x's device."""
+    n = x.shape[1]
+    out = []
+    for name, a in (("gq", sym.gq), ("diagonal", _diag_or_zeros(sym))):
+        if a.dtype != torch.float32 or a.shape != (n,) or a.device != x.device:
+            raise ValueError(f"{name} must be float32 of shape ({n},) on {x.device}, "
+                             f"got {a.dtype} {tuple(a.shape)} on {a.device}")
+        out.append(a.contiguous())
+    return out[0], out[1]
+
+
+def symm_matmat_int8_kernel(x: Tensor, sym: SymmetricBlockedInt8) -> Tensor:
+    """K4: the one-plane int8 action, one read per packed tile (replaces
+    ``symm_matmat_int8_pallas``). A CUDA tensor launches ``symm_int8`` and
+    returns float32; a CPU tensor takes the plain version."""
+    if x.device.type == "cpu":
+        return symm_matmat_int8(x, sym)
+    x = x.contiguous()
+    _check_operands(x, (sym.q,), sym.ii, sym.jj, sym.shape, sym.b, (torch.int8,))
+    gq, dg = _check_scales(x, sym)
+    m, n = x.shape
+    qx, sx = quantize_rows(x * gq[None, :])
+    acc = torch.zeros((m, n), dtype=torch.int32, device=x.device)
+    y = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    lib = _int8_lib()
+    err = lib.symm_int8(qx.data_ptr(), sym.q.data_ptr(), sym.ii.data_ptr(), sym.jj.data_ptr(),
+                        x.data_ptr(), sx.data_ptr(), gq.data_ptr(), dg.data_ptr(),
+                        acc.data_ptr(), y.data_ptr(), m, n, sym.b, sym.n_pairs,
+                        _build.stream_handle(x.device))
+    _build.check(lib, err, "symm_int8")
+    LAUNCHES["symm_int8"] += 1
+    return y
+
+
+def symm_matmat_int8_split_kernel(x: Tensor, sym: SymmetricBlockedInt8Split) -> Tensor:
+    """K5: the two-plane int8 action (replaces
+    ``symm_matmat_int8_split_pallas``). A CUDA tensor launches
+    ``symm_int8_split`` and returns float32; a CPU tensor takes the plain
+    version."""
+    if x.device.type == "cpu":
+        return symm_matmat_int8_split(x, sym)
+    x = x.contiguous()
+    _check_operands(x, (sym.q1, sym.q2), sym.ii, sym.jj, sym.shape, sym.b, (torch.int8,))
+    gq, dg = _check_scales(x, sym)
+    m, n = x.shape
+    p1, p2, sx = quantize_rows_split(x * gq[None, :])
+    acc1 = torch.zeros((m, n), dtype=torch.int32, device=x.device)
+    acc2 = torch.zeros_like(acc1)
+    y = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    lib = _int8_lib()
+    err = lib.symm_int8_split(
+        p1.data_ptr(), p2.data_ptr(), sym.q1.data_ptr(), sym.q2.data_ptr(),
+        sym.ii.data_ptr(), sym.jj.data_ptr(), x.data_ptr(), sx.data_ptr(), gq.data_ptr(),
+        dg.data_ptr(), acc1.data_ptr(), acc2.data_ptr(), y.data_ptr(),
+        m, n, sym.b, sym.n_pairs, _build.stream_handle(x.device))
+    _build.check(lib, err, "symm_int8_split")
+    LAUNCHES["symm_int8_split"] += 1
+    return y
+
+
+def int8_matvec(sym):
+    """``(matvec, operand)`` for a built int8 operator: ``matvec(x,
+    operand)`` calls the kernel wrapper of ``sym``'s tier, which launches
+    K4/K5 for CUDA tensors and runs the plain version for CPU tensors.
+    Every tensor (planes, scales, diagonal, topology) is an operand, in the
+    JAX package's order, never a baked constant."""
+    if isinstance(sym, SymmetricBlockedInt8Split):
+        fields = ("q1", "q2", "gq", "diagonal", "ii", "jj")
+        kernel = symm_matmat_int8_split_kernel
+    else:
+        fields = ("q", "gq", "diagonal", "ii", "jj")
+        kernel = symm_matmat_int8_kernel
+
+    def matvec(x, op):
+        return kernel(x, dataclasses.replace(sym, **dict(zip(fields, op)))).to(x.dtype)
+
+    return matvec, tuple(getattr(sym, f) for f in fields)
+
+
+def make_int8_matvec(matrix, b: int = 512, two_plane: bool = False,
+                     tol: Optional[float] = None, device="cpu"):
+    """One call that makes a quantized tier (symm_int8.py:507-541): packs
+    ``matrix`` and returns ``(matvec, operand, sym)`` (see ``int8_matvec``)."""
+    cls = SymmetricBlockedInt8Split if two_plane else SymmetricBlockedInt8
+    sym = cls.from_dense(matrix, b=b, tol=tol, device=device)
+    matvec, operand = int8_matvec(sym)
+    return matvec, operand, sym

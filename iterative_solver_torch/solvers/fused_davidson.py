@@ -28,8 +28,8 @@ Differences from the JAX package, each kept to the same semantics:
 - An append past the stack's capacity raises instead of clamping
   (``dynamic_update_slice`` clamps; ``_validate_rr`` guards both).
 
-P-space, sharding, checkpointing, the batched solve and the int8 tiers are
-not ported yet and raise ``NotImplementedError`` naming their ROADMAP item.
+P-space, sharding, checkpointing and the batched solve are not ported yet
+and raise ``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -55,7 +55,6 @@ _PSPACE = "P-space is not ported yet (ROADMAP.md Queue 1, item 5)"
 _SHARDING = "sharding is not ported yet (ROADMAP.md Queue 1, item 15)"
 _CHECKPOINT = "checkpointing is not ported yet (ROADMAP.md Queue 1, item 5)"
 _BATCHED = "the batched solve is not ported yet (ROADMAP.md Queue 1, item 5)"
-_INT8 = "the int8 tiers are not ported yet (ROADMAP.md Queue 1, item 7)"
 
 
 class DavidsonState(NamedTuple):
@@ -562,12 +561,19 @@ class FusedDavidson:
                         accuracy;
         - ``"precise"`` split double-bf16 planes (K3) — f32 bytes, ~2^-16;
         - ``"exact"``   tiles in the working dtype (K1 with f32 tiles on
-                        CUDA, the plain f64 action on the CPU).
+                        CUDA, the plain f64 action on the CPU);
+        - ``"int8"``    one quantized plane plus the exact diagonal
+                        (ops/kernels/symm_int8.py, K4) — half the bf16
+                        tier's bytes, the bf16 residual-floor class;
+        - ``"int8_precise"`` two quantized planes (K5) — the "precise"
+                        accuracy class (~2^-16) at half its bytes.
 
         Default: "precise" on CUDA, "exact" on the CPU. On the CPU every tier
-        runs the plain PyTorch action ("fast" still stores bf16 tiles). The
-        matrix is padded to the tile multiple; returned Ritz vectors carry
-        the padded width — slice with ``solver.unpad(x)``.
+        runs the plain PyTorch action ("fast" still stores bf16 tiles, and
+        the int8 tiers quantize and compute their action in float32, as the
+        JAX package does off the TPU). The matrix is padded to the tile
+        multiple; returned Ritz vectors carry the padded width — slice with
+        ``solver.unpad(x)``.
         """
         from ..ops.kernels.symm import (
             SymmetricBlocked,
@@ -575,6 +581,7 @@ class FusedDavidson:
             symm_matmat_kernel,
             symm_matmat_split_kernel,
         )
+        from ..ops.kernels.symm_int8 import make_int8_matvec
 
         device = config.resolve_device(device)
         matrix = np.asarray(matrix, dtype=np.float64)
@@ -586,19 +593,21 @@ class FusedDavidson:
             raise ValueError(
                 f"unknown tier {tier!r}: use 'fast', 'precise', 'exact', "
                 "'int8' or 'int8_precise'")
-        if tier in ("int8", "int8_precise"):
-            raise NotImplementedError(_INT8)
         dtype = kwargs.get("dtype") or config.default_dtype(device)
         if on_cuda and dtype != torch.float32:
             raise ValueError(f"the CUDA packed kernels run in float32, got dtype={dtype}")
         if b is None:
-            # the JAX package's tile rule: b=1024 for the fast tier only
-            # when it adds no zero padding over b=512
+            # the JAX package's tile rule: b=1024 for the fast and int8
+            # tiers only when it adds no zero padding over b=512
             b = 512
-            if tier == "fast" and -(-n // 1024) * 1024 == -(-n // 512) * 512:
+            if (tier in ("fast", "int8", "int8_precise")
+                    and -(-n // 1024) * 1024 == -(-n // 512) * 512):
                 b = 1024
 
-        if tier == "precise":
+        if tier in ("int8", "int8_precise"):
+            matvec, operand, sym = make_int8_matvec(
+                matrix, b=b, two_plane=(tier == "int8_precise"), device=device)
+        elif tier == "precise":
             sym = SymmetricBlockedSplit.from_dense(matrix, b=b, device=device)
             operand = (sym.hi, sym.lo, sym.ii, sym.jj)
 

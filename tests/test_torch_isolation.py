@@ -26,7 +26,8 @@ def _imported_roots(path):
 
 def test_port_files_found():
     names = {p.name for p in PORT_FILES}
-    assert {"fused_davidson.py", "symm.py", "chain.py", "chip_smoke.py"} <= names
+    assert {"fused_davidson.py", "symm.py", "chain.py", "chip_smoke.py", "symm_int8.py",
+            "fused_ppcg.py", "synthetic_fci.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -55,9 +56,12 @@ import iterative_solver_torch.array.vector_ops
 import iterative_solver_torch.ops.kernels._build
 import iterative_solver_torch.ops.kernels.chain
 import iterative_solver_torch.ops.kernels.symm
+import iterative_solver_torch.ops.kernels.symm_int8
+import iterative_solver_torch.models.synthetic_fci
 import iterative_solver_torch.solvers._finite
 import iterative_solver_torch.solvers._symmetry
 import iterative_solver_torch.solvers.fused_davidson
+import iterative_solver_torch.solvers.fused_ppcg
 import chip_smoke
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in FORBIDDEN)
 assert not loaded, loaded

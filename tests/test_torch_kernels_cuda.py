@@ -6,16 +6,18 @@ JAX, so it also runs on a machine without it:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_kernels_cuda.py
 
-Tolerance: 1e-5 of the plain result's max magnitude (both contributions and
-the chain's reductions add partial sums with f32 atomics, so the order of
-the sum differs from the plain version's).
+Tolerance: 1e-5 of the plain result's max magnitude for K1, K2 and K3 (both
+contributions and the chain's reductions add partial sums with f32 atomics,
+so the order of the sum differs from the plain version's). K4 and K5 add
+integer partial sums, exact in any order, and round their epilogue in the
+plain version's order: they must equal it bit for bit (tolerance 0).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from iterative_solver_torch.ops.kernels import chain, symm
+from iterative_solver_torch.ops.kernels import chain, symm, symm_int8
 
 pytestmark = pytest.mark.cuda
 TOL = 1e-5
@@ -32,6 +34,20 @@ def _sym_matrix(n, seed):
     rng = np.random.default_rng(seed)
     a = rng.standard_normal((n, n))
     return a + a.T + np.diag(np.linspace(-2.0, 10.0, n))
+
+
+def _bench_spectrum(n, seed):
+    rng = np.random.default_rng(seed)
+    d = np.concatenate([np.linspace(-2.0, 3.0, 16), np.linspace(6.0, 50.0, n - 16)])
+    a = rng.standard_normal((n, n)) * (0.05 / np.sqrt(n))
+    return a + a.T + np.diag(d), d
+
+
+def _one_hot(d, nroots):
+    v0 = np.zeros((nroots, d.shape[0]))
+    for row, i in enumerate(np.argsort(d)[:nroots]):
+        v0[row, i] = 1.0
+    return v0
 
 
 def _rel(got, ref):
@@ -105,19 +121,13 @@ def test_chain_kernel_matches_plain(cuda, jacobi, r, m_max, n, passes):
 def test_small_solve_on_card(cuda, tier):
     from iterative_solver_torch import FusedDavidson
 
-    n, nroots = 512, 4
-    rng = np.random.default_rng(7)
-    d = np.concatenate([np.linspace(-2.0, 3.0, 16), np.linspace(6.0, 50.0, n - 16)])
-    a = rng.standard_normal((n, n)) * (0.05 / np.sqrt(n))
-    mat = a + a.T + np.diag(d)
+    nroots = 4
+    mat, d = _bench_spectrum(512, 7)
     tol = 2e-4 if tier == "fast" else 1e-5
     solver = FusedDavidson.from_dense_symmetric(mat, nroots, tier=tier, b=128, m_max=16,
                                                 rr="window", convergence_threshold=tol)
     assert solver.device.type == "cuda" and solver.fuse_chain
-    v0 = np.zeros((nroots, n))
-    for row, i in enumerate(np.argsort(d)[:nroots]):
-        v0[row, i] = 1.0
-    evals, x, errors, iters = solver.run_on_device(v0)
+    evals, x, errors, iters = solver.run_on_device(_one_hot(d, nroots))
     assert x.device.type == "cuda"
     assert np.max(errors) <= tol
     # f64 Rayleigh quotients of the Ritz vectors against the f64 matrix (the
@@ -127,3 +137,131 @@ def test_small_solve_on_card(cuda, tier):
     rq = np.sort(np.sum(xs * (xs @ mat), axis=1))
     ref = np.linalg.eigvalsh(mat)[:nroots]
     np.testing.assert_allclose(rq, ref, atol=1e-5 if tier == "fast" else 1e-8)
+
+
+# K4/K5 shapes (n, b): b=32 and b=96 are one ragged sub-tile below 128;
+# b=200 is ragged and not a multiple of 16 (byte loads); b=512 and b=1024
+# are whole 128-wide sub-tiles
+INT8_SHAPES = [(96, 32), (288, 96), (400, 200), (1024, 512), (2048, 1024)]
+INT8_TIERS = {
+    "int8": (symm_int8.SymmetricBlockedInt8, symm_int8.symm_matmat_int8_kernel,
+             symm_int8.symm_matmat_int8, "symm_int8"),
+    "int8_split": (symm_int8.SymmetricBlockedInt8Split,
+                   symm_int8.symm_matmat_int8_split_kernel,
+                   symm_int8.symm_matmat_int8_split, "symm_int8_split"),
+}
+
+
+@pytest.mark.parametrize("m", [1, 4, 16, 64])
+@pytest.mark.parametrize("n,b", INT8_SHAPES)
+@pytest.mark.parametrize("tier", sorted(INT8_TIERS))
+def test_int8_kernel_equals_plain(cuda, tier, n, b, m):
+    cls, kernel, plain, key = INT8_TIERS[tier]
+    sym = cls.from_dense(_sym_matrix(n, 8), b=b, device=cuda)
+    xh = np.random.default_rng(9).standard_normal((m, sym.shape[0]))
+    xh[m // 2] = 0.0  # a zero row quantizes to zeros with sx = 1/127
+    x = torch.as_tensor(xh, dtype=torch.float32, device=cuda)
+    before = symm_int8.LAUNCHES[key]
+    y = kernel(x, sym)
+    torch.cuda.synchronize()
+    assert symm_int8.LAUNCHES[key] == before + 1
+    assert torch.equal(y, plain(x, sym))
+
+
+def _saturated(cls, copies, b, device):
+    """``copies`` duplicates of one diagonal tile, every entry +127: with x
+    quantized to +-127 each accumulator entry reaches copies*b*127^2 (one
+    plane) or about twice that (the split tier's lo), just inside int32."""
+    tile = torch.full((copies, b, b), 127, dtype=torch.int8, device=device)
+    zeros = torch.zeros(copies, dtype=torch.int32, device=device)
+    planes = {"q": tile} if cls is symm_int8.SymmetricBlockedInt8 else {"q1": tile,
+                                                                        "q2": tile.clone()}
+    return cls(gq=torch.ones(b, dtype=torch.float32, device=device), ii=zeros,
+               jj=zeros.clone(), shape=(b, b), b=b,
+               diagonal=torch.zeros(b, dtype=torch.float32, device=device), **planes)
+
+
+@pytest.mark.parametrize("tier,copies", [("int8", 130), ("int8_split", 64)])
+def test_int8_kernel_saturated_near_headroom(cuda, tier, copies):
+    cls, kernel, plain, _ = INT8_TIERS[tier]
+    b = 1024
+    sym = _saturated(cls, copies, b, cuda)
+    # rows of one sign: one entry at 127 sets sx, the rest at 126.49 puts
+    # the split tier's p1 at 126 and p2 at 124
+    xh = np.full((4, b), 126.49)
+    xh[:, 0] = 127.0
+    xh[1] *= -1.0
+    xh[3] = 0.0
+    x = torch.as_tensor(xh, dtype=torch.float32, device=cuda)
+    if tier == "int8":
+        qx, _ = symm_int8.quantize_rows(x)
+        acc = symm_int8._symm_matmat_int8_plain(qx, sym.q, sym.ii, sym.jj, b, 1)
+    else:
+        p1, p2, _ = symm_int8.quantize_rows_split(x)
+        acc = (symm_int8._symm_matmat_int8_plain(p1, sym.q2, sym.ii, sym.jj, b, 1)
+               + symm_int8._symm_matmat_int8_plain(p2, sym.q1, sym.ii, sym.jj, b, 1))
+    assert int(acc.abs().max()) > 0.96 * 2 ** 31
+    y = kernel(x, sym)
+    torch.cuda.synchronize()
+    assert torch.equal(y, plain(x, sym))
+
+
+@pytest.mark.parametrize("tier", sorted(INT8_TIERS))
+def test_int8_kernel_never_takes_the_plain_path(cuda, tier, monkeypatch):
+    cls, kernel, plain, key = INT8_TIERS[tier]
+    sym = cls.from_dense(_sym_matrix(256, 10), b=128, device=cuda)
+    x = torch.as_tensor(np.random.default_rng(11).standard_normal((4, 256)),
+                        dtype=torch.float32, device=cuda)
+    y_ref = plain(x, sym)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA launch reached the plain version")
+
+    for name in ("symm_matmat_int8", "symm_matmat_int8_split", "_symm_matmat_int8_plain"):
+        monkeypatch.setattr(symm_int8, name, refuse)
+    before = symm_int8.LAUNCHES[key]
+    y = kernel(x, sym)
+    torch.cuda.synchronize()
+    assert symm_int8.LAUNCHES[key] == before + 1
+    assert torch.equal(y, y_ref)
+    with pytest.raises(TypeError):
+        kernel(x.double(), sym)
+
+
+@pytest.mark.parametrize("tier", ["int8", "int8_precise"])
+def test_small_int8_solve_on_card(cuda, tier):
+    from iterative_solver_torch import FusedDavidson
+
+    mat, d = _bench_spectrum(512, 12)
+    tol = 5e-3 if tier == "int8" else 1e-5
+    key = "symm_int8" if tier == "int8" else "symm_int8_split"
+    solver = FusedDavidson.from_dense_symmetric(mat, 4, tier=tier, b=128, m_max=16,
+                                                rr="window", convergence_threshold=tol)
+    before = symm_int8.LAUNCHES[key]
+    evals, x, errors, iters = solver.run_on_device(_one_hot(d, 4))
+    assert symm_int8.LAUNCHES[key] > before
+    assert np.max(errors) <= tol
+    xs = x.double().cpu().numpy()
+    xs /= np.linalg.norm(xs, axis=1, keepdims=True)
+    rq = np.sort(np.sum(xs * (xs @ mat), axis=1))
+    np.testing.assert_allclose(rq, np.linalg.eigvalsh(mat)[:4],
+                               atol=1e-5 if tier == "int8" else 1e-8)
+
+
+def test_small_ppcg_on_card(cuda):
+    from iterative_solver_torch import FusedPPCG
+    from iterative_solver_torch.models.synthetic_fci import (
+        implied_dense_int8,
+        synthetic_packed_int8,
+    )
+
+    sym, d = synthetic_packed_int8(1024, b=256, seed=3, device=cuda)
+    matvec, op = symm_int8.int8_matvec(sym)
+    solver = FusedPPCG(matvec, d, 1024, 8, rr_every=4, convergence_threshold=5e-3,
+                       max_iter=200, operand=op)
+    before = symm_int8.LAUNCHES["symm_int8"]
+    evals, x, errors, iters = solver.run_on_device(_one_hot(d, 8))
+    assert symm_int8.LAUNCHES["symm_int8"] - before == 1 + 2 + iters + iters // 4
+    assert np.max(errors) <= 5e-3
+    ref = np.linalg.eigvalsh(implied_dense_int8(sym, d))[:8]
+    np.testing.assert_allclose(np.sort(evals), ref, atol=1e-3)

@@ -1,0 +1,225 @@
+"""The port's int8 operator tiers (iterative_solver_torch/ops/kernels/symm_int8.py)
+against the JAX package's, on the CPU with the same matrices and inputs.
+
+Tolerances:
+
+- storage, quantization and the int32 accumulators: exact equality (the
+  planes, scales, diagonal and topology are byte-identical, so one host
+  packing feeds both packages);
+- the actions: rtol 1e-6 against the JAX package's XLA paths and its Pallas
+  kernels in interpret mode (the only float work is the f32 epilogue,
+  whose rounding order a compiler may change).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from iterative_solver_torch import convert
+from iterative_solver_torch.ops.kernels import symm_int8 as T
+from iterative_solver_tpu.ops.kernels import symm_int8 as J
+
+TIERS = {"int8": ("SymmetricBlockedInt8", ("q",)),
+         "int8_split": ("SymmetricBlockedInt8Split", ("q1", "q2"))}
+FIELDS = ("gq", "ii", "jj", "diagonal")
+
+
+def _symmetric(n, seed, scale=1.0):
+    rng = np.random.default_rng(seed)
+    a = rng.standard_normal((n, n)) * scale
+    return a + a.T
+
+
+def _block_sparse(n, b, seed):
+    """A symmetric matrix with whole zero off-diagonal blocks, which
+    ``tol=0.0`` drops from the packed tiles."""
+    a = _symmetric(n, seed)
+    nb = n // b
+    rng = np.random.default_rng(seed + 1)
+    for i in range(nb):
+        for j in range(i):
+            if rng.random() < 0.5:
+                a[i * b:(i + 1) * b, j * b:(j + 1) * b] = 0.0
+                a[j * b:(j + 1) * b, i * b:(i + 1) * b] = 0.0
+    return a
+
+
+# (n, b, tol): whole tiles, padding (80 -> 96, 100 -> 128), b = n, tile dropping
+PACKINGS = [(96, 32, None), (80, 32, None), (100, 64, None), (64, 64, None),
+            (128, 32, 0.0)]
+
+
+def _pair(tier, n, b, tol, seed=0):
+    cls, _ = TIERS[tier]
+    mat = _block_sparse(n, b, seed) if tol is not None else _symmetric(n, seed)
+    return (getattr(J, cls).from_dense(mat, b=b, tol=tol),
+            getattr(T, cls).from_dense(mat, b=b, tol=tol, device="cpu"))
+
+
+@pytest.mark.parametrize("n,b,tol", PACKINGS)
+@pytest.mark.parametrize("tier", sorted(TIERS))
+def test_storage_is_byte_identical(tier, n, b, tol):
+    js, ts = _pair(tier, n, b, tol)
+    assert ts.shape == js.shape and ts.b == js.b and ts.n_pairs == js.n_pairs
+    if tol is not None:
+        assert ts.n_pairs < (n // b) * (n // b + 1) // 2
+    for name in TIERS[tier][1] + FIELDS:
+        ref = np.asarray(getattr(js, name))
+        got = getattr(ts, name).numpy()
+        assert got.dtype == ref.dtype, name
+        np.testing.assert_array_equal(got, ref, err_msg=name)
+
+
+@pytest.mark.parametrize("n_pad,b,dots", [(8192, 1024, 1), (131072, 1024, 1),
+                                          (133120, 1024, 1), (65536, 512, 2),
+                                          (66560, 512, 2), (4096, 32, 2)])
+def test_headroom_refusals_match_jax(n_pad, b, dots):
+    def outcome(fn):
+        try:
+            fn(n_pad, b, dots, "tier")
+        except ValueError as e:
+            return str(e)
+        return None
+
+    ref = outcome(J._check_acc_headroom)
+    assert outcome(T._check_acc_headroom) == ref
+    worst = dots * n_pad * 127 * 127
+    assert (ref is not None) == (worst >= 2 ** 31)
+
+
+@pytest.mark.parametrize("tier", sorted(TIERS))
+def test_from_dense_refuses_asymmetric(tier):
+    cls = getattr(T, TIERS[tier][0])
+    with pytest.raises(ValueError, match="symmetric"):
+        cls.from_dense(np.arange(16.0).reshape(4, 4), b=4)
+
+
+def _rows(m, n, seed, zero_row=True):
+    x = np.random.default_rng(seed).standard_normal((m, n)).astype(np.float32) * 3.0
+    if zero_row:
+        x[1] = 0.0
+    return x
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_quantize_rows_bit_equal(seed):
+    xs = _rows(5, 200, seed)
+    qj, sj = J.quantize_rows(jnp.asarray(xs))
+    qt, st = T.quantize_rows(torch.from_numpy(xs))
+    assert qt.dtype == torch.int8 and st.dtype == torch.float32
+    np.testing.assert_array_equal(qt.numpy(), np.asarray(qj))
+    np.testing.assert_array_equal(st.numpy(), np.asarray(sj))
+    assert np.all(qt.numpy()[1] == 0)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_quantize_rows_split_bit_equal(seed):
+    xs = _rows(5, 200, seed)
+    got = T.quantize_rows_split(torch.from_numpy(xs))
+    ref = J.quantize_rows_split(jnp.asarray(xs))
+    for g, r in zip(got, ref):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(r))
+
+
+def test_quantize_rows_half_to_even():
+    # 0.5 and 2.5 quantization steps: torch.round and jnp.round both round
+    # half to even
+    xs = np.array([[127.0, 0.5, 2.5, -1.5, 3.5]], dtype=np.float32)
+    qj, _ = J.quantize_rows(jnp.asarray(xs))
+    qt, _ = T.quantize_rows(torch.from_numpy(xs))
+    np.testing.assert_array_equal(qt.numpy(), np.asarray(qj))
+    np.testing.assert_array_equal(qt.numpy(), [[127, 0, 2, -2, 4]])
+
+
+@pytest.mark.parametrize("n,b,tol", PACKINGS)
+@pytest.mark.parametrize("m", [1, 4])
+def test_int32_accumulator_equals_jax(n, b, tol, m):
+    js, ts = _pair("int8", n, b, tol, seed=3)
+    n_pad = ts.shape[0]
+    qx = np.random.default_rng(4).integers(-127, 128, (m, n_pad)).astype(np.int8)
+    nb = n_pad // ts.b
+    ref = np.asarray(J._symm_matmat_int8_xla(jnp.asarray(qx), js.q, (js.ii, js.jj), js.b, nb))
+    got = T._symm_matmat_int8_plain(torch.from_numpy(qx), ts.q, ts.ii, ts.jj, ts.b, nb)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), ref)
+
+
+ACTIONS = {"int8": (J.symm_matmat_int8, T.symm_matmat_int8, J.symm_matmat_int8_pallas),
+           "int8_split": (J.symm_matmat_int8_split, T.symm_matmat_int8_split,
+                          J.symm_matmat_int8_split_pallas)}
+
+
+@pytest.mark.parametrize("n,b,tol", PACKINGS)
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("tier", sorted(ACTIONS))
+def test_action_matches_jax(tier, n, b, tol, dtype):
+    js, ts = _pair(tier, n, b, tol, seed=5)
+    x = _rows(4, ts.shape[0], 6).astype(dtype)
+    jfn, tfn, _ = ACTIONS[tier]
+    ref = np.asarray(jfn(jnp.asarray(x), js))
+    got = tfn(torch.from_numpy(x), ts)
+    assert got.dtype == torch.from_numpy(x).dtype  # f32 inside, cast back
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-6, atol=1e-6 * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("n,b", [(96, 32), (128, 64)])
+@pytest.mark.parametrize("tier", sorted(ACTIONS))
+def test_action_matches_jax_pallas_interpret(tier, n, b):
+    """As tests/test_symm_int8.py runs the Pallas kernels on the CPU."""
+    js, ts = _pair(tier, n, b, None, seed=7)
+    x = _rows(4, n, 8)
+    _, tfn, pfn = ACTIONS[tier]
+    ref = np.asarray(pfn(jnp.asarray(x), js, interpret=True))
+    got = tfn(torch.from_numpy(x), ts).numpy()
+    np.testing.assert_allclose(got, ref, rtol=1e-6, atol=1e-6 * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("tier", sorted(TIERS))
+def test_wrappers_take_the_plain_version_on_cpu(tier):
+    _, ts = _pair(tier, 96, 32, None, seed=9)
+    x = torch.from_numpy(_rows(3, 96, 10))
+    kernel, plain = {"int8": (T.symm_matmat_int8_kernel, T.symm_matmat_int8),
+                     "int8_split": (T.symm_matmat_int8_split_kernel,
+                                    T.symm_matmat_int8_split)}[tier]
+    before = dict(T.LAUNCHES)
+    assert torch.equal(kernel(x, ts), plain(x, ts))
+    assert T.LAUNCHES == before  # no launch is counted for the plain version
+
+
+def test_missing_diagonal_reads_as_zeros():
+    js, ts = _pair("int8", 64, 32, None, seed=11)
+    js = js.__class__(**{**js.__dict__, "diagonal": None})
+    ts = ts.__class__(**{**ts.__dict__, "diagonal": None})
+    x = _rows(2, 64, 12)
+    ref = np.asarray(J.symm_matmat_int8(jnp.asarray(x), js))
+    got = T.symm_matmat_int8(torch.from_numpy(x), ts).numpy()
+    np.testing.assert_allclose(got, ref, rtol=1e-6, atol=1e-6 * np.abs(ref).max())
+    np.testing.assert_array_equal(T._diag_or_zeros(ts).numpy(), np.zeros(64, np.float32))
+
+
+@pytest.mark.parametrize("two_plane", [False, True])
+def test_make_int8_matvec_matches_jax(two_plane):
+    mat = _symmetric(160, 13, scale=0.1) + np.diag(np.linspace(0.0, 10.0, 160))
+    jmv, jop, _ = J.make_int8_matvec(mat, b=64, two_plane=two_plane, use_pallas=False)
+    tmv, top, tsym = T.make_int8_matvec(mat, b=64, two_plane=two_plane)
+    assert len(top) == len(jop)
+    for got, ref in zip(top, jop):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+    x = np.random.default_rng(14).standard_normal((3, tsym.shape[0]))
+    ref = np.asarray(jmv(jnp.asarray(x), jop))
+    got = tmv(torch.from_numpy(x), top)
+    assert got.dtype == torch.float64
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-6, atol=1e-6 * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("tier", sorted(TIERS))
+def test_convert_carries_jax_storage(tier):
+    js, ts = _pair(tier, 100, 64, None, seed=15)
+    planes = [np.asarray(getattr(js, p)) for p in TIERS[tier][1]]
+    fn = convert.symmetric_blocked_int8 if tier == "int8" else convert.symmetric_blocked_int8_split
+    got = fn(*planes, np.asarray(js.gq), np.asarray(js.ii), np.asarray(js.jj), js.shape,
+             js.b, diagonal=np.asarray(js.diagonal))
+    assert got.shape == ts.shape and got.b == ts.b
+    for name in TIERS[tier][1] + FIELDS:
+        assert torch.equal(getattr(got, name), getattr(ts, name)), name
