@@ -7,18 +7,51 @@ CUDA C++ for Hopper (``ops/kernels/csrc``), built with ``nvcc`` at first use.
 
 Quick start (on a CUDA card)::
 
+    import numpy as np, iterative_solver_torch as its
+    problem = its.models.MatrixProblem(matrix)
+    solver = its.create_linear_eigensystem(n, nroots=4, options="max_size_qspace=10")
+    converged, x, r = solver.solve(np.zeros((4, n)), problem=problem,
+                                   generate_initial_guess=True)
+    solver.eigenvalues()
+
     from iterative_solver_torch import FusedDavidson
     solver = FusedDavidson.from_dense_symmetric(matrix, nroots=4)
     evals, x, errors, iters = solver.run_on_device(guess)
 
-Pass ``device="cpu"`` to run the plain PyTorch versions on the host.
-Importing this package needs no card.
+Pass ``device="cpu"`` (to the problem, the factory and the fused solvers)
+to run the plain PyTorch versions on the host. Importing this package needs
+no card.
 """
 
-from . import config as config  # noqa: F401  (pins matmul precision)
+from . import config as config  # noqa: F401  (pins matmul precision; option store)
+from . import models, options, utils
+from .factory import (
+    create_linear_eigensystem,
+    create_linear_equations,
+    create_nonlinear_equations,
+    create_optimize,
+)
+from .problem import Problem
+from .solvers.core import IterativeSolverTemplate, Verbosity
 from .solvers.fused_davidson import FusedDavidson
 from .solvers.fused_ppcg import FusedPPCG
+from .solvers.linear_eigensystem import LinearEigensystemDavidson, LinearEigensystemRSPT
 
 __version__ = "0.1.0"
 
-__all__ = ["FusedDavidson", "FusedPPCG"]
+__all__ = [
+    "Problem",
+    "Verbosity",
+    "IterativeSolverTemplate",
+    "LinearEigensystemDavidson",
+    "LinearEigensystemRSPT",
+    "FusedDavidson",
+    "FusedPPCG",
+    "create_linear_eigensystem",
+    "create_linear_equations",
+    "create_nonlinear_equations",
+    "create_optimize",
+    "models",
+    "options",
+    "utils",
+]

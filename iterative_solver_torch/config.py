@@ -10,15 +10,66 @@ Counterparts in the JAX package:
 
 The entry points run on the card unless the caller asks for the CPU.
 Without CUDA they raise: nothing falls back to the host silently.
+
+The ambient option store (iterative_solver_tpu/config.py:24-57, the
+reference's molpro::Options("ITERATIVE-SOLVER")) is kept with the same
+names and precedence: ``set_option``, then environment variables prefixed
+``ITERATIVE_SOLVER_``, then the defaults. Knobs:
+
+- ``BSR_BLOCK``       default block size of ``BSRMatrix.from_dense`` (128);
+- ``GEMM_BUFFERS``    prefetch depth of the native vecstore pipeline (2);
+- ``PROFILER_DEPTH``  max region nesting recorded by utils.Profiler (0 = off);
+- ``PROFILER_OUTPUT``, ``PROFILER_DOTGRAPH``, ``PROFILER_THRESHOLD``: where
+  a parity solver writes its profile tree at teardown.
+
+The JAX package's ``COMPILE_CACHE`` (XLA's persistent cache) has no
+counterpart: PyTorch runs eagerly and the kernels cache their own builds.
 """
 
 from __future__ import annotations
+
+import os
+from typing import Any, Dict
 
 import torch
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 torch.set_float32_matmul_precision("highest")
+
+_DEFAULTS: Dict[str, Any] = {
+    "BSR_BLOCK": 128,
+    "GEMM_BUFFERS": 2,
+    "PROFILER_DEPTH": 0,
+    "PROFILER_OUTPUT": "",
+    "PROFILER_DOTGRAPH": "",
+    "PROFILER_THRESHOLD": 0.01,
+}
+
+_overrides: Dict[str, Any] = {}
+
+
+def get_option(key: str, default: Any = None):
+    key = key.upper()
+    if key in _overrides:
+        return _overrides[key]
+    env = os.environ.get(f"ITERATIVE_SOLVER_{key}")
+    if env is not None:
+        base = _DEFAULTS.get(key, default)
+        if isinstance(base, int):
+            return int(env)
+        if isinstance(base, float):
+            return float(env)
+        return env
+    return _DEFAULTS.get(key, default)
+
+
+def set_option(key: str, value: Any) -> None:
+    _overrides[key.upper()] = value
+
+
+def clear_options() -> None:
+    _overrides.clear()
 
 
 def default_device() -> torch.device:

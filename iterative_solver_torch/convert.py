@@ -3,7 +3,7 @@
 The port never imports the JAX package; callers hand its objects over as
 numpy arrays (``np.asarray`` of each field), and these functions return the
 port's objects. Packed storage is byte-identical in both packages, so a
-packed operator built once on the host feeds both.
+packed or block-sparse operator built once on the host feeds both.
 
 bf16 arrays come out of JAX as ``ml_dtypes.bfloat16``, which
 ``torch.from_numpy`` refuses; they are carried bit for bit through a
@@ -17,6 +17,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from .ops.kernels.spmv import BSRMatrix, BSRMatrixInt8
 from .ops.kernels.symm import SymmetricBlocked, SymmetricBlockedSplit
 from .ops.kernels.symm_int8 import SymmetricBlockedInt8, SymmetricBlockedInt8Split
 from .solvers.fused_davidson import DavidsonState
@@ -87,6 +88,39 @@ def symmetric_blocked_int8_split(q1, q2, gq, ii, jj, shape: Tuple[int, int], b: 
         shape=tuple(int(s) for s in shape),
         b=int(b),
         diagonal=None if diagonal is None else tensor_from_numpy(diagonal, device),
+    )
+
+
+def bsr(values, col_idx, row_idx, row_ptr, shape: Tuple[int, int], bm: int, bn: int,
+        diagonal=None, device="cpu") -> BSRMatrix:
+    """The port's BSRMatrix from the JAX one's fields."""
+    return BSRMatrix(
+        values=tensor_from_numpy(values, device),
+        col_idx=tensor_from_numpy(col_idx, device, torch.int32),
+        row_idx=tensor_from_numpy(row_idx, device, torch.int32),
+        row_ptr=tensor_from_numpy(row_ptr, device, torch.int32),
+        shape=tuple(int(s) for s in shape),
+        bm=int(bm),
+        bn=int(bn),
+        diagonal=None if diagonal is None else tensor_from_numpy(diagonal, device),
+    )
+
+
+def bsr_int8(q, rq, cq, col_idx, row_idx, row_ptr, shape: Tuple[int, int], bm: int,
+             bn: int, diagonal=None, device="cpu") -> BSRMatrixInt8:
+    """The port's BSRMatrixInt8 from the JAX one's fields."""
+    return BSRMatrixInt8(
+        q=tensor_from_numpy(q, device, torch.int8),
+        rq=tensor_from_numpy(rq, device, torch.float32),
+        cq=tensor_from_numpy(cq, device, torch.float32),
+        col_idx=tensor_from_numpy(col_idx, device, torch.int32),
+        row_idx=tensor_from_numpy(row_idx, device, torch.int32),
+        row_ptr=tensor_from_numpy(row_ptr, device, torch.int32),
+        shape=tuple(int(s) for s in shape),
+        bm=int(bm),
+        bn=int(bn),
+        diagonal=(None if diagonal is None
+                  else tensor_from_numpy(diagonal, device, torch.float32)),
     )
 
 

@@ -7,9 +7,6 @@ of a determinant-space Hamiltonian. The host side is numpy with
 ``np.random.default_rng(seed)``, as in the JAX package, so the same seed
 gives byte-identical operators in both packages; tensors are made at the
 end, on the requested device.
-
-``synthetic_fci_bsr`` waits for the block-sparse operator (ROADMAP.md
-Queue 1, item 13).
 """
 
 from __future__ import annotations
@@ -17,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..ops.kernels.spmv import BSRMatrix
 from ..ops.kernels.symm import _symm_matmat_plain
 from ..ops.kernels.symm_int8 import SymmetricBlockedInt8, _check_acc_headroom
 
@@ -34,6 +32,38 @@ def synthetic_fci_dense(n: int, n_low: int = 32, coupling: float = 0.05,
     sep = np.abs(diag[:, None] - diag[None, :])
     a = a * np.exp(-0.05 * sep)
     return a + a.T + np.diag(diag)
+
+
+def synthetic_fci_bsr(n: int, block: int = 128, density: float = 0.15,
+                      n_low: int = 32, seed: int = 0, dtype=None, device=None):
+    """A block-sparse synthetic FCI operator and its dense f64 equivalent
+    (synthetic_fci.py:36-72): diagonal blocks always present, off-diagonal
+    blocks kept with probability ``density * exp(-0.3 * distance)``, drawn
+    in the JAX package's order so the same seed gives the same matrix.
+    Returns ``(BSRMatrix on device, dense)``; ``device=None`` is CUDA."""
+    rng = np.random.default_rng(seed)
+    if n % block:
+        raise ValueError(f"n={n} must be a multiple of block={block}")
+    nb = n // block
+    n_low = min(n_low, n // 2)
+    diag = np.concatenate(
+        [np.linspace(-2.0, 3.0, n_low), np.linspace(6.0, 50.0, n - n_low)]
+    )
+    dense = np.diag(diag)
+    for rb in range(nb):
+        for cb in range(rb + 1):
+            if rb == cb or rng.random() < density * np.exp(-0.3 * (rb - cb)):
+                blk = rng.standard_normal((block, block)) * (0.05 / np.sqrt(block))
+                rows = slice(rb * block, (rb + 1) * block)
+                cols = slice(cb * block, (cb + 1) * block)
+                if rb == cb:
+                    dense[rows, cols] += 0.5 * (blk + blk.T)
+                else:
+                    dense[rows, cols] += blk
+                    dense[cols, rows] += blk.T
+    bsr = BSRMatrix.from_dense(dense, bm=block, bn=block, tol=0.0, dtype=dtype,
+                               device=device)
+    return bsr, dense
 
 
 def synthetic_packed_int8(n: int, b: int = 1024, seed: int = 0, diag=None,

@@ -31,7 +31,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
-SOURCES = ("symm_packed", "chain", "symm_int8")
+SOURCES = ("symm_packed", "chain", "symm_int8", "spmv", "gram")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

@@ -133,6 +133,16 @@ def _cholesky_nan(g: Tensor) -> Tensor:
     return torch.where(info == 0, l, torch.full_like(l, float("nan")))
 
 
+def lower_solve(l: Tensor, x: Tensor) -> Tensor:
+    """L⁻¹ x for a small (r, r) lower factor and a wide (r, N) block. On
+    CUDA, PyTorch's triangular solve with N right-hand sides slows to
+    seconds at N near a million, so L⁻¹ is formed against the small
+    identity and applied as one matmul (the form ``whiten_after_chain``
+    uses)."""
+    eye = torch.eye(l.shape[0], dtype=l.dtype, device=l.device)
+    return torch.matmul(torch.linalg.solve_triangular(l, eye, upper=False), x)
+
+
 def whiten_after_chain(t: Tensor, n0_2: Tensor, n2: Tensor, nroots: int,
                        null_thresh: float, g: Optional[Tensor] = None):
     """Null-drop + Cholesky whitening shared by the fused solver families

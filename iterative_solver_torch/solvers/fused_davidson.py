@@ -45,6 +45,7 @@ from ..ops.kernels.chain import (
     _cholesky_nan,
     chain_auto,
     fused_expand_chain,
+    lower_solve,
     whiten_after_chain,
 )
 from ._finite import check_finite
@@ -319,7 +320,7 @@ def _restart_body(matvec: Callable[..., Tensor], nroots: int, m_max: int,
         x = state.x
         g = torch.matmul(x, x.T)
         l = _cholesky_nan(g + 1e-30 * _eye(nroots, g))
-        xo = torch.linalg.solve_triangular(l, x, upper=False)
+        xo = lower_solve(l, x)
         v = torch.zeros_like(state.v)
         v[:nroots] = xo
         w = torch.zeros_like(state.w)
@@ -353,7 +354,7 @@ def _init_body(matvec: Callable[..., Tensor], nroots: int, m_max: int,
         _, n = v0.shape
         g = torch.matmul(v0, v0.T)
         l = _cholesky_nan(g + 1e-30 * _eye(nroots, g))
-        v0o = torch.linalg.solve_triangular(l, v0, upper=False)
+        v0o = lower_solve(l, v0)
         w0 = matvec(v0o, operand)
         v = torch.zeros((m_max, n), dtype=v0.dtype, device=v0.device)
         v[:nroots] = v0o
@@ -526,7 +527,7 @@ class FusedDavidson:
         self.sharding = None
         self.tol = convergence_threshold
         self.max_iter = max_iter
-        self.diag = torch.as_tensor(np.asarray(diagonals), dtype=dtype, device=self.device)
+        self.diag = torch.as_tensor(np.array(diagonals), dtype=dtype, device=self.device)
         self.operand = operand
         self.expand = expand
         # matvec count per appended direction

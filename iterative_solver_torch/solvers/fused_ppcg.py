@@ -38,7 +38,7 @@ import torch
 from .. import config
 from ..array.vector_ops import chol_jitter
 from ..array.vector_ops import dots_rows as _rows_dot
-from ..ops.kernels.chain import _cholesky_nan
+from ..ops.kernels.chain import _cholesky_nan, lower_solve
 from ._finite import check_finite
 
 Tensor = torch.Tensor
@@ -267,7 +267,7 @@ def make_ppcg_init(matvec: Callable[..., Tensor], nroots: int):
         scale = torch.clamp(torch.max(torch.abs(torch.diagonal(g))),
                             min=_floor(1e-300, g.dtype))
         l = _cholesky_nan(g + (chol_jitter(g.dtype) * scale) * _eye(nroots, g))
-        x = torch.linalg.solve_triangular(l, v0, upper=False)
+        x = lower_solve(l, v0)
         ax = matvec(x, operand)
         rho = _rows_dot(x, ax)
         res = ax - rho[:, None] * x

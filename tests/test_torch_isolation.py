@@ -1,6 +1,7 @@
-"""The port imports nothing of JAX: no module of iterative_solver_torch/ and
-not chip_smoke.py imports ``jax``, ``jaxlib`` or ``iterative_solver_tpu``
-(which would run iterative_solver_tpu/__init__.py and import JAX)."""
+"""The port imports nothing of JAX: no module of iterative_solver_torch/,
+not chip_smoke.py and not calibrate_sparse_cpu.py imports ``jax``, ``jaxlib``
+or ``iterative_solver_tpu`` (which would run iterative_solver_tpu/__init__.py
+and import JAX)."""
 
 import ast
 import pathlib
@@ -11,7 +12,8 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "iterative_solver_tpu"}
-PORT_FILES = sorted((ROOT / "iterative_solver_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = sorted((ROOT / "iterative_solver_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "calibrate_sparse_cpu.py"]
 
 
 def _imported_roots(path):
@@ -27,7 +29,8 @@ def _imported_roots(path):
 def test_port_files_found():
     names = {p.name for p in PORT_FILES}
     assert {"fused_davidson.py", "symm.py", "chain.py", "chip_smoke.py", "symm_int8.py",
-            "fused_ppcg.py", "synthetic_fci.py"} <= names
+            "fused_ppcg.py", "synthetic_fci.py", "spmv.py", "gram.py", "core.py",
+            "factory.py", "calibrate_sparse_cpu.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -57,12 +60,32 @@ import iterative_solver_torch.ops.kernels._build
 import iterative_solver_torch.ops.kernels.chain
 import iterative_solver_torch.ops.kernels.symm
 import iterative_solver_torch.ops.kernels.symm_int8
+import iterative_solver_torch.ops.kernels.spmv
+import iterative_solver_torch.ops.kernels.gram
+import iterative_solver_torch.ops.dense
+import iterative_solver_torch.config
+import iterative_solver_torch.options
+import iterative_solver_torch.problem
+import iterative_solver_torch.factory
+import iterative_solver_torch.array.basis_store
 import iterative_solver_torch.models.synthetic_fci
+import iterative_solver_torch.models.matrix_problem
+import iterative_solver_torch.native.vecstore
+import iterative_solver_torch.subspace.dimensions
+import iterative_solver_torch.subspace.xspace
+import iterative_solver_torch.subspace.solvers
 import iterative_solver_torch.solvers._finite
 import iterative_solver_torch.solvers._symmetry
+import iterative_solver_torch.solvers.core
 import iterative_solver_torch.solvers.fused_davidson
 import iterative_solver_torch.solvers.fused_ppcg
+import iterative_solver_torch.solvers.linear_eigensystem
+import iterative_solver_torch.solvers.propose_rspace
+import iterative_solver_torch.utils.logger
+import iterative_solver_torch.utils.profiler
+import iterative_solver_torch.utils.statistics
 import chip_smoke
+import calibrate_sparse_cpu
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in FORBIDDEN)
 assert not loaded, loaded
 print("ISOLATED")

@@ -10,14 +10,17 @@ Tolerance: 1e-5 of the plain result's max magnitude for K1, K2 and K3 (both
 contributions and the chain's reductions add partial sums with f32 atomics,
 so the order of the sum differs from the plain version's). K4 and K5 add
 integer partial sums, exact in any order, and round their epilogue in the
-plain version's order: they must equal it bit for bit (tolerance 0).
+plain version's order: they must equal it bit for bit (tolerance 0). K6
+and K7 add in a fixed order of their own (no atomics): tolerance 1e-5 of
+the plain result's max magnitude (for K7, of the largest sum of |terms|,
+since a single dot product may cancel), and the same bits on a second run.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from iterative_solver_torch.ops.kernels import chain, symm, symm_int8
+from iterative_solver_torch.ops.kernels import chain, gram, spmv, symm, symm_int8
 
 pytestmark = pytest.mark.cuda
 TOL = 1e-5
@@ -265,3 +268,165 @@ def test_small_ppcg_on_card(cuda):
     assert np.max(errors) <= 5e-3
     ref = np.linalg.eigvalsh(implied_dense_int8(sym, d))[:8]
     np.testing.assert_allclose(np.sort(evals), ref, atol=1e-3)
+
+
+def _block_sparse(n, bm, bn, seed, empty_rows=()):
+    """A block-sparse (n, n) matrix on a (bm, bn) block grid, about a third
+    of the blocks kept; the block rows in ``empty_rows`` hold no block."""
+    rng = np.random.default_rng(seed)
+    a = rng.standard_normal((n, n))
+    keep = rng.random((-(-n // bm), -(-n // bn))) < 0.35
+    keep[np.arange(min(keep.shape)), np.arange(min(keep.shape))] = True
+    keep[list(empty_rows)] = False
+    mask = np.kron(keep, np.ones((bm, bn)))[:n, :n]
+    return a * mask
+
+
+# (n, bm, bn): square 128 blocks (16-byte loads); bm != bn; a ragged last
+# block row and column (n not a multiple of bm, bn); bn = 100 (a ragged
+# 64-column chunk); bn = 6 and bm = 40 (scalar loads, a ragged 32-column
+# CTA); bm = 256 (eight CTAs per block row)
+BSR_SHAPES = [(512, 128, 128), (384, 32, 16), (300, 64, 32), (400, 40, 100),
+              (96, 40, 6), (512, 256, 128)]
+
+
+@pytest.mark.parametrize("m", [1, 4, 5, 16, 33, 64])
+@pytest.mark.parametrize("n,bm,bn", BSR_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_bsr_kernel_matches_plain(cuda, n, bm, bn, m, dtype):
+    bsr = spmv.BSRMatrix.from_dense(_block_sparse(n, bm, bn, 20, empty_rows=(1,)),
+                                    bm=bm, bn=bn, dtype=dtype, device=cuda)
+    rows = bsr.row_ptr.cpu().numpy()
+    assert rows[2] == rows[1]  # block row 1 is empty
+    x = torch.as_tensor(np.random.default_rng(21).standard_normal((m, bsr.shape[1])),
+                        dtype=torch.float32, device=cuda)
+    before = spmv.LAUNCHES["bsr"]
+    y = spmv.bsr_matmat_kernel(x, bsr)
+    torch.cuda.synchronize()
+    assert spmv.LAUNCHES["bsr"] == before + 1
+    assert y.shape == (m, bsr.shape[0]) and y.dtype == torch.float32
+    ref = spmv.bsr_matmat(x, bsr)
+    assert _rel(y, ref) <= TOL
+    assert torch.all(y[:, bm:2 * bm] == 0)
+    # one CTA writes each output: the same bits on a second run
+    assert torch.equal(spmv.bsr_matmat_kernel(x, bsr), y)
+
+
+def test_bsr_kernel_empty_operator(cuda):
+    bsr = spmv.BSRMatrix.from_dense(np.zeros((256, 256)), bm=64, device=cuda)
+    assert bsr.n_blocks == 0
+    y = spmv.bsr_matmat_kernel(torch.ones((3, 256), device=cuda), bsr)
+    torch.cuda.synchronize()
+    assert torch.equal(y, torch.zeros((3, 256), device=cuda))
+
+
+def test_bsr_kernel_refuses_what_it_does_not_take(cuda):
+    bsr = spmv.BSRMatrix.from_dense(_block_sparse(128, 32, 32, 22), bm=32, device=cuda)
+    x = torch.zeros((2, 128), device=cuda)
+    with pytest.raises(TypeError):
+        spmv.bsr_matmat_kernel(x.double(), bsr)
+    with pytest.raises(ValueError):
+        spmv.bsr_matmat_kernel(torch.zeros((65, 128), device=cuda), bsr)
+    with pytest.raises(ValueError):
+        spmv.bsr_matmat_kernel(torch.zeros((2, 96), device=cuda), bsr)
+    f64 = spmv.BSRMatrix.from_dense(_block_sparse(128, 32, 32, 22), bm=32,
+                                    dtype=torch.float64, device=cuda)
+    with pytest.raises(TypeError):
+        spmv.bsr_matmat_kernel(x, f64)
+
+
+@pytest.mark.parametrize("m", [1, 7, 40, 64])
+@pytest.mark.parametrize("n,tile", [(8192, 512), (1000, 100), (4096, 128), (777, 512),
+                                    (300, 1024)])
+def test_gram_kernel_matches_plain(cuda, m, n, tile):
+    rng = np.random.default_rng(23)
+    f32 = dict(dtype=torch.float32, device=cuda)
+    v = torch.as_tensor(rng.standard_normal((m, n)), **f32)
+    w = torch.as_tensor(rng.standard_normal((m, n)), **f32)
+    mask = torch.as_tensor((np.arange(m) < max(1, 5 * m // 8)).astype(np.float64), **f32)
+    before = gram.LAUNCHES["gram"]
+    h = gram.masked_gram_kernel(v, w, mask, tile=tile)
+    torch.cuda.synchronize()
+    assert gram.LAUNCHES["gram"] == before + 1
+    # relative to the largest sum of |terms|: at M = 1 the one dot product
+    # may cancel far below its terms, and both sums round at their scale
+    scale = float((v.abs() @ w.abs().T).max())
+    err = float((h.double() - gram.masked_gram(v, w, mask, tile=tile).double()).abs().max())
+    assert err <= TOL * scale
+    assert torch.equal(h, h.T)
+    assert torch.equal(gram.masked_gram_kernel(v, w, mask, tile=tile), h)
+
+
+def test_gram_kernel_all_zero_mask_and_tiles(cuda):
+    rng = np.random.default_rng(24)
+    v = torch.as_tensor(rng.standard_normal((16, 2048)), dtype=torch.float32, device=cuda)
+    zero = torch.zeros(16, dtype=torch.float32, device=cuda)
+    assert torch.equal(gram.masked_gram_kernel(v, v, zero), torch.zeros((16, 16), device=cuda))
+    ones = torch.ones(16, dtype=torch.float32, device=cuda)
+    ref = gram.masked_gram(v, v, ones)
+    for tile in (128, 256, 512, 2048, 4096):
+        assert _rel(gram.masked_gram_kernel(v, v, ones, tile=tile), ref) <= TOL
+    with pytest.raises(ValueError):   # 3 tiles of 300 do not divide 1000
+        gram.masked_gram_kernel(v[:, :1000], v[:, :1000], ones, tile=300)
+
+
+def test_small_bsr_fused_davidson_on_card(cuda):
+    from iterative_solver_torch import FusedDavidson
+    from iterative_solver_torch.models.synthetic_fci import synthetic_fci_bsr
+
+    bsr, dense = synthetic_fci_bsr(1024, 64, density=0.3, seed=1, device=cuda)
+    matvec, op = spmv.bsr_matvec(bsr)
+    d = np.diagonal(dense)
+    solver = FusedDavidson(matvec, d, 1024, 4, m_max=16, rr="full",
+                           convergence_threshold=1e-5, max_iter=60, operand=op)
+    assert solver.fuse_chain
+    before = spmv.LAUNCHES["bsr"]
+    evals, x, errors, iters = solver.run_on_device(_one_hot(d, 4))
+    assert spmv.LAUNCHES["bsr"] > before
+    assert np.max(errors) <= 1e-5
+    xs = x.double().cpu().numpy()
+    xs /= np.linalg.norm(xs, axis=1, keepdims=True)
+    rq = np.sort(np.sum(xs * (xs @ dense), axis=1))
+    np.testing.assert_allclose(rq, np.linalg.eigvalsh(dense)[:4], atol=1e-8)
+
+
+def test_small_create_linear_eigensystem_on_card(cuda):
+    import iterative_solver_torch as its
+    from iterative_solver_torch.models.synthetic_fci import synthetic_fci_bsr
+
+    bsr, dense = synthetic_fci_bsr(512, 32, density=0.3, seed=2, device=cuda)
+
+    class BSRProblem(its.Problem):
+        def action(self, parameters):
+            return spmv.bsr_matmat_kernel(parameters, bsr)
+
+        def diagonals(self):
+            return bsr.diagonal
+
+    solver = its.create_linear_eigensystem(512, 2, "Davidson", "convergence_threshold=1e-5")
+    solver.set_hermiticity(True)
+    solver.verbosity = its.Verbosity.NONE
+    assert solver.device.type == "cuda" and solver.dtype == torch.float32
+    before = spmv.LAUNCHES["bsr"]
+    conv, x, r = solver.solve(np.zeros((2, 512)), problem=BSRProblem(),
+                              generate_initial_guess=True)
+    assert conv and x.device.type == "cuda"
+    # one action, so one K6 launch, per iteration
+    assert spmv.LAUNCHES["bsr"] - before == solver.stats.iterations > 0
+    np.testing.assert_allclose(np.sort(solver.eigenvalues()[:2]),
+                               np.linalg.eigvalsh(dense)[:2], atol=1e-5)
+
+
+@pytest.mark.parametrize("r,n", [(1, 64), (16, 4096), (64, 1 << 16)])
+def test_lower_solve_on_card_matches_the_direct_solve(cuda, r, n):
+    from iterative_solver_torch.ops.kernels.chain import _cholesky_nan, lower_solve
+
+    a = np.random.default_rng(25).standard_normal((r, n))
+    l64 = np.linalg.cholesky(a @ a.T)
+    ref = np.linalg.solve(l64, a)
+    x = torch.as_tensor(a, dtype=torch.float32, device=cuda)
+    l = _cholesky_nan(x @ x.T)
+    got = lower_solve(l, x).double().cpu().numpy()
+    assert np.max(np.abs(got - ref)) <= 1e-3 * np.max(np.abs(ref))
+    # the rows come out orthonormal
+    np.testing.assert_allclose(got @ got.T, np.eye(r), atol=1e-3)
