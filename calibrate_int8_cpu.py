@@ -98,7 +98,7 @@ def davidson() -> None:
 def _ppcg_instance():
     from iterative_solver_torch.models.synthetic_fci import synthetic_packed_int8
 
-    return synthetic_packed_int8(N, b=1024, seed=0)
+    return synthetic_packed_int8(N, b=1024, seed=0, device="cpu")
 
 
 def ppcg():

@@ -17,11 +17,18 @@ Phases, one JSON line each:
 1. the card (nvidia-smi name and power limit, torch and CUDA versions);
 2. the build of every kernel from ``iterative_solver_torch/ops/kernels/csrc``
    with nvcc for sm_90a, all sources compiled in parallel;
+   Then the SASS of the K1/K3 library (cuobjdump): its tensor-core,
+   ldmatrix, cp.async and vector-reduction instructions, counted;
 3. every kernel against its plain PyTorch version on the same inputs on the
    card, at the main path's shapes. K1 (bf16 and f32 tiles), K2 and K3 at
-   x 16 x 8192 (K2 with a 64-row basis), tolerance 1e-5 of the plain
+   x 16 x 8192 (K2 with a 64-row basis), and K1/K3 again at 16 x 32768 on
+   operators generated on the card (``packed_on_card``: bf16 at b = 1024,
+   f32 and split at b = 512), tolerance 1e-5 of the plain
    result's max magnitude: they add partial sums with f32 atomics, which
-   changes the order of the sum. K4 at 16 x 8192 and at 64 x 32768 (the
+   changes the order of the sum. Library yardsticks: one ``torch.matmul``
+   on the dense matrix the tiles imply (bf16, or f32 with TF32 off), and
+   for K3 one bf16 product of [xh xh xl] with [A_hi; A_lo; A_hi], the same
+   three products in one call. K4 at 16 x 8192 and at 64 x 32768 (the
    flagship operator) and K5 at 16 x 8192, tolerance 0: they add integer
    partial sums and round the epilogue in the plain version's order, so y
    must be bit-identical. Times from CUDA events, kernel and plain timed in
@@ -227,8 +234,10 @@ def device_ms(fn, device, pattern: str, per_call: int, calls: int = 10) -> tuple
     all the device work the call does; and the number of such kernels the
     profiler saw per call. Beside the CUDA-event time of a call, this
     separates the kernel from the host's work around it. Raises unless the
-    profiler saw the ``per_call`` kernels the wrapper launches in each call:
-    a missed event would make the device time read low."""
+    profiler saw the ``per_call`` kernels the wrapper launches in each call
+    (``per_call=None``, for a library call whose kernels are not known
+    beforehand: the same number in each call, at least one): a missed event
+    would make the device time read low."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -245,7 +254,7 @@ def device_ms(fn, device, pattern: str, per_call: int, calls: int = 10) -> tuple
         if pattern in name:
             mine += us
             seen += count
-    if seen != per_call * calls:
+    if seen != (per_call or max(seen // calls, 1)) * calls:
         raise AssertionError(f"the profiler saw {seen} '{pattern}' kernels in {calls} calls, "
                              f"not {per_call} per call")
     return mine / calls / 1e3, total / calls / 1e3, seen / calls
@@ -282,60 +291,171 @@ def symm_flops(sym, m: int, products: int) -> float:
     return 2.0 * products * m * sym.b * sym.b * contributions
 
 
-def check_kernels(matrix: np.ndarray, device) -> list:
-    """Each kernel against its plain version at the main path's shapes."""
+def dense_from_tiles(tiles, ii, jj, b: int, n: int):
+    """The dense symmetric matrix that packed lower tiles imply, in the
+    tiles' dtype, on their device."""
     import torch
 
-    from iterative_solver_torch.ops.kernels import chain, symm
+    dense = torch.zeros((n, n), dtype=tiles.dtype, device=tiles.device)
+    for t, (i, j) in enumerate(zip(ii.tolist(), jj.tolist())):
+        dense[i * b:(i + 1) * b, j * b:(j + 1) * b] = tiles[t]
+        if i != j:
+            dense[j * b:(j + 1) * b, i * b:(i + 1) * b] = tiles[t].T
+    return dense
+
+
+def packed_on_card(n: int, b: int, kind: str, device, seed: int):
+    """A packed operator of the bench matrix's make generated on the card,
+    with no host matrix: every lower tile pair present, couplings
+    N(0, 1) * 0.05/sqrt(n) from a seeded torch generator, the diagonal
+    tiles symmetric with linspace(-2, 50, n) added on their diagonal.
+    ``kind``: "bf16" or "f32" (SymmetricBlocked) or "split"."""
+    import torch
+
+    from iterative_solver_torch.ops.kernels import symm
+
+    nb = n // b
+    ii, jj = torch.tril_indices(nb, nb, device=device).to(torch.int32)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    vals = torch.randn((ii.numel(), b, b), generator=gen, device=device) * (0.05 / np.sqrt(n))
+    diag = torch.nonzero(ii == jj).squeeze(1)
+    vals[diag] = 0.5 * (vals[diag] + vals[diag].transpose(1, 2))
+    ar = torch.arange(b, device=device)
+    d = torch.linspace(-2.0, 50.0, n, device=device)
+    vals[diag[:, None], ar[None, :], ar[None, :]] += d[ii[diag].long()[:, None] * b + ar[None, :]]
+    common = dict(ii=ii, jj=jj, shape=(n, n), b=b, diagonal=d)
+    if kind == "split":
+        hi = vals.to(torch.bfloat16)
+        lo = (vals - hi.to(torch.float32)).to(torch.bfloat16)  # exact in f32
+        return symm.SymmetricBlockedSplit(hi=hi, lo=lo, **common)
+    dtype = torch.bfloat16 if kind == "bf16" else torch.float32
+    return symm.SymmetricBlocked(values=vals.to(dtype), **common)
+
+
+def symm_library(sym, x):
+    """(fn, note): one PyTorch call computing the same function as K1 or K3
+    on the dense planes the tiles imply (TF32 off). A yardstick only."""
+    import torch
+
+    from iterative_solver_torch.ops.kernels import symm
+
+    n = sym.shape[0]
+    if isinstance(sym, symm.SymmetricBlockedSplit):
+        hi = dense_from_tiles(sym.hi, sym.ii, sym.jj, sym.b, n)
+        lo = dense_from_tiles(sym.lo, sym.ii, sym.jj, sym.b, n)
+        stacked = torch.cat([hi, lo, hi], 0)
+        del hi, lo
+        xh, xl = symm.bf16_split(x)
+        xs = torch.cat([xh, xh, xl], 1)
+        return (lambda: torch.matmul(xs, stacked),
+                f"torch.matmul(cat([xh, xh, xl], 1), cat([A_hi, A_lo, A_hi], 0)): one bf16 "
+                f"product ({x.shape[0]} x {3 * n}) @ ({3 * n} x {n}) on the dense planes, "
+                f"the three products of K3 in one call; returns bf16, the kernel f32")
+    a = dense_from_tiles(sym.values, sym.ii, sym.jj, sym.b, n)
+    xl = x.to(a.dtype)
+    if a.dtype == torch.bfloat16:
+        note = (f"torch.matmul(x.bfloat16(), A) on the dense bf16 matrix ({x.shape[0]} x {n}) "
+                f"@ ({n} x {n}); returns bf16, the kernel f32")
+    else:
+        note = f"torch.matmul(x, A) f32 (TF32 off) on the dense matrix ({n} x {n})"
+    return (lambda: torch.matmul(xl, a)), note
+
+
+def symm_case(name, sym, x, device, replaces) -> dict:
+    """K1 or K3 against its plain version on ``x`` and ``sym``: errors, wrapper
+    and plain times in turns, the kernel's device time, the bound and the
+    library yardstick."""
+    import torch
+
+    from iterative_solver_torch.ops.kernels import symm
+
+    split = isinstance(sym, symm.SymmetricBlockedSplit)
+    kernel = symm.symm_matmat_split_kernel if split else symm.symm_matmat_kernel
+    plain = symm.symm_matmat_split if split else symm.symm_matmat
+    m, n = x.shape
+    y = kernel(x, sym)
+    y_ref = plain(x, sym)
+    torch.cuda.synchronize(device)
+    abs_err, rel = rel_err(y, y_ref)
+    del y, y_ref
+    if not rel <= KERNEL_TOL:
+        raise AssertionError(f"{name}: max relative error {rel:.3e} > {KERNEL_TOL}")
+    kernel_ms, plain_ms = in_turns(lambda: plain(x, sym), lambda: kernel(x, sym), device)
+    kernel_device_ms, call_device_ms, _ = device_ms(lambda: kernel(x, sym), device,
+                                                    "symm_packed", 1)
+    library, library_note = symm_library(sym, x)
+    library_ms = time_ms(library, device)
+    # the yardstick's device time, read as the kernel's is
+    library_device_ms = device_ms(library, device, "", None)[0]
+    del library
+    torch.cuda.empty_cache()
+    planes = (sym.hi, sym.lo) if split else (sym.values,)
+    tile_bytes = sum(p.numel() * p.element_size() for p in planes)
+    nbytes = tile_bytes + 8 * sym.n_pairs + 2 * 4 * m * n  # tiles, ii/jj, x read, y written
+    kind = "f32" if not split and sym.values.dtype == torch.float32 else "bf16"
+    bound_ms, bound_by = bound(nbytes, symm_flops(sym, m, 3 if split else 1), kind)
+    return {
+        "name": name, "route": "cuda",
+        "source": "iterative_solver_torch/ops/kernels/csrc/symm_packed.cu",
+        "replaces": replaces, "max_abs_err": abs_err, "max_rel_err": rel,
+        "tolerance": KERNEL_TOL, "ms": kernel_ms, "kernel_ms": kernel_ms,
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "bound_bytes": nbytes, "library_ms": library_ms, "library_note": library_note,
+        "kernel_device_ms": kernel_device_ms, "call_device_ms": call_device_ms,
+        "library_device_ms": library_device_ms,
+        "share_of_bound": bound_ms / kernel_device_ms,
+        "shapes": {"m": m, "n": n, "b": sym.b, "n_pairs": sym.n_pairs,
+                   "work_items": int(symm.square_work(sym).shape[0])},
+    }
+
+
+K1_REPLACES = "iterative_solver_tpu/ops/kernels/symm_pallas.py:148"
+K3_REPLACES = "iterative_solver_tpu/ops/kernels/symm_pallas.py:325"
+# (name, storage kind, tile edge, replaces) of the K1/K3 checks, at the
+# shapes of the fast (b = 1024), exact and precise (b = 512) solves
+SYMM_CASES = (("K1-bf16", "bf16", 1024, K1_REPLACES), ("K1-f32", "f32", 512, K1_REPLACES),
+              ("K3", "split", 512, K3_REPLACES))
+
+
+def symm_operands(matrix, device):
+    """(name, kind, sym, replaces) of each K1/K3 check at n = 8192 (the bench
+    matrix, host-packed) and n = FLAGSHIP_N (generated on the card)."""
+    import torch
+
+    from iterative_solver_torch.ops.kernels import symm
+
+    for name, kind, b, replaces in SYMM_CASES:
+        if kind == "split":
+            sym = symm.SymmetricBlockedSplit.from_dense(matrix, b=b, device=device)
+        else:
+            dtype = torch.bfloat16 if kind == "bf16" else torch.float32
+            sym = symm.SymmetricBlocked.from_dense(matrix, b=b, dtype=dtype, device=device)
+        yield name, kind, sym, replaces
+        del sym
+    for seed, (name, kind, b, replaces) in enumerate(SYMM_CASES):
+        yield (f"{name}@n{FLAGSHIP_N}", kind, packed_on_card(FLAGSHIP_N, b, kind, device, seed),
+               replaces)
+        torch.cuda.empty_cache()
+
+
+def check_kernels(matrix: np.ndarray, device) -> list:
+    """Each kernel against its plain version at the main path's shapes; K1
+    and K3 also at n = FLAGSHIP_N."""
+    import torch
+
+    from iterative_solver_torch.ops.kernels import chain
 
     n = matrix.shape[0]
     rng = np.random.default_rng(1)
     x = torch.as_tensor(rng.standard_normal((NROOTS, n)), dtype=torch.float32, device=device)
-    dense32 = torch.as_tensor(matrix, dtype=torch.float32, device=device)
-    io_bytes = 2 * x.numel() * 4  # x read, y written
+    x_big = torch.as_tensor(np.random.default_rng(4).standard_normal((NROOTS, FLAGSHIP_N)),
+                            dtype=torch.float32, device=device)
     results = []
-
-    def symm_case(name, sym, kernel, plain, tile_bytes, products, kind, lib_dtype, replaces):
-        y = kernel(x, sym)
-        y_ref = plain(x, sym)
-        torch.cuda.synchronize(device)
-        abs_err, rel = rel_err(y, y_ref)
-        if not rel <= KERNEL_TOL:
-            raise AssertionError(f"{name}: max relative error {rel:.3e} > {KERNEL_TOL}")
-        kernel_ms, plain_ms = in_turns(lambda: plain(x, sym), lambda: kernel(x, sym), device)
-        kernel_device_ms, call_device_ms, _ = device_ms(lambda: kernel(x, sym), device,
-                                                        "symm_packed", 1)
-        a_lib = dense32.to(lib_dtype)
-        x_lib = x.to(lib_dtype)
-        library_ms = time_ms(lambda: torch.matmul(x_lib, a_lib), device)
-        del a_lib
-        nbytes = tile_bytes + 8 * sym.n_pairs + io_bytes
-        bound_ms, bound_by = bound(nbytes, symm_flops(sym, NROOTS, products), kind)
-        results.append({
-            "name": name, "route": "cuda",
-            "source": "iterative_solver_torch/ops/kernels/csrc/symm_packed.cu",
-            "replaces": replaces, "max_abs_err": abs_err, "max_rel_err": rel,
-            "tolerance": KERNEL_TOL, "ms": kernel_ms, "kernel_ms": kernel_ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms, "kernel_device_ms": kernel_device_ms,
-            "call_device_ms": call_device_ms,
-            "shapes": {"m": NROOTS, "n": n, "b": sym.b, "n_pairs": sym.n_pairs},
-        })
-
-    k1 = "iterative_solver_tpu/ops/kernels/symm_pallas.py:148"
-    sym = symm.SymmetricBlocked.from_dense(matrix, b=1024, dtype=torch.bfloat16, device=device)
-    symm_case("K1-bf16", sym, symm.symm_matmat_kernel, symm.symm_matmat,
-              sym.values.numel() * 2, 1, "bf16", torch.bfloat16, k1)
-    del sym
-    sym = symm.SymmetricBlocked.from_dense(matrix, b=512, dtype=torch.float32, device=device)
-    symm_case("K1-f32", sym, symm.symm_matmat_kernel, symm.symm_matmat,
-              sym.values.numel() * 4, 1, "f32", torch.float32, k1)
-    del sym
-    sym = symm.SymmetricBlockedSplit.from_dense(matrix, b=512, device=device)
-    symm_case("K3", sym, symm.symm_matmat_split_kernel, symm.symm_matmat_split,
-              sym.hi.numel() * 4, 3, "bf16", torch.bfloat16,
-              "iterative_solver_tpu/ops/kernels/symm_pallas.py:325")
-    del sym, dense32
+    for name, _, sym, replaces in symm_operands(matrix, device):
+        results.append(symm_case(name, sym, x if sym.shape[0] == n else x_big, device,
+                                 replaces))
+        del sym
+    del x_big
 
     # K2 at the step's shapes: residuals, a basis stack filled to 48 of 64
     # rows (dead rows hold zeros, as in the solver), the operator diagonal,
@@ -383,18 +503,6 @@ def check_kernels(matrix: np.ndarray, device) -> list:
     return results
 
 
-def dense_int8(q, ii, jj, b: int, n: int):
-    """The dense symmetric int8 matrix that packed lower tiles imply."""
-    import torch
-
-    dense = torch.zeros((n, n), dtype=torch.int8, device=q.device)
-    for t, (i, j) in enumerate(zip(ii.tolist(), jj.tolist())):
-        dense[i * b:(i + 1) * b, j * b:(j + 1) * b] = q[t]
-        if i != j:
-            dense[j * b:(j + 1) * b, i * b:(i + 1) * b] = q[t].T
-    return dense
-
-
 def int_mm_library(xs_planes, q_planes, products, sym, n, device):
     """(ms, note, equal): one ``torch._int_mm`` per int8 product of the
     action, qx against the dense int8 matrix the tiles imply. ``_int_mm``
@@ -406,7 +514,7 @@ def int_mm_library(xs_planes, q_planes, products, sym, n, device):
 
     m = xs_planes[0].shape[0]
     rows = max(32, m)
-    dense = [dense_int8(q, sym.ii, sym.jj, sym.b, n) for q in q_planes]
+    dense = [dense_from_tiles(q, sym.ii, sym.jj, sym.b, n) for q in q_planes]
     padded = []
     for xp in xs_planes:
         pad = torch.zeros((rows, n), dtype=torch.int8, device=device)
@@ -1141,6 +1249,28 @@ def solve_phenol(bsr, diag, gen_s, device, tol=PHENOL_TOL) -> dict:
     return rec
 
 
+def sass_counts(library) -> dict:
+    """Instructions of interest in a built library's SASS, from cuobjdump
+    (the toolkit's, beside nvcc): tensor-core products (HMMA), shared-memory
+    matrix loads (LDSM, .MT88 the transposed ones), asynchronous copies
+    (LDGSTS) and global reductions (REDG; F32x4 the vector ones)."""
+    import os
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        return {"cuobjdump": "not found"}
+    sass = subprocess.run([tool, "-sass", str(library)], check=True, capture_output=True,
+                          text=True).stdout
+    ops = re.findall(r"\b(HMMA|LDSM|LDGSTS|REDG)(\.[A-Za-z0-9_.]+)?", sass)
+    counts = {}
+    for op, mods in ops:
+        counts[op + mods] = counts.get(op + mods, 0) + 1
+    return {"functions": re.findall(r"Function : (\S+)", sass), "counts": counts}
+
+
 def main() -> int:
     import torch
 
@@ -1165,7 +1295,8 @@ def main() -> int:
              if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "sources": list(_build.SOURCES), "built": sorted(logs), "ptxas": ptxas})
-
+    emit({"phase": "sass", "library": "symm_packed",
+          **sass_counts(_build.library_path("symm_packed"))})
     matrix = bench_matrix(N)
     kernels = check_kernels(matrix, device)
     flagship, flagship_diag, gen_s = make_flagship(device)

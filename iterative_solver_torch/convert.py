@@ -8,6 +8,10 @@ packed or block-sparse operator built once on the host feeds both.
 bf16 arrays come out of JAX as ``ml_dtypes.bfloat16``, which
 ``torch.from_numpy`` refuses; they are carried bit for bit through a
 ``uint16`` -> ``int16`` view and ``.view(torch.bfloat16)``.
+
+Like every entry point of the port, each function puts its tensors on the
+CUDA device unless ``device`` says otherwise, and raises where CUDA is
+absent.
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from . import config
 from .ops.kernels.spmv import BSRMatrix, BSRMatrixInt8
 from .ops.kernels.symm import SymmetricBlocked, SymmetricBlockedSplit
 from .ops.kernels.symm_int8 import SymmetricBlockedInt8, SymmetricBlockedInt8Split
@@ -24,9 +29,11 @@ from .solvers.fused_davidson import DavidsonState
 from .solvers.fused_ppcg import PPCGState
 
 
-def tensor_from_numpy(a, device="cpu", dtype=None) -> torch.Tensor:
-    """A tensor of ``a``; bf16 arrays (``ml_dtypes.bfloat16``, itemsize 2,
+def tensor_from_numpy(a, device=None, dtype=None) -> torch.Tensor:
+    """A tensor of ``a`` on ``device`` (``None``: the CUDA device, which
+    raises without it); bf16 arrays (``ml_dtypes.bfloat16``, itemsize 2,
     dtype name "bfloat16") keep their bits."""
+    device = config.resolve_device(device)
     a = np.array(a, copy=True, order="C")  # never alias a JAX buffer
     if a.dtype.name == "bfloat16":
         t = torch.from_numpy(a.view(np.uint16).view(np.int16)).view(torch.bfloat16)
@@ -36,7 +43,7 @@ def tensor_from_numpy(a, device="cpu", dtype=None) -> torch.Tensor:
 
 
 def symmetric_blocked(values, ii, jj, shape: Tuple[int, int], b: int,
-                      diagonal=None, device="cpu") -> SymmetricBlocked:
+                      diagonal=None, device=None) -> SymmetricBlocked:
     """The port's SymmetricBlocked from the JAX one's fields."""
     return SymmetricBlocked(
         values=tensor_from_numpy(values, device),
@@ -49,7 +56,7 @@ def symmetric_blocked(values, ii, jj, shape: Tuple[int, int], b: int,
 
 
 def symmetric_blocked_split(hi, lo, ii, jj, shape: Tuple[int, int], b: int,
-                            diagonal=None, device="cpu") -> SymmetricBlockedSplit:
+                            diagonal=None, device=None) -> SymmetricBlockedSplit:
     """The port's SymmetricBlockedSplit from the JAX one's fields."""
     return SymmetricBlockedSplit(
         hi=tensor_from_numpy(hi, device),
@@ -63,7 +70,7 @@ def symmetric_blocked_split(hi, lo, ii, jj, shape: Tuple[int, int], b: int,
 
 
 def symmetric_blocked_int8(q, gq, ii, jj, shape: Tuple[int, int], b: int,
-                           diagonal=None, device="cpu") -> SymmetricBlockedInt8:
+                           diagonal=None, device=None) -> SymmetricBlockedInt8:
     """The port's SymmetricBlockedInt8 from the JAX one's fields."""
     return SymmetricBlockedInt8(
         q=tensor_from_numpy(q, device, torch.int8),
@@ -77,7 +84,7 @@ def symmetric_blocked_int8(q, gq, ii, jj, shape: Tuple[int, int], b: int,
 
 
 def symmetric_blocked_int8_split(q1, q2, gq, ii, jj, shape: Tuple[int, int], b: int,
-                                 diagonal=None, device="cpu") -> SymmetricBlockedInt8Split:
+                                 diagonal=None, device=None) -> SymmetricBlockedInt8Split:
     """The port's SymmetricBlockedInt8Split from the JAX one's fields."""
     return SymmetricBlockedInt8Split(
         q1=tensor_from_numpy(q1, device, torch.int8),
@@ -92,7 +99,7 @@ def symmetric_blocked_int8_split(q1, q2, gq, ii, jj, shape: Tuple[int, int], b: 
 
 
 def bsr(values, col_idx, row_idx, row_ptr, shape: Tuple[int, int], bm: int, bn: int,
-        diagonal=None, device="cpu") -> BSRMatrix:
+        diagonal=None, device=None) -> BSRMatrix:
     """The port's BSRMatrix from the JAX one's fields."""
     return BSRMatrix(
         values=tensor_from_numpy(values, device),
@@ -107,7 +114,7 @@ def bsr(values, col_idx, row_idx, row_ptr, shape: Tuple[int, int], bm: int, bn: 
 
 
 def bsr_int8(q, rq, cq, col_idx, row_idx, row_ptr, shape: Tuple[int, int], bm: int,
-             bn: int, diagonal=None, device="cpu") -> BSRMatrixInt8:
+             bn: int, diagonal=None, device=None) -> BSRMatrixInt8:
     """The port's BSRMatrixInt8 from the JAX one's fields."""
     return BSRMatrixInt8(
         q=tensor_from_numpy(q, device, torch.int8),
@@ -124,7 +131,7 @@ def bsr_int8(q, rq, cq, col_idx, row_idx, row_ptr, shape: Tuple[int, int], bm: i
     )
 
 
-def ppcg_state(x, ax, p, ap, evals, errors, it, device="cpu") -> PPCGState:
+def ppcg_state(x, ax, p, ap, evals, errors, it, device=None) -> PPCGState:
     """The port's PPCGState from the JAX one's fields (``it`` becomes a
     host int)."""
     def t(a):
@@ -134,7 +141,7 @@ def ppcg_state(x, ax, p, ap, evals, errors, it, device="cpu") -> PPCGState:
 
 
 def davidson_state(v, w, mask, k, evals, x, r, errors, c: Optional[np.ndarray] = None,
-                   cm: Optional[np.ndarray] = None, device="cpu") -> DavidsonState:
+                   cm: Optional[np.ndarray] = None, device=None) -> DavidsonState:
     """The port's DavidsonState from the JAX one's fields (``k`` becomes a
     host int)."""
     def t(a):

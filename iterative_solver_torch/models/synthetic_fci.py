@@ -14,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import config
 from ..ops.kernels.spmv import BSRMatrix
 from ..ops.kernels.symm import _symm_matmat_plain
 from ..ops.kernels.symm_int8 import SymmetricBlockedInt8, _check_acc_headroom
@@ -68,7 +69,7 @@ def synthetic_fci_bsr(n: int, block: int = 128, density: float = 0.15,
 
 def synthetic_packed_int8(n: int, b: int = 1024, seed: int = 0, diag=None,
                           coupling: float = 0.05, chunk_tiles: int = 32,
-                          device="cpu"):
+                          device=None):
     """A packed one-plane int8 symmetric operator generated directly, with
     no dense f64 intermediate (synthetic_fci.py:75-143).
 
@@ -78,10 +79,12 @@ def synthetic_packed_int8(n: int, b: int = 1024, seed: int = 0, diag=None,
     iid couplings) and gq chosen so that sd(E) = coupling/sqrt(n). Tiles on
     the block diagonal are symmetrised with a zero diagonal, so E is
     exactly symmetric. Returns ``(sym, diag)``: a SymmetricBlockedInt8 on
-    ``device`` and the float64 diagonal."""
+    ``device`` (``None``: the CUDA device, which raises without it) and the
+    float64 diagonal."""
     if n % b:
         raise ValueError("n must be a multiple of b for the direct generator")
     _check_acc_headroom(n, b, 1, "synthetic_packed_int8")
+    device = config.resolve_device(device)
     nb = n // b
     iis, jjs = np.tril_indices(nb)
     npairs = iis.size

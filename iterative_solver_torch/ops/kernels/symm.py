@@ -21,6 +21,12 @@ Kernels (CUDA C++ for sm_90a, ``csrc/symm_packed.cu``):
 - ``symm_matmat_split_kernel`` replaces ``symm_matmat_split_pallas`` /
   ``_symm_matmat_split_impl`` (K3), the split double-bf16 "precise" tier.
 
+Each kernel block walks one ``SQUARE`` x ``SQUARE`` piece of one tile and
+forms both of its contributions (the source's head note gives the design).
+The blocks' work list is built here on the host from ``ii``/``jj``
+(``square_work_list``) and cached on the storage object; ``square_walk``
+follows it in plain PyTorch, so the CPU tests reach the walk.
+
 Each wrapper launches its kernel for a CUDA tensor (or raises) and counts
 the launch in ``LAUNCHES``; for a CPU tensor it runs the plain PyTorch
 version beside it (``symm_matmat``, ``symm_matmat_split``), which the CPU
@@ -37,13 +43,15 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ... import config as _config  # noqa: F401  (precision pins)
+from ... import config as _config
 from . import _build
 
 Tensor = torch.Tensor
 
 # launches of each kernel variant, counted by the wrappers
 LAUNCHES = {"symm_f32": 0, "symm_bf16": 0, "symm_split": 0}
+# edge of the square a kernel block walks (csrc/symm_packed.cu SQ)
+SQUARE = 256
 
 
 @dataclasses.dataclass
@@ -59,19 +67,25 @@ class SymmetricBlocked:
     shape: Tuple[int, int]
     b: int
     diagonal: Optional[Tensor] = None
+    # the kernels' work list (square_work), cached; dataclasses.replace carries it
+    work: Optional[Tensor] = dataclasses.field(default=None, repr=False, compare=False)
 
     @property
     def n_pairs(self) -> int:
         return self.values.shape[0]
 
     @classmethod
-    def from_dense(cls, matrix: np.ndarray, b: int = 512, dtype=torch.float64,
+    def from_dense(cls, matrix: np.ndarray, b: int = 512, dtype=None,
                    tol: Optional[float] = None,
-                   device="cpu") -> "SymmetricBlocked":
+                   device=None) -> "SymmetricBlocked":
         """Pack the lower triangle in (b, b) tiles (symm_pallas.py:67-104).
         With ``tol`` set, tiles whose largest magnitude is <= tol are
         dropped (the packed layout then doubles as a sparse-symmetric
-        format)."""
+        format). ``device=None`` is the CUDA device (raises without it) and
+        ``dtype=None`` the device's working dtype."""
+        device = _config.resolve_device(device)
+        if dtype is None:
+            dtype = _config.default_dtype(device)
         iis, jjs, tiles, diagonal, n_pad, b = _pack_lower(matrix, b, tol)
         return cls(
             values=_tiles_to_tensor(tiles, dtype, device),
@@ -80,6 +94,7 @@ class SymmetricBlocked:
             shape=(n_pad, n_pad),
             b=b,
             diagonal=torch.as_tensor(diagonal, dtype=dtype, device=device),
+            work=torch.as_tensor(square_work_list(iis, jjs, b), device=device),
         )
 
 
@@ -116,6 +131,54 @@ def _tiles_to_tensor(tiles: np.ndarray, dtype, device) -> Tensor:
     return torch.as_tensor(tiles, dtype=dtype, device=device)
 
 
+def square_work_list(ii, jj, b: int, square: int = SQUARE) -> np.ndarray:
+    """The kernels' work list: one (t, r0, c0, diagonal) int32 row per
+    ``square`` x ``square`` piece of each tile (ragged at the edge when b is
+    not a multiple), off-diagonal tiles' squares first and diagonal tiles'
+    (one contribution, so fewer products) last. ``diagonal`` is 1 where
+    ii[t] == jj[t]."""
+    ii = np.asarray(ii)
+    diag = (ii == np.asarray(jj)).astype(np.int64)
+    starts = np.arange(0, b, square)
+    r0, c0 = (g.ravel() for g in np.meshgrid(starts, starts, indexing="ij"))
+    per_tile = r0.size
+    t = np.repeat(np.arange(ii.size), per_tile)
+    work = np.stack([t, np.tile(r0, ii.size), np.tile(c0, ii.size),
+                     np.repeat(diag, per_tile)], axis=1)
+    return work[np.argsort(work[:, 3], kind="stable")].astype(np.int32)
+
+
+def square_work(sym) -> Tensor:
+    """``sym``'s work list on its device, built from ii/jj on first use and
+    cached on the object (``from_dense`` builds it with the tiles)."""
+    if sym.work is None:
+        sym.work = torch.as_tensor(
+            square_work_list(sym.ii.cpu().numpy(), sym.jj.cpu().numpy(), sym.b),
+            device=sym.ii.device)
+    return sym.work
+
+
+def square_walk(xs, planes, sym) -> Tensor:
+    """Plain emulation of the kernels' walk: for each work item, both
+    contributions of one square, y_i += x_j Aᵀ and (off the diagonal)
+    y_j += x_i A, summed over the paired x parts and tile planes: one pair
+    for K1, (xh, hi), (xh, lo), (xl, hi) for K3. All in x's dtype; for the
+    CPU tests, which hold it against the plain versions."""
+    b = sym.b
+    y = torch.zeros_like(xs[0])
+    ii, jj = sym.ii.tolist(), sym.jj.tolist()
+    for t, r0, c0, diag in square_work(sym).tolist():
+        r1, c1 = min(r0 + SQUARE, b), min(c0 + SQUARE, b)
+        rows = slice(ii[t] * b + r0, ii[t] * b + r1)
+        cols = slice(jj[t] * b + c0, jj[t] * b + c1)
+        for x, plane in zip(xs, planes):
+            a = plane[t, r0:r1, c0:c1]
+            y[:, rows] += x[:, cols] @ a.T
+            if not diag:
+                y[:, cols] += x[:, rows] @ a
+    return y
+
+
 @dataclasses.dataclass
 class SymmetricBlockedSplit:
     """Packed lower triangle in double-bfloat16 tiles: hi + lo sums to the
@@ -128,6 +191,7 @@ class SymmetricBlockedSplit:
     shape: Tuple[int, int]
     b: int
     diagonal: Optional[Tensor] = None
+    work: Optional[Tensor] = dataclasses.field(default=None, repr=False, compare=False)
 
     @property
     def n_pairs(self) -> int:
@@ -135,9 +199,11 @@ class SymmetricBlockedSplit:
 
     @classmethod
     def from_dense(cls, matrix: np.ndarray, b: int = 512,
-                   device="cpu") -> "SymmetricBlockedSplit":
+                   device=None) -> "SymmetricBlockedSplit":
         """symm_pallas.py:257-272: f32 tiles, hi = bf16(tile), lo =
-        bf16(tile - hi), the difference taken in f64 (exact)."""
+        bf16(tile - hi), the difference taken in f64 (exact).
+        ``device=None`` is the CUDA device (raises without it)."""
+        device = _config.resolve_device(device)
         iis, jjs, tiles, diagonal, n_pad, b = _pack_lower(matrix, b)
         vals32 = torch.from_numpy(tiles.astype(np.float32))
         hi = vals32.to(torch.bfloat16)
@@ -150,6 +216,7 @@ class SymmetricBlockedSplit:
             shape=(n_pad, n_pad),
             b=b,
             diagonal=torch.as_tensor(diagonal, dtype=torch.float32, device=device),
+            work=torch.as_tensor(square_work_list(iis, jjs, b), device=device),
         )
 
 
@@ -247,12 +314,27 @@ _I = ctypes.c_int
 @functools.cache
 def _symm_lib():
     lib = _build.load("symm_packed")
-    lib.symm_packed_f32.argtypes = [_P] * 5 + [_I] * 4 + [_P]
-    lib.symm_packed_bf16.argtypes = [_P] * 5 + [_I] * 4 + [_P]
-    lib.symm_packed_split.argtypes = [_P] * 6 + [_I] * 4 + [_P]
-    for fn in (lib.symm_packed_f32, lib.symm_packed_bf16, lib.symm_packed_split):
+    lib.symm_packed_f32.argtypes = [_P] * 6 + [_I] * 4 + [_P]
+    lib.symm_packed_bf16.argtypes = [_P] * 6 + [_I] * 4 + [_P]
+    lib.symm_packed_split.argtypes = [_P] * 7 + [_I] * 4 + [_P]
+    for fn in (lib.symm_packed_f32, lib.symm_packed_bf16, lib.symm_packed_split,
+               lib.symm_packed_square_edge):
         fn.restype = _I
+    if lib.symm_packed_square_edge() != SQUARE:
+        raise RuntimeError(f"symm_packed.cu walks squares of {lib.symm_packed_square_edge()}, "
+                           f"the work list {SQUARE}")
     return lib
+
+
+def _checked_work(sym, x: Tensor) -> Tensor:
+    """The work list for a launch, checked against the operand."""
+    work = square_work(sym)
+    per_tile = (-(-sym.b // SQUARE)) ** 2
+    if (work.dtype != torch.int32 or work.device != x.device or not work.is_contiguous()
+            or work.shape != (sym.n_pairs * per_tile, 4) or work.data_ptr() % 16):
+        raise ValueError(f"work must be a contiguous, 16-byte aligned int32 "
+                         f"({sym.n_pairs * per_tile}, 4) tensor on {x.device}")
+    return work
 
 
 def symm_matmat_kernel(x: Tensor, sym: SymmetricBlocked) -> Tensor:
@@ -265,14 +347,15 @@ def symm_matmat_kernel(x: Tensor, sym: SymmetricBlocked) -> Tensor:
     x = x.contiguous()
     _check_operands(x, (sym.values,), sym.ii, sym.jj, sym.shape, sym.b,
                     (torch.float32, torch.bfloat16))
+    work = _checked_work(sym, x)
     m, n = x.shape
     y = torch.zeros((m, n), dtype=torch.float32, device=x.device)
     lib = _symm_lib()
     bf16 = sym.values.dtype == torch.bfloat16
     fn = lib.symm_packed_bf16 if bf16 else lib.symm_packed_f32
     err = fn(x.data_ptr(), sym.values.data_ptr(), sym.ii.data_ptr(),
-             sym.jj.data_ptr(), y.data_ptr(), m, n, sym.b, sym.n_pairs,
-             _build.stream_handle(x.device))
+             sym.jj.data_ptr(), work.data_ptr(), y.data_ptr(), m, n, sym.b,
+             work.shape[0], _build.stream_handle(x.device))
     _build.check(lib, err, "symm_packed_bf16" if bf16 else "symm_packed_f32")
     LAUNCHES["symm_bf16" if bf16 else "symm_f32"] += 1
     return y
@@ -288,12 +371,13 @@ def symm_matmat_split_kernel(x: Tensor, sym: SymmetricBlockedSplit) -> Tensor:
     x = x.contiguous()
     _check_operands(x, (sym.hi, sym.lo), sym.ii, sym.jj, sym.shape, sym.b,
                     (torch.bfloat16,))
+    work = _checked_work(sym, x)
     m, n = x.shape
     y = torch.zeros((m, n), dtype=torch.float32, device=x.device)
     lib = _symm_lib()
     err = lib.symm_packed_split(
         x.data_ptr(), sym.hi.data_ptr(), sym.lo.data_ptr(), sym.ii.data_ptr(),
-        sym.jj.data_ptr(), y.data_ptr(), m, n, sym.b, sym.n_pairs,
+        sym.jj.data_ptr(), work.data_ptr(), y.data_ptr(), m, n, sym.b, work.shape[0],
         _build.stream_handle(x.device))
     _build.check(lib, err, "symm_packed_split")
     LAUNCHES["symm_split"] += 1

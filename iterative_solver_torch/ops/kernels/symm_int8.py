@@ -55,7 +55,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ... import config as _config  # noqa: F401  (precision pins)
+from ... import config as _config
 from . import _build
 from .symm import _check_operands
 
@@ -165,9 +165,11 @@ class SymmetricBlockedInt8:
 
     @classmethod
     def from_dense(cls, matrix: np.ndarray, b: int = 512, tol: Optional[float] = None,
-                   device="cpu") -> "SymmetricBlockedInt8":
+                   device=None) -> "SymmetricBlockedInt8":
         """symm_int8.py:175-195. With ``tol`` set, tiles whose largest
-        off-diagonal magnitude is <= tol are dropped."""
+        off-diagonal magnitude is <= tol are dropped. ``device=None`` is the
+        CUDA device (raises without it)."""
+        device = _config.resolve_device(device)
         tiles, g, d, ii, jj, n_pad, b = _equilibrated_tiles(
             matrix, b, tol, 1, "SymmetricBlockedInt8")
         q = np.clip(np.rint(127.0 * tiles), -127, 127).astype(np.int8)
@@ -202,9 +204,11 @@ class SymmetricBlockedInt8Split:
 
     @classmethod
     def from_dense(cls, matrix: np.ndarray, b: int = 512, tol: Optional[float] = None,
-                   device="cpu") -> "SymmetricBlockedInt8Split":
+                   device=None) -> "SymmetricBlockedInt8Split":
         """symm_int8.py:217-241; the split kernel's lo accumulator takes two
-        products per tile, so half the one-plane headroom."""
+        products per tile, so half the one-plane headroom. ``device=None``
+        is the CUDA device (raises without it)."""
+        device = _config.resolve_device(device)
         tiles, g, d, ii, jj, n_pad, b = _equilibrated_tiles(
             matrix, b, tol, 2, "SymmetricBlockedInt8Split")
         b127 = 127.0 * tiles
@@ -393,9 +397,10 @@ def int8_matvec(sym):
 
 
 def make_int8_matvec(matrix, b: int = 512, two_plane: bool = False,
-                     tol: Optional[float] = None, device="cpu"):
+                     tol: Optional[float] = None, device=None):
     """One call that makes a quantized tier (symm_int8.py:507-541): packs
-    ``matrix`` and returns ``(matvec, operand, sym)`` (see ``int8_matvec``)."""
+    ``matrix`` and returns ``(matvec, operand, sym)`` (see ``int8_matvec``).
+    ``device=None`` is the CUDA device (raises without it)."""
     cls = SymmetricBlockedInt8Split if two_plane else SymmetricBlockedInt8
     sym = cls.from_dense(matrix, b=b, tol=tol, device=device)
     matvec, operand = int8_matvec(sym)

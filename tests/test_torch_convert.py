@@ -35,8 +35,8 @@ def test_symmetric_blocked_carries_bit_for_bit(dtype):
     mat = _matrix()
     js = JS.SymmetricBlocked.from_dense(mat, b=B, dtype=dtype)
     got = convert.symmetric_blocked(**_fields(js, ("values", "ii", "jj", "diagonal")),
-                                    shape=js.shape, b=js.b)
-    own = TS.SymmetricBlocked.from_dense(mat, b=B, dtype=got.values.dtype)
+                                    shape=js.shape, b=js.b, device="cpu")
+    own = TS.SymmetricBlocked.from_dense(mat, b=B, dtype=got.values.dtype, device="cpu")
     assert got.values.dtype == {jnp.float64: torch.float64, jnp.float32: torch.float32,
                                 jnp.bfloat16: torch.bfloat16}[dtype]
     for name in ("values", "ii", "jj", "diagonal"):
@@ -50,8 +50,9 @@ def test_symmetric_blocked_split_carries_bit_for_bit():
     mat = _matrix()
     js = JS.SymmetricBlockedSplit.from_dense(mat, b=B)
     got = convert.symmetric_blocked_split(
-        **_fields(js, ("hi", "lo", "ii", "jj", "diagonal")), shape=js.shape, b=js.b)
-    own = TS.SymmetricBlockedSplit.from_dense(mat, b=B)
+        **_fields(js, ("hi", "lo", "ii", "jj", "diagonal")), shape=js.shape, b=js.b,
+        device="cpu")
+    own = TS.SymmetricBlockedSplit.from_dense(mat, b=B, device="cpu")
     for name in ("hi", "lo", "ii", "jj", "diagonal"):
         assert torch.equal(getattr(got, name), getattr(own, name)), name
     x = np.random.default_rng(1).standard_normal((2, N)).astype(np.float32)
@@ -77,7 +78,7 @@ def _jax_operator(mat):
 
 def _torch_operator(js):
     ts = convert.symmetric_blocked(**_fields(js, ("values", "ii", "jj", "diagonal")),
-                                   shape=js.shape, b=js.b)
+                                   shape=js.shape, b=js.b, device="cpu")
 
     def matvec(x, op):
         return TS.symm_matmat(x, dataclasses.replace(ts, values=op[0], ii=op[1], jj=op[2]))
@@ -90,7 +91,7 @@ def test_davidson_state_carries_across():
     js, jop, jmv = _jax_operator(mat)
     v0 = np.eye(NROOTS, N)
     jstate = JF.make_davidson_init(jmv, NROOTS, M_MAX)(jnp.asarray(v0), jop)
-    tstate = convert.davidson_state(**_state_arrays(jstate))
+    tstate = convert.davidson_state(**_state_arrays(jstate), device="cpu")
     assert isinstance(tstate.k, int) and tstate.k == int(jstate.k)
     for f in jstate._fields:
         if f == "k":
@@ -118,7 +119,7 @@ def test_one_step_from_carried_state_matches_jax(rr, fuse):
     jstate = JF.make_davidson_init(jmv, NROOTS, M_MAX)(jnp.asarray(v0), jop)
     jstep = JF.make_davidson_step(jmv, NROOTS, M_MAX, rr=rr, fuse_chain=fuse)
     jstate = jstep(jstate, jop, jnp.asarray(diag), 1)  # a carried state mid-solve
-    tstate = convert.davidson_state(**_state_arrays(jstate))
+    tstate = convert.davidson_state(**_state_arrays(jstate), device="cpu")
     tstep = TF.make_davidson_step(tmv, NROOTS, M_MAX, rr=rr, fuse_chain=fuse)
     tnext = tstep(tstate, top, torch.from_numpy(diag), 2)
     jnext = jstep(jstate, jop, jnp.asarray(diag), 2)
@@ -135,3 +136,53 @@ def test_one_step_from_carried_state_matches_jax(rr, fuse):
     pv_t = tnext.v.T @ tnext.v
     pv_j = np.asarray(jnext.v).T @ np.asarray(jnext.v)
     np.testing.assert_allclose(pv_t.numpy(), pv_j, rtol=0, atol=1e-10)
+
+
+def _unplaced_constructors():
+    """Every packed-storage constructor of the port, each called without
+    ``device``, on small inputs."""
+    from iterative_solver_torch.models import synthetic_fci
+    from iterative_solver_torch.ops.kernels import spmv, symm_int8
+
+    mat = _matrix(64)
+    z8 = np.zeros((1, 32, 32), dtype=np.int8)
+    f32 = np.zeros(64, dtype=np.float32)
+    idx = np.zeros(1, dtype=np.int32)
+    return {
+        "SymmetricBlocked.from_dense": lambda: TS.SymmetricBlocked.from_dense(mat, b=32),
+        "SymmetricBlockedSplit.from_dense":
+            lambda: TS.SymmetricBlockedSplit.from_dense(mat, b=32),
+        "SymmetricBlockedInt8.from_dense":
+            lambda: symm_int8.SymmetricBlockedInt8.from_dense(mat, b=32),
+        "SymmetricBlockedInt8Split.from_dense":
+            lambda: symm_int8.SymmetricBlockedInt8Split.from_dense(mat, b=32),
+        "make_int8_matvec": lambda: symm_int8.make_int8_matvec(mat, b=32),
+        "synthetic_packed_int8": lambda: synthetic_fci.synthetic_packed_int8(64, b=32),
+        "convert.tensor_from_numpy": lambda: convert.tensor_from_numpy(f32),
+        "convert.symmetric_blocked":
+            lambda: convert.symmetric_blocked(z8, idx, idx, (32, 32), 32),
+        "convert.symmetric_blocked_split":
+            lambda: convert.symmetric_blocked_split(z8, z8, idx, idx, (32, 32), 32),
+        "convert.symmetric_blocked_int8":
+            lambda: convert.symmetric_blocked_int8(z8, f32[:32], idx, idx, (32, 32), 32),
+        "convert.symmetric_blocked_int8_split": lambda: convert.symmetric_blocked_int8_split(
+            z8, z8, f32[:32], idx, idx, (32, 32), 32),
+        "convert.bsr": lambda: convert.bsr(z8, idx, idx, np.array([0, 1], np.int32),
+                                           (32, 32), 32, 32),
+        "convert.bsr_int8": lambda: convert.bsr_int8(
+            z8, f32[:32], f32[:32], idx, idx, np.array([0, 1], np.int32), (32, 32), 32, 32),
+        "convert.ppcg_state": lambda: convert.ppcg_state(f32, f32, f32, f32, f32, f32, 0),
+        "convert.davidson_state": lambda: convert.davidson_state(
+            f32, f32, f32, 0, f32, f32, f32, f32),
+        "BSRMatrix.from_dense": lambda: spmv.BSRMatrix.from_dense(mat, bm=32),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_unplaced_constructors()))
+def test_constructors_default_to_cuda(name):
+    """Called without ``device``, each constructor puts its tensors on the
+    card, so where CUDA is absent it raises and never falls back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this checks the refusal where CUDA is absent")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        _unplaced_constructors()[name]()

@@ -164,7 +164,7 @@ def test_step_from_a_converted_jax_state(mat):
     for _ in range(3):
         jstate = jstep(jstate, js.operand, js.diag)
     fields = [np.asarray(f) for f in jstate]
-    tstate = convert.ppcg_state(*fields)
+    tstate = convert.ppcg_state(*fields, device="cpu")
     assert tstate.it == 3
     jnext = jstep(jstate, js.operand, js.diag)   # it 4: a full RR step
     tnext = T.make_ppcg_step(ts.matvec, NROOTS, RR_EVERY)(tstate, ts.operand, ts.diag)

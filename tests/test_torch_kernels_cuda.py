@@ -88,6 +88,91 @@ def test_split_kernel_matches_plain(cuda, n, b, m):
     assert _rel(y, symm.symm_matmat_split(x, sym)) <= TOL
 
 
+# the square walk: b below, at and above the 256-wide square; b = 100
+# (bf16 rows not 16-byte aligned: scalar chunk loads) and b = 50 (x and y
+# not float4-aligned: scalar staging and atomics)
+WALK_B = [(192, 96), (400, 200), (1024, 512), (2048, 1024), (300, 100), (150, 50)]
+SYMM_VARIANTS = {
+    "f32": (torch.float32, symm.symm_matmat_kernel, symm.symm_matmat, "symm_f32"),
+    "bf16": (torch.bfloat16, symm.symm_matmat_kernel, symm.symm_matmat, "symm_bf16"),
+    "split": (None, symm.symm_matmat_split_kernel, symm.symm_matmat_split, "symm_split"),
+}
+
+
+def _symm_operand(variant, mat, b, device, tol=None):
+    dtype = SYMM_VARIANTS[variant][0]
+    if dtype is None:
+        return symm.SymmetricBlockedSplit.from_dense(mat, b=b, device=device)
+    return symm.SymmetricBlocked.from_dense(mat, b=b, dtype=dtype, tol=tol, device=device)
+
+
+@pytest.mark.parametrize("m", [1, 8, 9, 16, 17, 64])
+@pytest.mark.parametrize("n,b", WALK_B)
+@pytest.mark.parametrize("variant", sorted(SYMM_VARIANTS))
+def test_symm_walk_matches_plain(cuda, variant, n, b, m):
+    _, kernel, plain, key = SYMM_VARIANTS[variant]
+    sym = _symm_operand(variant, _sym_matrix(n, 30), b, cuda)
+    x = torch.as_tensor(np.random.default_rng(31).standard_normal((m, sym.shape[0])),
+                        dtype=torch.float32, device=cuda)
+    before = symm.LAUNCHES[key]
+    y = kernel(x, sym)
+    torch.cuda.synchronize()
+    assert symm.LAUNCHES[key] == before + 1
+    assert y.shape == (m, sym.shape[0]) and y.dtype == torch.float32
+    assert _rel(y, plain(x, sym)) <= TOL
+
+
+@pytest.mark.parametrize("tile", ["f32", "bf16"])
+def test_symm_kernel_tol_dropped_tiles(cuda, tile):
+    n, b = 2048, 512
+    mat = _sym_matrix(n, 32)
+    mat[b:3 * b, :b] = 0.0   # tile pairs (1, 0), (2, 0) dropped
+    mat[:b, b:3 * b] = 0.0
+    sym = _symm_operand(tile, mat, b, cuda, tol=0.0)
+    assert sym.n_pairs == 10 - 2
+    x = torch.as_tensor(np.random.default_rng(33).standard_normal((16, n)),
+                        dtype=torch.float32, device=cuda)
+    y = symm.symm_matmat_kernel(x, sym)
+    torch.cuda.synchronize()
+    assert _rel(y, symm.symm_matmat(x, sym)) <= TOL
+
+
+@pytest.mark.parametrize("variant", sorted(SYMM_VARIANTS))
+def test_symm_kernel_never_takes_the_plain_path(cuda, variant, monkeypatch):
+    _, kernel, plain, key = SYMM_VARIANTS[variant]
+    sym = _symm_operand(variant, _sym_matrix(512, 34), 256, cuda)
+    x = torch.as_tensor(np.random.default_rng(35).standard_normal((16, 512)),
+                        dtype=torch.float32, device=cuda)
+    y_ref = plain(x, sym)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA launch reached the plain version")
+
+    for name in ("symm_matmat", "symm_matmat_split", "_symm_matmat_plain", "square_walk"):
+        monkeypatch.setattr(symm, name, refuse)
+    before = symm.LAUNCHES[key]
+    y = kernel(x, sym)
+    torch.cuda.synchronize()
+    assert symm.LAUNCHES[key] == before + 1
+    assert _rel(y, y_ref) <= TOL
+    with pytest.raises(TypeError):
+        kernel(x.double(), sym)
+
+
+@pytest.mark.parametrize("variant", sorted(SYMM_VARIANTS))
+def test_symm_kernel_repeated_calls_agree(cuda, variant):
+    """Atomics add in a different order on each run: the spread of repeated
+    calls stays within the tolerance."""
+    _, kernel, _, _ = SYMM_VARIANTS[variant]
+    sym = _symm_operand(variant, _sym_matrix(2048, 36), 512, cuda)
+    x = torch.as_tensor(np.random.default_rng(37).standard_normal((16, 2048)),
+                        dtype=torch.float32, device=cuda)
+    ys = torch.stack([kernel(x, sym) for _ in range(8)])
+    torch.cuda.synchronize()
+    spread = float((ys.max(0).values - ys.min(0).values).abs().max())
+    assert spread <= TOL * float(ys[0].abs().max())
+
+
 def test_symm_kernel_rejects_f64(cuda):
     sym = symm.SymmetricBlocked.from_dense(_sym_matrix(64, 5), b=32, dtype=torch.float32,
                                            device=cuda)

@@ -176,11 +176,11 @@ def test_kernel_wrapper_takes_the_plain_version_on_the_cpu():
 def test_convert_bsr_round_trip():
     jb, _ = JS.synthetic_fci_bsr(256, block=32, density=0.3, seed=7)
     tb = convert.bsr(jb.values, jb.col_idx, jb.row_idx, jb.row_ptr, jb.shape, jb.bm, jb.bn,
-                     jb.diagonal)
+                     jb.diagonal, device="cpu")
     _same_bsr(jb, tb)
     q = J.BSRMatrixInt8.from_bsr(jb)
     tq = convert.bsr_int8(q.q, q.rq, q.cq, q.col_idx, q.row_idx, q.row_ptr, q.shape, q.bm,
-                          q.bn, q.diagonal)
+                          q.bn, q.diagonal, device="cpu")
     _same_bsr(q, tq, INT8_FIELDS + ("diagonal",))
 
 

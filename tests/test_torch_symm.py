@@ -42,7 +42,7 @@ def _bits(x):
 def test_from_dense_bit_identical(n, b, dtype):
     mat = _random_symmetric(n, seed=n)
     js = J.SymmetricBlocked.from_dense(mat, b=b, dtype=_JDTYPE[dtype])
-    ts = T.SymmetricBlocked.from_dense(mat, b=b, dtype=_TDTYPE[dtype])
+    ts = T.SymmetricBlocked.from_dense(mat, b=b, dtype=_TDTYPE[dtype], device="cpu")
     assert ts.shape == js.shape and ts.b == js.b and ts.n_pairs == js.n_pairs
     assert ts.values.dtype == _TDTYPE[dtype]
     np.testing.assert_array_equal(_bits(ts.values), _bits(js.values))
@@ -57,7 +57,7 @@ def test_from_dense_tile_dropping_matches():
     mat[64:, :64] = 0.0
     mat[:64, 64:] = 0.0
     js = J.SymmetricBlocked.from_dense(mat, b=32, tol=0.0)
-    ts = T.SymmetricBlocked.from_dense(mat, b=32, tol=0.0)
+    ts = T.SymmetricBlocked.from_dense(mat, b=32, tol=0.0, device="cpu")
     assert ts.n_pairs == js.n_pairs < 10
     np.testing.assert_array_equal(ts.ii.numpy(), np.asarray(js.ii))
     np.testing.assert_array_equal(ts.jj.numpy(), np.asarray(js.jj))
@@ -68,7 +68,7 @@ def test_from_dense_tile_dropping_matches():
 def test_split_from_dense_bit_identical(n, b, scale):
     mat = _random_symmetric(n, seed=7, scale=scale)
     js = J.SymmetricBlockedSplit.from_dense(mat, b=b)
-    ts = T.SymmetricBlockedSplit.from_dense(mat, b=b)
+    ts = T.SymmetricBlockedSplit.from_dense(mat, b=b, device="cpu")
     assert ts.hi.dtype == torch.bfloat16 and ts.lo.dtype == torch.bfloat16
     np.testing.assert_array_equal(_bits(ts.hi), _bits(js.hi))
     np.testing.assert_array_equal(_bits(ts.lo), _bits(js.lo))
@@ -113,7 +113,7 @@ def _x(m, n, seed, dtype=np.float64):
 def test_plain_f64_matches_jax(n, b, m):
     mat = _random_symmetric(n, seed=2)
     js = J.SymmetricBlocked.from_dense(mat, b=b)
-    ts = T.SymmetricBlocked.from_dense(mat, b=b)
+    ts = T.SymmetricBlocked.from_dense(mat, b=b, device="cpu")
     npad = ts.shape[0]
     x = np.zeros((m, npad))
     x[:, :n] = _x(m, n, seed=3)
@@ -130,7 +130,7 @@ def test_plain_f64_matches_jax(n, b, m):
 def test_bf16_tiles_f32_x_match_interpreted_k1(n, b):
     mat = _random_symmetric(n, seed=10)
     js = J.SymmetricBlocked.from_dense(mat, b=b, dtype=jnp.bfloat16)
-    ts = T.SymmetricBlocked.from_dense(mat, b=b, dtype=torch.bfloat16)
+    ts = T.SymmetricBlocked.from_dense(mat, b=b, dtype=torch.bfloat16, device="cpu")
     x = _x(3, n, seed=11, dtype=np.float32)
     y = T.symm_matmat(torch.from_numpy(x), ts)
     assert y.dtype == torch.float32
@@ -154,7 +154,7 @@ def test_bf16_tiles_f64_x_not_rounded():
     n, b = 64, 32
     mat = _random_symmetric(n, seed=12)
     js = J.SymmetricBlocked.from_dense(mat, b=b, dtype=jnp.bfloat16)
-    ts = T.SymmetricBlocked.from_dense(mat, b=b, dtype=torch.bfloat16)
+    ts = T.SymmetricBlocked.from_dense(mat, b=b, dtype=torch.bfloat16, device="cpu")
     x = _x(2, n, seed=13)
     y = T.symm_matmat(torch.from_numpy(x), ts)
     assert y.dtype == torch.float64
@@ -167,7 +167,7 @@ def test_bf16_tiles_f64_x_not_rounded():
 def test_split_matches_jax(n, b, xdtype):
     mat = _random_symmetric(n, seed=8)
     js = J.SymmetricBlockedSplit.from_dense(mat, b=b)
-    ts = T.SymmetricBlockedSplit.from_dense(mat, b=b)
+    ts = T.SymmetricBlockedSplit.from_dense(mat, b=b, device="cpu")
     x = _x(4, n, seed=9, dtype=xdtype)
     y = T.symm_matmat_split(torch.from_numpy(x), ts)
     assert y.dtype == torch.from_numpy(x).dtype
@@ -184,14 +184,14 @@ def test_split_matches_jax(n, b, xdtype):
 def test_padding_to_block_multiple():
     n, b = 80, 32
     mat = _random_symmetric(n, seed=4)
-    ts = T.SymmetricBlocked.from_dense(mat, b=b)
+    ts = T.SymmetricBlocked.from_dense(mat, b=b, device="cpu")
     assert ts.shape == (96, 96)
     x = np.zeros((2, 96))
     x[:, :n] = _x(2, n, seed=5)
     y = T.symm_matmat(torch.from_numpy(x), ts).numpy()
     np.testing.assert_allclose(y[:, :n], x[:, :n] @ mat, atol=1e-12)
     np.testing.assert_allclose(y[:, n:], 0.0, atol=0.0)
-    split = T.SymmetricBlockedSplit.from_dense(mat, b=b)
+    split = T.SymmetricBlockedSplit.from_dense(mat, b=b, device="cpu")
     assert split.shape == (96, 96)
     ys = T.symm_matmat_split(torch.from_numpy(x), split).numpy()
     np.testing.assert_allclose(ys[:, n:], 0.0, atol=0.0)
@@ -200,9 +200,9 @@ def test_padding_to_block_multiple():
 def test_rejects_asymmetric():
     mat = np.arange(16.0).reshape(4, 4)
     with pytest.raises(ValueError):
-        T.SymmetricBlocked.from_dense(mat, b=4)
+        T.SymmetricBlocked.from_dense(mat, b=4, device="cpu")
     with pytest.raises(ValueError):
-        T.SymmetricBlockedSplit.from_dense(mat, b=4)
+        T.SymmetricBlockedSplit.from_dense(mat, b=4, device="cpu")
 
 
 def test_wrappers_take_plain_version_on_cpu():
@@ -212,8 +212,79 @@ def test_wrappers_take_plain_version_on_cpu():
     x = torch.from_numpy(_x(3, 64, seed=15, dtype=np.float32))
     before = dict(T.LAUNCHES)
     for dtype in (torch.float32, torch.bfloat16):
-        ts = T.SymmetricBlocked.from_dense(mat, b=32, dtype=dtype)
+        ts = T.SymmetricBlocked.from_dense(mat, b=32, dtype=dtype, device="cpu")
         assert torch.equal(T.symm_matmat_kernel(x, ts), T.symm_matmat(x, ts))
-    split = T.SymmetricBlockedSplit.from_dense(mat, b=32)
+    split = T.SymmetricBlockedSplit.from_dense(mat, b=32, device="cpu")
     assert torch.equal(T.symm_matmat_split_kernel(x, split), T.symm_matmat_split(x, split))
     assert T.LAUNCHES == before
+
+
+# the kernels' square walk (``square_work_list`` / ``square_walk``): b below,
+# at and above the 256-wide square, ragged b, tiles dropped by ``tol``
+WALK_SHAPES = [(192, 96, None), (400, 200, None), (1024, 512, None), (2048, 1024, None),
+               (1536, 512, 0.0)]
+
+
+def _walk_matrix(n, b, tol, seed):
+    mat = _random_symmetric(n, seed=seed)
+    if tol is not None:  # zero the off-diagonal tile pairs (1, 0) and (2, 0)
+        mat[b:3 * b, :b] = 0.0
+        mat[:b, b:3 * b] = 0.0
+    return mat
+
+
+@pytest.mark.parametrize("m", [1, 9, 17])
+@pytest.mark.parametrize("n,b,tol", WALK_SHAPES)
+def test_square_walk_equals_plain(n, b, tol, m):
+    mat = _walk_matrix(n, b, tol, seed=20)
+    ts = T.SymmetricBlocked.from_dense(mat, b=b, tol=tol, device="cpu")
+    if tol is not None:
+        assert ts.n_pairs == 6 - 2
+    x = torch.from_numpy(_x(m, n, seed=21))
+    y = T.square_walk([x], [ts.values], ts)
+    ref = T.symm_matmat(x, ts)
+    scale = float(ref.abs().max())
+    assert float((y - ref).abs().max()) <= 1e-12 * scale
+    np.testing.assert_allclose(y.numpy(), x.numpy() @ mat, rtol=0, atol=1e-12 * scale)
+
+
+@pytest.mark.parametrize("m", [1, 9, 17])
+@pytest.mark.parametrize("n,b", [(192, 96), (400, 200), (1024, 512), (2048, 1024)])
+def test_square_walk_split_equals_plain(n, b, m):
+    """The split walk (xh hi + xh lo + xl hi per square) in f64 equals the
+    plain three-product form in f64 to 1e-12, and the f32 plain version
+    ``symm_matmat_split`` to its f32 order-of-sum level."""
+    mat = _random_symmetric(n, seed=22)
+    ts = T.SymmetricBlockedSplit.from_dense(mat, b=b, device="cpu")
+    x32 = torch.from_numpy(_x(m, n, seed=23, dtype=np.float32))
+    xh, xl = (p.double() for p in T.bf16_split(x32))
+    hi, lo = ts.hi.double(), ts.lo.double()
+    y = T.square_walk([xh, xh, xl], [hi, lo, hi], ts)
+    nb = n // b
+    ref = sum(T._symm_matmat_plain(xp, plane, ts.ii, ts.jj, b, nb)
+              for xp, plane in ((xh, hi), (xh, lo), (xl, hi)))
+    scale = float(ref.abs().max())
+    assert float((y - ref).abs().max()) <= 1e-12 * scale
+    y32 = T.symm_matmat_split(x32, ts).double()
+    assert float((y - y32).abs().max()) <= 1e-6 * scale
+
+
+@pytest.mark.parametrize("n,b,tol", WALK_SHAPES + [(300, 100, None), (96, 32, None)])
+def test_work_list_covers_every_tile_element_once(n, b, tol):
+    ts = T.SymmetricBlocked.from_dense(_walk_matrix(n, b, tol, seed=24), b=b, tol=tol,
+                                       device="cpu")
+    work = T.square_work(ts)
+    assert work.dtype == torch.int32 and work.shape[1] == 4
+    cover = np.zeros((ts.n_pairs, b, b), dtype=np.int64)
+    ii, jj = ts.ii.numpy(), ts.jj.numpy()
+    for t, r0, c0, diag in work.tolist():
+        assert r0 % T.SQUARE == 0 and c0 % T.SQUARE == 0
+        assert diag == int(ii[t] == jj[t])
+        cover[t, r0:r0 + T.SQUARE, c0:c0 + T.SQUARE] += 1
+    assert np.all(cover == 1)
+    # off-diagonal squares first, then the diagonal tiles' (one contribution)
+    assert np.all(np.diff(work[:, 3].numpy()) >= 0)
+    # the list follows the tiles it was built from, and is cached on the object
+    assert T.square_work(ts) is work
+    lazy = T.SymmetricBlocked(ts.values, ts.ii, ts.jj, ts.shape, ts.b)
+    assert torch.equal(T.square_work(lazy), work)

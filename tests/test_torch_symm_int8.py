@@ -92,7 +92,7 @@ def test_headroom_refusals_match_jax(n_pad, b, dots):
 def test_from_dense_refuses_asymmetric(tier):
     cls = getattr(T, TIERS[tier][0])
     with pytest.raises(ValueError, match="symmetric"):
-        cls.from_dense(np.arange(16.0).reshape(4, 4), b=4)
+        cls.from_dense(np.arange(16.0).reshape(4, 4), b=4, device="cpu")
 
 
 def _rows(m, n, seed, zero_row=True):
@@ -202,7 +202,7 @@ def test_missing_diagonal_reads_as_zeros():
 def test_make_int8_matvec_matches_jax(two_plane):
     mat = _symmetric(160, 13, scale=0.1) + np.diag(np.linspace(0.0, 10.0, 160))
     jmv, jop, _ = J.make_int8_matvec(mat, b=64, two_plane=two_plane, use_pallas=False)
-    tmv, top, tsym = T.make_int8_matvec(mat, b=64, two_plane=two_plane)
+    tmv, top, tsym = T.make_int8_matvec(mat, b=64, two_plane=two_plane, device="cpu")
     assert len(top) == len(jop)
     for got, ref in zip(top, jop):
         np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
@@ -219,7 +219,7 @@ def test_convert_carries_jax_storage(tier):
     planes = [np.asarray(getattr(js, p)) for p in TIERS[tier][1]]
     fn = convert.symmetric_blocked_int8 if tier == "int8" else convert.symmetric_blocked_int8_split
     got = fn(*planes, np.asarray(js.gq), np.asarray(js.ii), np.asarray(js.jj), js.shape,
-             js.b, diagonal=np.asarray(js.diagonal))
+             js.b, diagonal=np.asarray(js.diagonal), device="cpu")
     assert got.shape == ts.shape and got.b == ts.b
     for name in TIERS[tier][1] + FIELDS:
         assert torch.equal(getattr(got, name), getattr(ts, name)), name

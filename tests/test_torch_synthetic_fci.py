@@ -15,7 +15,7 @@ from iterative_solver_tpu.models import synthetic_fci as J
                                       (96, 96, 2)])
 def test_packed_int8_is_byte_identical(n, b, seed):
     jsym, jdiag = J.synthetic_packed_int8(n, b=b, seed=seed, chunk_tiles=3)
-    tsym, tdiag = T.synthetic_packed_int8(n, b=b, seed=seed, chunk_tiles=3)
+    tsym, tdiag = T.synthetic_packed_int8(n, b=b, seed=seed, chunk_tiles=3, device="cpu")
     assert tsym.shape == jsym.shape and tsym.b == jsym.b
     for name in ("q", "gq", "ii", "jj", "diagonal"):
         ref = np.asarray(getattr(jsym, name))
@@ -26,15 +26,16 @@ def test_packed_int8_is_byte_identical(n, b, seed):
 
 
 def test_packed_int8_chunking_does_not_change_the_draw():
-    a, _ = T.synthetic_packed_int8(256, b=64, seed=4, chunk_tiles=1)
-    b, _ = T.synthetic_packed_int8(256, b=64, seed=4, chunk_tiles=32)
+    a, _ = T.synthetic_packed_int8(256, b=64, seed=4, chunk_tiles=1, device="cpu")
+    b, _ = T.synthetic_packed_int8(256, b=64, seed=4, chunk_tiles=32, device="cpu")
     assert torch.equal(a.q, b.q)
 
 
 def test_packed_int8_custom_diagonal():
     diag = np.linspace(-1.0, 1.0, 128) ** 3
     jsym, jdiag = J.synthetic_packed_int8(128, b=32, seed=5, diag=diag, coupling=0.2)
-    tsym, tdiag = T.synthetic_packed_int8(128, b=32, seed=5, diag=diag, coupling=0.2)
+    tsym, tdiag = T.synthetic_packed_int8(128, b=32, seed=5, diag=diag, coupling=0.2,
+                                         device="cpu")
     np.testing.assert_array_equal(tdiag, jdiag)
     np.testing.assert_array_equal(tsym.diagonal.numpy(), np.asarray(jsym.diagonal))
     np.testing.assert_array_equal(tsym.gq.numpy(), np.asarray(jsym.gq))
@@ -50,7 +51,7 @@ def test_packed_int8_refusals():
 
 def test_implied_dense_matches_jax_and_is_symmetric():
     jsym, jdiag = J.synthetic_packed_int8(256, b=64, seed=6)
-    tsym, tdiag = T.synthetic_packed_int8(256, b=64, seed=6)
+    tsym, tdiag = T.synthetic_packed_int8(256, b=64, seed=6, device="cpu")
     ref = J.implied_dense_int8(jsym, jdiag)
     got = T.implied_dense_int8(tsym, tdiag)
     np.testing.assert_array_equal(got, ref)
@@ -59,7 +60,7 @@ def test_implied_dense_matches_jax_and_is_symmetric():
 
 @pytest.mark.parametrize("chunk", [1, 4, 64])
 def test_implied_matmat_matches_dense(chunk):
-    sym, diag = T.synthetic_packed_int8(320, b=64, seed=8)
+    sym, diag = T.synthetic_packed_int8(320, b=64, seed=8, device="cpu")
     dense = T.implied_dense_int8(sym, diag)
     x = np.random.default_rng(9).standard_normal((5, 320))
     y = T.implied_matmat_int8(torch.from_numpy(x).float(), sym, diag, chunk_tiles=chunk)
