@@ -17,8 +17,9 @@ Phases, one JSON line each:
 1. the card (nvidia-smi name and power limit, torch and CUDA versions);
 2. the build of every kernel from ``iterative_solver_torch/ops/kernels/csrc``
    with nvcc for sm_90a, all sources compiled in parallel;
-   Then the SASS of the K1/K3 library (cuobjdump): its tensor-core,
-   ldmatrix, cp.async and vector-reduction instructions, counted;
+   Then the SASS of the K1/K3 and the K4/K5 libraries (cuobjdump): their
+   tensor-core (HMMA, IMMA), ldmatrix, byte-permute, cp.async and
+   reduction instructions, counted;
 3. every kernel against its plain PyTorch version on the same inputs on the
    card, at the main path's shapes. K1 (bf16 and f32 tiles), K2 and K3 at
    x 16 x 8192 (K2 with a 64-row basis), and K1/K3 again at 16 x 32768 on
@@ -31,8 +32,10 @@ Phases, one JSON line each:
    three products in one call. K4 at 16 x 8192 and at 64 x 32768 (the
    flagship operator) and K5 at 16 x 8192, tolerance 0: they add integer
    partial sums and round the epilogue in the plain version's order, so y
-   must be bit-identical. Times from CUDA events, kernel and plain timed in
-   turns (plain, kernel, kernel, plain);
+   must be bit-identical; K4's rows also count its reds per call
+   (``flush_atomics``) and the int32 sums they carry (``flush_sums``).
+   Times from CUDA events, kernel and plain timed in turns (plain, kernel,
+   kernel, plain);
 4. the headline solve: tier "fast", rr "window", fused chain, tol 2e-4;
 5. the "precise" solve: rr "full", tol 1e-5 (bench.py's precise leg);
 6. the "exact" solve, same settings as 5, which drives K1's f32 tiles;
@@ -582,6 +585,12 @@ def check_int8_kernels(matrix: np.ndarray, flagship, device) -> list:
                   + 4 * m + 8 * n + 8 * sym.n_pairs)       # sx, gq, d, ii, jj
         bound_ms, bound_by = bound(nbytes, symm_flops(sym, m, len(pairs)), "int8")
         scratch_bytes = planes * 2 * 4 * m * n             # accumulators written, read
+        # K4 flushes each square once: one int32 sum per row of x and
+        # contributed row or column, two to a 64-bit red where b is even
+        # (symm_int8.int8_flush_atomics)
+        flush_sums, flush_atomics = (
+            symm_int8.int8_flush_atomics(sym.ii.cpu(), sym.jj.cpu(), sym.b, m)
+            if planes == 1 else (None, None))
         results.append({
             "name": name, "route": "cuda",
             "source": "iterative_solver_torch/ops/kernels/csrc/symm_int8.cu",
@@ -589,6 +598,7 @@ def check_int8_kernels(matrix: np.ndarray, flagship, device) -> list:
             "tolerance": 0.0, "ms": kernel_ms, "kernel_ms": kernel_ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "bound_bytes": nbytes, "scratch_bytes": scratch_bytes,
+            "flush_atomics": flush_atomics, "flush_sums": flush_sums,
             "library_ms": library_ms, "library_note": library_note,
             "library_equals_plain_accumulator": library_equal,
             "kernel_device_ms": kernel_device_ms, "call_device_ms": call_device_ms,
@@ -1251,9 +1261,11 @@ def solve_phenol(bsr, diag, gen_s, device, tol=PHENOL_TOL) -> dict:
 
 def sass_counts(library) -> dict:
     """Instructions of interest in a built library's SASS, from cuobjdump
-    (the toolkit's, beside nvcc): tensor-core products (HMMA), shared-memory
-    matrix loads (LDSM, .MT88 the transposed ones), asynchronous copies
-    (LDGSTS) and global reductions (REDG; F32x4 the vector ones)."""
+    (the toolkit's, beside nvcc): tensor-core products (HMMA float, IMMA
+    integer), shared-memory matrix loads (LDSM, .MT88 the transposed ones),
+    byte permutes (PRMT), four-way int8 dot products on the CUDA cores
+    (IDP, dp4a), asynchronous copies (LDGSTS) and global reductions (REDG;
+    F32x4 the vector ones), per kernel function."""
     import os
     import re
     import shutil
@@ -1264,11 +1276,14 @@ def sass_counts(library) -> dict:
         return {"cuobjdump": "not found"}
     sass = subprocess.run([tool, "-sass", str(library)], check=True, capture_output=True,
                           text=True).stdout
-    ops = re.findall(r"\b(HMMA|LDSM|LDGSTS|REDG)(\.[A-Za-z0-9_.]+)?", sass)
     counts = {}
-    for op, mods in ops:
-        counts[op + mods] = counts.get(op + mods, 0) + 1
-    return {"functions": re.findall(r"Function : (\S+)", sass), "counts": counts}
+    for function in sass.split("Function : ")[1:]:
+        name, body = function.split("\n", 1)
+        ops = re.findall(r"\b(HMMA|IMMA|LDSM|PRMT|IDP|LDGSTS|REDG)(\.[A-Za-z0-9_.]+)?", body)
+        per = counts.setdefault(name.strip(), {})
+        for op, mods in ops:
+            per[op + mods] = per.get(op + mods, 0) + 1
+    return {"counts": counts}
 
 
 def main() -> int:
@@ -1295,8 +1310,9 @@ def main() -> int:
              if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "sources": list(_build.SOURCES), "built": sorted(logs), "ptxas": ptxas})
-    emit({"phase": "sass", "library": "symm_packed",
-          **sass_counts(_build.library_path("symm_packed"))})
+    for library in ("symm_packed", "symm_int8"):
+        emit({"phase": "sass", "library": library,
+              **sass_counts(_build.library_path(library))})
     matrix = bench_matrix(N)
     kernels = check_kernels(matrix, device)
     flagship, flagship_diag, gen_s = make_flagship(device)

@@ -21,6 +21,7 @@ from typing import List, Sequence
 import numpy as np
 import torch
 
+from .. import config as _config
 from . import vector_ops as vops
 
 Tensor = torch.Tensor
@@ -33,16 +34,17 @@ def _host(t: Tensor) -> np.ndarray:
 
 
 class BasisStore:
-    """Slot-managed ``(capacity, N)`` stack of basis vectors on ``device``."""
+    """Slot-managed ``(capacity, N)`` stack of basis vectors on ``device``
+    (``None``: the CUDA device, raising without it)."""
 
     def __init__(self, capacity: int, n: int, dtype=torch.float64, sharding=None,
-                 name: str = "basis", device="cpu"):
+                 name: str = "basis", device=None):
         if sharding is not None:
             raise NotImplementedError(_SHARDING)
         self.capacity = int(capacity)
         self.n = int(n)
         self.dtype = dtype
-        self.device = torch.device(device)
+        self.device = _config.resolve_device(device)
         self.name = name
         self.data = torch.zeros((self.capacity, self.n), dtype=dtype, device=self.device)
         self._free: List[int] = list(range(self.capacity - 1, -1, -1))

@@ -2,30 +2,89 @@
 //
 // Replaces two Pallas kernels of iterative_solver_tpu/ops/kernels/symm_int8.py:
 //   symm_int8       <- _symm_matmat_int8_impl (K4, :344, pallas_call :397),
-//                      one int8 plane Q;
+//                      one int8 plane Q: symm_int8_mma_kernel below;
 //   symm_int8_split <- _symm_matmat_int8_split_impl (K5, :430, pallas_call
-//                      :493), two planes Q1, Q2 and two x planes p1, p2.
+//                      :493), two planes Q1, Q2 and two x planes p1, p2:
+//                      symm_int8_kernel<2>, the first port's design, kept
+//                      as it was (see its own note further down).
 //
 // The off-diagonal part of the operator is stored as the (b, b) int8 tiles
 // Q_ij of its lower triangle, listed by (ii[t], jj[t]) with jj <= ii. x comes
 // in already quantized (qx, or p1 and p2, int8, made by the wrapper with the
 // plain version's torch ops). Every tile carries two contributions,
 //     acc_i += qx_j Q_ij^T        and, when i != j,      acc_j += qx_i Q_ij,
-// summed exactly in int32. K5 keeps two accumulators: hi = p1 Q1 and
-// lo = p1 Q2 + p2 Q1.
+// summed exactly in int32 into an (m, n) accumulator that the wrapper
+// zeroes. Integer addition is exact in any order, so the accumulator, and
+// the epilogue's y, equal the plain version bit for bit.
 //
-// Design, as K1 in symm_packed.cu: a block stages one S x S sub-tile of one
-// tile in shared memory, so each tile is read once for both contributions.
-// Half of its threads own a row of the sub-tile (the qx_j Q^T term, reduced
-// along the row), half own a column (the qx_i Q term, reduced down the
-// column). Products are __dp4a: four int8 x int8 products added into an
-// int32 in one instruction. Along a row four consecutive bytes are one word;
-// down a column they are not, so the block also keeps a transposed copy of
-// the sub-tile, built from the row-major copy in 4 x 4 byte blocks with
-// __byte_perm. Partial sums go into the (m, n) int32 accumulator with integer
-// atomics: integer addition is exact and does not depend on order, so the
-// accumulator equals the plain version's bit for bit (unlike K1's f32
-// atomics). The wrapper zeroes it; nothing here allocates.
+// What bounds K4 on this card: the tile stream. At the solver's row counts
+// (m = 16 to 64) each tile byte feeds 2m int8 products; at m = 64 the
+// PPCG flagship (n = 32768, b = 1024, 554 MB of tiles) needs 0.171 ms of
+// bytes and, on the int8 tensor cores, about half that of products. The
+// first port's kernel (dp4a) ran at 8% of that bound, held back by three
+// limits; the design answers each:
+//
+// 1. Products on the int8 tensor cores. Each contribution is an
+//    mma.sync m16n8k32 .s32.s8.s8.s32 (no .satfinite: from_dense's headroom
+//    check rules out int32 overflow) with x as the 16-row A operand and the
+//    tile as B. y_i += x_j Q^T contracts over the tile's column index, so
+//    the row-major staged chunk is B's K-major layout and plain ldmatrix
+//    gives its fragments. y_j += x_i Q contracts over the row index and
+//    needs the chunk's bytes transposed, which ldmatrix.trans (16-bit
+//    elements) cannot give for int8. Choice: the transpose is built in
+//    registers, with no shared-memory copy and no shuffle. ldmatrix.trans
+//    hands lane (g, t) the byte pairs (Q[p][2g], Q[p][2g+1]) of rows 2t and
+//    2t + 1 of each 8-row matrix; the lanes' row addresses are chosen so
+//    that those are rows 4t, 4t + 1 of one matrix and 4t + 2, 4t + 3 of the
+//    next, and two prmt per pair of matrices then give, for one column, the
+//    four bytes of rows 4t .. 4t + 3: B's K-major fragment, for the even and
+//    for the odd columns of 16 (two N tiles, whose outputs land on four
+//    consecutive columns of a lane). A shared-memory transpose would cost a
+//    second staged copy, a barrier and scalar shared stores per chunk; this
+//    costs four prmt per lane per 32 x 16 block. A diagonal tile
+//    (ii == jj) forms only the first contribution.
+// 2. An asynchronous tile stream. Each stage of a ring of STAGES holds one
+//    chunk column of a square: up to 256 rows x 64 bytes, four 64 x 64
+//    chunks, filled by cp.async (16-byte .cg copies; 4-byte ones where b is
+//    not a multiple of 16, byte loads where it is not one of 4; K1's L2
+//    evict-first hint is left out, see cp_async16). STAGES - 1 stages are in
+//    flight while one multiplies. Blocks are persistent: a block walks the
+//    squares blockIdx.x + k gridDim.x, its stream runs on from one square
+//    into the next, and the next square's x is copied in the same way while
+//    the current one multiplies. Rows are XOR-swizzled in 16-byte segments
+//    (swz), so ldmatrix and the transposing ldmatrix.trans read them without
+//    bank conflicts.
+// 3. Each tile byte leaves device memory once per call, for all m rows, and
+//    each work item flushes once. A work item is one SQ x SQ square of one
+//    tile for MT M tiles of 16 rows of x at once (MT = 1, 2 or 4, chosen per
+//    call from m; m > 64 takes passes of 64 rows, reading the tiles again).
+//    The walk goes chunk column by chunk column. Half the warps form y_i,
+//    half y_j, each sum owned by one warp over the chunk's whole depth:
+//    y_i of the whole square stays in registers and is flushed from them
+//    at its end; y_j of a chunk column is complete with its column and is
+//    flushed from them then. PTX has no vector red for s32, so where b is even two
+//    neighbouring int32 sums go out as one 64-bit red (red_pair): at the
+//    flagship 134 M reds carry 268 M sums, where the first port issued 537 M
+//    32-bit ones (symm_int8.int8_flush_atomics counts them).
+// 4. Work for 132 SMs: as many persistent blocks as fit (one per SM at
+//    MT = 4, two at MT = 2, three at MT = 1), each deriving its squares'
+//    (t, r0, c0) from its index, with no host work list: 576 squares at
+//    b = 1024, n = 8192; 8448 at the flagship. A block's warps take one of
+//    two roles, y_i or y_j, with equal products (Cfg).
+//
+// What limits it now (H100, flagship): the SM's shared-memory and load /
+// store pipe, not the bytes. Per 4 KB chunk the warps issue about 36 KB of
+// ldmatrix (each tile fragment is read by up to two warps, each x fragment
+// by four or eight, as 128 registers at 512 threads allow), beside the
+// cp.async stores and the reds, and those costs add rather than overlap:
+// without the reds the kernel takes about three quarters of its time,
+// without the reds and the tile loads about half, and the products reach
+// under a tenth of the int8 tensor-core peak. Fewer fragment reads per
+// product (wgmma reading the operands from shared memory) and fewer reds
+// (y_i carried along a strip of squares) are the next steps.
+//
+// Any b >= 1 and m >= 1: ragged chunks are zero-filled, rows of x past m
+// and columns past b are zero in the staging, the flush skips them.
 //
 // A second launch from this file is the epilogue, once per output element:
 //   K4: y = float(acc) * sx[row] * gq[col] + xf * d[col]
@@ -33,18 +92,443 @@
 // written with __fmul_rn / __fadd_rn in the order PyTorch's plain expression
 // rounds, ((acc * sx) * gq) + (xf * d), so nvcc contracts nothing into an
 // FMA and y equals the plain version bit for bit too.
-//
-// What bounds it on this card: at the solver's row counts (m = 16 to 64)
-// each tile byte feeds 2m int8 operations, far below the int8 tensor cores'
-// ridge, so the bound is the tile stream. This first version multiplies on
-// the CUDA cores (dp4a) and loads a sub-tile before computing on it, so it
-// runs well above that bound; mma.sync m16n8k32 .s8 and a pipelined tile
-// ring are later work.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
+
+// ------------------------------------------------------------------ helpers
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte copy to shared memory, bypassing L1; src_bytes = 0 writes zeros.
+// (K1's L2 evict-first cache hint is left out: with it, a thread issuing
+// four of these per stage faulted with an illegal instruction on the H100.)
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// d (16 x 8, s32) += a (16 x 32, s8, row) . b (32 x 8, s8, col)
+__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                       uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// ------------------------------------------------ K4: int8 tensor cores
+
+constexpr int SQ = 256;              // square edge (symm_int8.py SQUARE_INT8)
+constexpr int CH = 64;               // chunk edge, bytes of a tile row
+constexpr int NCH = SQ / CH;         // chunks along a square's edge
+constexpr int STAGE = SQ * CH;       // bytes per stage: one chunk column of a square
+constexpr int MTILE = 16;            // rows of x per mma M tile
+constexpr int XLD = SQ + 16;         // staged x row stride, bytes (conflict-free ldmatrix)
+
+// MT M tiles per block, in 8 warps (MT = 1, 2) or 16 (MT = 4), half of
+// them forming y_i and half y_j, each warp over all of a chunk's depth and
+// for every M tile it takes, so that each y sum has one owner and leaves
+// from its registers. y_i warp w (NW of them) takes the chunk's rows
+// (64 / NW) w .. + 64 / NW - 1 for all MT M tiles; y_j warp w takes the
+// chunk's columns 16 (w & 3) .. + 15 for the MJ M tiles from MJ (w >> 2).
+// Both do 4 MT products per chunk at MT = 1 and 8 at MT = 2, 4.
+template <int MT>
+struct Cfg {
+  static constexpr int NW = MT == 4 ? 8 : 4;          // warps per role
+  static constexpr int RG = 8 / NW;                   // y_i: 8-row groups per warp
+  static constexpr int MJ = MT == 1 ? 1 : 2;          // y_j: M tiles per warp
+  static constexpr int THREADS = 64 * NW;
+  static constexpr int BLOCKS_PER_SM = MT == 4 ? 1 : (MT == 2 ? 2 : 3);
+  static constexpr int STAGES = MT == 4 ? 4 : 3;
+  static constexpr int ROWS = MTILE * MT;             // rows of x per block
+  static constexpr int RING = STAGES * STAGE;
+  static constexpr int XS = ROWS * XLD;               // one staged x buffer
+  static constexpr size_t SMEM = size_t(RING) + 4 * XS;  // ring, x_j and x_i of two items
+};
+
+// 16-byte segment s of stage row r is stored at s ^ swz(r): conflict-free
+// for ldmatrix of 8 consecutive rows and of the transposing row sets below.
+__device__ __forceinline__ int swz(int r) { return ((r >> 1) ^ (r >> 3)) & 3; }
+
+// One work item: a square of one tile and its extents.
+struct Square {
+  int t, r0, c0, rows, cols, na, nc;
+};
+
+__device__ __forceinline__ Square square_of(int item, int b) {
+  const int nsq = (b + SQ - 1) / SQ;
+  Square sq;
+  sq.t = item / (nsq * nsq);
+  const int s = item - sq.t * nsq * nsq;
+  sq.r0 = (s / nsq) * SQ;
+  sq.c0 = (s % nsq) * SQ;
+  sq.rows = min(SQ, b - sq.r0);
+  sq.cols = min(SQ, b - sq.c0);
+  sq.na = (sq.rows + CH - 1) / CH;
+  sq.nc = (sq.cols + CH - 1) / CH;
+  return sq;
+}
+
+// x at SQ columns from col0 into [ROWS][XLD] bytes, zero past m and past
+// ``extent``: 16-byte cp.async (vec 16), 4-byte (vec 4) or byte loads.
+template <int MT>
+__device__ __forceinline__ void fetch_x(unsigned char* xs, const int8_t* x, int m, int n,
+                                        int mbase, int col0, int extent, int vec, int tid) {
+  using C = Cfg<MT>;
+  if (vec == 16) {
+    for (int e = tid; e < C::ROWS * (SQ / 16); e += C::THREADS) {
+      const int mm = e / (SQ / 16);
+      const int q = (e % (SQ / 16)) * 16;
+      const bool ok = mbase + mm < m && q < extent;
+      cp_async16(smem_u32(xs + mm * XLD + q), ok ? x + size_t(mbase + mm) * n + col0 + q : x,
+                 ok ? 16 : 0);
+    }
+  } else {
+    for (int e = tid; e < C::ROWS * (SQ / 4); e += C::THREADS) {
+      const int mm = e / (SQ / 4);
+      const int q = (e % (SQ / 4)) * 4;
+      const int8_t* src = x + size_t(mbase + mm) * n + col0 + q;
+      if (vec == 4) {
+        const bool ok = mbase + mm < m && q < extent;
+        cp_async4(smem_u32(xs + mm * XLD + q), ok ? src : x, ok ? 4 : 0);
+      } else {
+        uint32_t v = 0u;
+        if (mbase + mm < m)
+          for (int k = 0; k < 4 && q + k < extent; ++k)
+            v |= uint32_t(uint8_t(src[k])) << (8 * k);
+        *reinterpret_cast<uint32_t*>(xs + mm * XLD + q) = v;
+      }
+    }
+  }
+}
+
+// acc[0] += v0, acc[1] += v1 as one 64-bit red of v1 * 2^32 + v0 (acc 8-byte
+// aligned, the pair always added this way). Sums modulo 2^64 are exact, so
+// the pair ends as the 64-bit integer B * 2^32 + A of its two int32 sums:
+// acc[0] holds A, and acc[1] holds B, less one where A < 0 (the epilogue
+// adds it back).
+__device__ __forceinline__ void red_pair(int* p, int v0, int v1) {
+  const long long v = (long long)v1 * 4294967296LL + (long long)v0;
+  atomicAdd(reinterpret_cast<unsigned long long*>(p), (unsigned long long)v);
+}
+
+// acc (m, n) += the two contributions of the squares blockIdx.x,
+// blockIdx.x + gridDim.x, ... of the tiles, for ROWS rows of x from
+// blockIdx.y * ROWS. vec, xvec: 16 (16-byte copies), 4 or 1 (byte loads)
+// for the tiles and for x; packed: b even, 64-bit reds of column pairs.
+template <int MT>
+__global__ void __launch_bounds__(Cfg<MT>::THREADS, Cfg<MT>::BLOCKS_PER_SM)
+symm_int8_mma_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ q,
+                     const int* __restrict__ ii, const int* __restrict__ jj,
+                     int* __restrict__ acc, int m, int n, int b, int items, int vec,
+                     int xvec) {
+  using C = Cfg<MT>;
+  extern __shared__ __align__(128) unsigned char smem_k4[];
+  unsigned char* ring = smem_k4;
+  unsigned char* xbuf = ring + C::RING;   // [item & 1][x_j, x_i]
+
+  const bool packed = (b & 1) == 0;
+  const int ncs = (min(b, SQ) + CH - 1) / CH;  // chunk columns per item, at most
+  const int mbase = blockIdx.y * C::ROWS;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+
+  // Stage g of this block's stream: chunk column g % ncs of its item g / ncs
+  // (rows past the square zero-filled); past the last item, or past a ragged
+  // square's columns, nothing. At an item's first column, also x of the item
+  // after it, into the other x buffer.
+  auto fetch = [&](int g) {
+    const int j = g / ncs;
+    const int c = g - j * ncs;
+    const int item = blockIdx.x + j * gridDim.x;
+    if (item < items) {
+      const Square sq = square_of(item, b);
+      if (c < sq.nc) {
+        unsigned char* stage = ring + (g % C::STAGES) * STAGE;
+        const int8_t* tile = q + size_t(sq.t) * b * b;
+        const int col = sq.c0 + c * CH;    // first tile column of the chunk column
+        const int qmax = sq.cols - c * CH; // its valid columns
+        if (vec == 16) {
+          for (int e = tid; e < sq.na * CH * 4; e += C::THREADS) {
+            const int r = e >> 2;
+            const int sg = e & 3;
+            const bool ok = r < sq.rows && 16 * sg < qmax;
+            cp_async16(smem_u32(stage + r * CH + ((sg ^ swz(r)) << 4)),
+                       ok ? tile + size_t(sq.r0 + r) * b + col + 16 * sg : tile, ok ? 16 : 0);
+          }
+        } else {
+          for (int e = tid; e < sq.na * CH * 16; e += C::THREADS) {
+            const int r = e >> 4;
+            const int w = e & 15;
+            unsigned char* dst = stage + r * CH + (((w >> 2) ^ swz(r)) << 4) + 4 * (w & 3);
+            const int8_t* src = tile + size_t(sq.r0 + r) * b + col + 4 * w;
+            if (vec == 4) {
+              const bool ok = r < sq.rows && 4 * w < qmax;
+              cp_async4(smem_u32(dst), ok ? src : tile, ok ? 4 : 0);
+            } else {
+              uint32_t v = 0u;
+              if (r < sq.rows)
+                for (int k = 0; k < 4 && 4 * w + k < qmax; ++k)
+                  v |= uint32_t(uint8_t(src[k])) << (8 * k);
+              *reinterpret_cast<uint32_t*>(dst) = v;
+            }
+          }
+        }
+      }
+    }
+  };
+  auto fetch_item_x = [&](int j) {
+    const int item = blockIdx.x + j * gridDim.x;
+    if (item < items) {
+      const Square sq = square_of(item, b);
+      unsigned char* xs = xbuf + (j & 1) * 2 * C::XS;
+      fetch_x<MT>(xs, x, m, n, mbase, jj[sq.t] * b + sq.c0, sq.cols, xvec, tid);
+      if (ii[sq.t] != jj[sq.t])
+        fetch_x<MT>(xs + C::XS, x, m, n, mbase, ii[sq.t] * b + sq.r0, sq.rows, xvec, tid);
+    }
+  };
+  fetch_item_x(0);
+#pragma unroll 1
+  for (int g = 0; g < C::STAGES - 1; ++g) {
+    fetch(g);
+    cp_async_commit();
+  }
+
+  const int g4 = lane >> 2;
+  const int t4 = lane & 3;
+  const int xrow = lane & 15;          // ldmatrix lane address of an A fragment
+  const int xk = (lane >> 4) * 16;
+  // ldmatrix.trans row of this lane in a 32-row half: matrix j (lane >> 3)
+  // takes rows 4 (i >> 1) + (i & 1) + 2 (j & 1) (+ 16 for j >= 2), so that
+  // the two byte pairs a lane receives from matrices 0 and 1 (and 2 and 3)
+  // are four consecutive rows of one column
+  const int tr = 16 * (lane >> 4) + 4 * ((lane & 7) >> 1) + (lane & 1) + 2 * ((lane >> 3) & 1);
+
+  // The walk, for one role (y_i or y_j) of a warp. Both roles meet the same
+  // barriers: one per chunk column.
+  auto walk = [&](auto role) {
+    constexpr bool YI = decltype(role)::value;
+    const int w = YI ? warp : warp - C::NW;
+    int g = 0;
+#pragma unroll 1
+    for (int k = 0, item = blockIdx.x; item < items; ++k, item += gridDim.x) {
+      const Square sq = square_of(item, b);
+      const int bi = ii[sq.t];
+      const int bj = jj[sq.t];
+      const bool diag = bi == bj;
+      const unsigned char* xj_s = xbuf + (k & 1) * 2 * C::XS;
+      const unsigned char* xi_s = xj_s + C::XS;
+
+      // y_i: per chunk row, 8-row group and M tile, rows g4 and g4 + 8 of
+      // the M tile at tile rows p, p + 1 (p = 2 t4 in the group)
+      int acc_i[YI ? NCH : 1][C::RG][MT][4];
+      if constexpr (YI) {
+#pragma unroll
+        for (int a = 0; a < NCH; ++a)
+#pragma unroll
+          for (int rg = 0; rg < C::RG; ++rg)
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) acc_i[a][rg][mt][e] = 0;
+      }
+
+#pragma unroll 1
+      for (int c = 0; c < ncs; ++c, ++g) {
+        // stage g landed, and at c == 0 this item's x (committed ncs stages
+        // earlier; all that is in flight where a stream is shorter)
+        if (c == 0 && ncs < C::STAGES - 1)
+          cp_async_wait<0>();
+        else
+          cp_async_wait<C::STAGES - 2>();
+        __syncthreads();  // for all threads; stage g - 1 and x of item k - 1 are free
+        fetch(g + C::STAGES - 1);
+        if (c == 0) fetch_item_x(k + 1);
+        cp_async_commit();
+        if (c >= sq.nc) continue;
+        const unsigned char* st = ring + (g % C::STAGES) * STAGE;
+
+        if constexpr (YI) {
+          // y_i += x_j Q^T: B[k = q][n = p] = Q[p][q]; x_j of chunk column c
+          // in two k-steps of 32 columns, for all M tiles
+          uint32_t fxj[MT][2][4];
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+            for (int ks = 0; ks < 2; ++ks)
+              ldsm_x4(smem_u32(xj_s + (mt * MTILE + xrow) * XLD + c * CH + ks * 32 + xk),
+                      fxj[mt][ks]);
+#pragma unroll
+          for (int a = 0; a < NCH; ++a) {
+            if (a >= sq.na) continue;
+            const unsigned char* sc = st + a * CH * CH;   // chunk (a, c)
+#pragma unroll
+            for (int rg = 0; rg < C::RG; ++rg) {
+              const int r = 8 * (C::RG * w + rg) + (lane & 7);
+              uint32_t bq[4];
+              ldsm_x4(smem_u32(sc + r * CH + (((lane >> 3) ^ swz(r)) << 4)), bq);
+#pragma unroll
+              for (int mt = 0; mt < MT; ++mt) {
+                mma_s8(acc_i[a][rg][mt], fxj[mt][0], bq[0], bq[1]);
+                mma_s8(acc_i[a][rg][mt], fxj[mt][1], bq[2], bq[3]);
+              }
+            }
+          }
+        } else {
+          if (diag) continue;
+          // y_j += x_i Q: B[k = p][n = q] = Q[p][q], transposed in registers;
+          // even columns in acc_j[.][0], odd in acc_j[.][1]
+          const int seg = w & 3;
+          const int mj0 = (w >> 2) * C::MJ;
+          int acc_j[C::MJ][2][4];
+#pragma unroll
+          for (int mj = 0; mj < C::MJ; ++mj)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc_j[mj][0][e] = acc_j[mj][1][e] = 0;
+#pragma unroll
+          for (int a = 0; a < NCH; ++a) {
+            if (a >= sq.na) continue;
+            const unsigned char* sc = st + a * CH * CH;   // chunk (a, c)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int p = 32 * h + tr;
+              uint32_t bt[4];
+              ldsm_x4_trans(smem_u32(sc + p * CH + ((seg ^ swz(p)) << 4)), bt);
+              uint32_t fxi[C::MJ][4];
+#pragma unroll
+              for (int mj = 0; mj < C::MJ; ++mj)
+                ldsm_x4(smem_u32(xi_s + ((mj0 + mj) * MTILE + xrow) * XLD + a * CH + 32 * h +
+                                 xk),
+                        fxi[mj]);
+              // rows 4 t4 .. + 3 of column 2 g4 (even) and 2 g4 + 1 (odd)
+              const uint32_t ev0 = __byte_perm(bt[0], bt[1], 0x6420);
+              const uint32_t ev1 = __byte_perm(bt[2], bt[3], 0x6420);
+              const uint32_t od0 = __byte_perm(bt[0], bt[1], 0x7531);
+              const uint32_t od1 = __byte_perm(bt[2], bt[3], 0x7531);
+#pragma unroll
+              for (int mj = 0; mj < C::MJ; ++mj) {
+                mma_s8(acc_j[mj][0], fxi[mj], ev0, ev1);
+                mma_s8(acc_j[mj][1], fxi[mj], od0, od1);
+              }
+            }
+          }
+          // y_j of column c, from the registers: a lane holds rows g4 and
+          // g4 + 8 of each M tile at the columns 4 t4 .. + 3 of its 16
+          const int ql = 16 * seg + 4 * t4;
+          const int qmax = sq.cols - c * CH;
+          if (ql >= qmax) continue;
+#pragma unroll
+          for (int mj = 0; mj < C::MJ; ++mj) {
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int row = mbase + (mj0 + mj) * MTILE + g4 + 8 * h;
+              if (row >= m) continue;
+              int* out = acc + size_t(row) * n + bj * b + sq.c0 + c * CH + ql;
+              const int v0 = acc_j[mj][0][2 * h], v1 = acc_j[mj][1][2 * h];
+              const int v2 = acc_j[mj][0][2 * h + 1], v3 = acc_j[mj][1][2 * h + 1];
+              if (packed) {
+                red_pair(out, v0, v1);
+                if (ql + 2 < qmax) red_pair(out + 2, v2, v3);
+              } else {
+                atomicAdd(out, v0);
+                if (ql + 1 < qmax) atomicAdd(out + 1, v1);
+                if (ql + 2 < qmax) atomicAdd(out + 2, v2);
+                if (ql + 3 < qmax) atomicAdd(out + 3, v3);
+              }
+            }
+          }
+        }
+      }
+
+      // y_i of the square, from the registers
+      if constexpr (YI) {
+#pragma unroll
+        for (int a = 0; a < NCH; ++a) {
+#pragma unroll
+          for (int rg = 0; rg < C::RG; ++rg) {
+            const int p = a * CH + 8 * (C::RG * w + rg) + 2 * t4;
+            if (a >= sq.na || p >= sq.rows) continue;
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                const int row = mbase + mt * MTILE + g4 + 8 * h;
+                if (row >= m) continue;
+                int* out = acc + size_t(row) * n + bi * b + sq.r0 + p;
+                const int v0 = acc_i[a][rg][mt][2 * h];
+                const int v1 = acc_i[a][rg][mt][2 * h + 1];
+                if (packed) {
+                  red_pair(out, v0, v1);
+                } else {
+                  atomicAdd(out, v0);
+                  if (p + 1 < sq.rows) atomicAdd(out + 1, v1);
+                }
+              }
+            }
+          }
+        }
+      }
+    }
+  };
+  if (warp < C::NW)
+    walk(std::integral_constant<bool, true>());
+  else
+    walk(std::integral_constant<bool, false>());
+  cp_async_wait<0>();
+}
+
+// ------------------------------------------ K5: the first port's kernel
+//
+// symm_int8_kernel<2>, kept as the first port wrote it (PLANES == 1 is no
+// longer instantiated). A block stages one S x S sub-tile of each plane in
+// shared memory, so each tile is read once for both contributions. Half of
+// its threads own a row of the sub-tile (the p Q^T term, reduced along the
+// row), half own a column (the p Q term, reduced down the column). Products
+// are __dp4a: four int8 x int8 products added into an int32 in one
+// instruction. Along a row four consecutive bytes are one word; down a
+// column they are not, so the block also keeps a transposed copy of the
+// sub-tile, built from the row-major copy in 4 x 4 byte blocks with
+// __byte_perm. Partial sums go into the int32 accumulators hi = p1 Q1 and
+// lo = p1 Q2 + p2 Q1 with one integer atomic per row of x and owned row or
+// column. Its limits (CUDA cores, a synchronous stage, m scalar atomics per
+// thread and sub-tile) are K4's before its redesign; a later port gives K5
+// the tensor-core design above with a second plane.
 
 constexpr int S = 128;            // sub-tile edge, in bytes of a tile row
 constexpr int SW = S / 4;         // 32-bit words in a sub-tile row
@@ -239,43 +723,64 @@ __global__ void symm_int8_epilogue(const int* __restrict__ acc0,
                                    const float* __restrict__ sx,
                                    const float* __restrict__ gq,
                                    const float* __restrict__ d,
-                                   float* __restrict__ y, int m, int n) {
+                                   float* __restrict__ y, int m, int n, bool packed) {
   const size_t total = size_t(m) * n;
   for (size_t i = size_t(blockIdx.x) * blockDim.x + threadIdx.x; i < total;
        i += size_t(gridDim.x) * blockDim.x) {
     const int row = int(i / n);
     const int col = int(i % n);
-    float a = __int2float_rn(acc0[i]);
+    int v = acc0[i];
+    if (packed && (col & 1)) v += acc0[i - 1] < 0;   // K4's packed column pairs
+    float a = __int2float_rn(v);
     if constexpr (SPLIT)
       a = __fadd_rn(a, __fmul_rn(__int2float_rn(acc1[i]), float(1.0 / 254.0)));
     y[i] = __fadd_rn(__fmul_rn(__fmul_rn(a, sx[row]), gq[col]), __fmul_rn(xf[i], d[col]));
   }
 }
 
-template <int PLANES>
-int launch(const int8_t* x0, const int8_t* x1, const int8_t* q0,
-           const int8_t* q1, const int* ii, const int* jj, const float* xf,
-           const float* sx, const float* gq, const float* d, int* acc0,
-           int* acc1, float* y, int m, int n, int b, int n_pairs,
-           cudaStream_t stream) {
-  const int nsub = (b + S - 1) / S;
-  if (m <= 0 || n <= 0 || b <= 0 || n_pairs <= 0 || n % b != 0 ||
-      nsub * nsub > 65535)
-    return int(cudaErrorInvalidValue);
-  constexpr size_t smem = smem_bytes<PLANES>();
-  // set on every launch: the attribute belongs to the current device
-  cudaError_t err = cudaFuncSetAttribute(
-      symm_int8_kernel<PLANES>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  if (err != cudaSuccess) return int(err);
-  symm_int8_kernel<PLANES><<<dim3(n_pairs, nsub * nsub), THREADS, smem, stream>>>(
-      x0, x1, q0, q1, ii, jj, acc0, acc1, m, n, b);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return int(err);
+// ------------------------------------------------------------------ launch
+
+int launch_epilogue(bool split, bool packed, const int* acc0, const int* acc1,
+                    const float* xf, const float* sx, const float* gq, const float* d,
+                    float* y, int m, int n, cudaStream_t stream) {
   const size_t total = size_t(m) * n;
   const int block = 256;
   const size_t blocks = (total + block - 1) / block;
   const int grid = int(blocks < 65536 ? blocks : 65536);   // grid-stride beyond
-  symm_int8_epilogue<PLANES == 2><<<grid, block, 0, stream>>>(acc0, acc1, xf, sx, gq, d, y, m, n);
+  if (split)
+    symm_int8_epilogue<true><<<grid, block, 0, stream>>>(acc0, acc1, xf, sx, gq, d, y, m, n,
+                                                         packed);
+  else
+    symm_int8_epilogue<false><<<grid, block, 0, stream>>>(acc0, acc1, xf, sx, gq, d, y, m, n,
+                                                          packed);
+  return int(cudaGetLastError());
+}
+
+template <int MT>
+int launch_mma(const int8_t* qx, const int8_t* q, const int* ii, const int* jj, int* acc,
+               int m, int n, int b, int items, cudaStream_t stream) {
+  using C = Cfg<MT>;
+  // set on every launch: the attribute belongs to the current device
+  cudaError_t err = cudaFuncSetAttribute(
+      symm_int8_mma_kernel<MT>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(C::SMEM));
+  if (err != cudaSuccess) return int(err);
+  int device = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) !=
+          cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, symm_int8_mma_kernel<MT>,
+                                                           C::THREADS, C::SMEM)) != cudaSuccess)
+    return int(err);
+  if (per_sm < 1) return int(cudaErrorInvalidConfiguration);
+  // persistent blocks: each walks the squares blockIdx.x + k * gridDim.x
+  const int grid = items < sms * per_sm ? items : sms * per_sm;
+  const int passes = (m + C::ROWS - 1) / C::ROWS;
+  const int vec = (b % 16 == 0 && reinterpret_cast<uintptr_t>(q) % 16 == 0) ? 16
+                  : (b % 4 == 0 && reinterpret_cast<uintptr_t>(q) % 4 == 0) ? 4 : 1;
+  const int xvec = (b % 16 == 0 && reinterpret_cast<uintptr_t>(qx) % 16 == 0) ? 16
+                   : (b % 4 == 0 && reinterpret_cast<uintptr_t>(qx) % 4 == 0) ? 4 : 1;
+  symm_int8_mma_kernel<MT><<<dim3(grid, passes), C::THREADS, C::SMEM, stream>>>(
+      qx, q, ii, jj, acc, m, n, b, items, vec, xvec);
   return int(cudaGetLastError());
 }
 
@@ -283,14 +788,26 @@ int launch(const int8_t* x0, const int8_t* x1, const int8_t* q0,
 
 extern "C" {
 
-// K4. qx (m, n) int8; q (n_pairs, b, b) int8; xf (m, n) f32; sx (m,) f32;
-// gq, d (n,) f32; acc (m, n) int32 zeroed by the caller; y (m, n) f32.
+// The square edge of K4's work items (symm_int8.py SQUARE_INT8).
+int symm_int8_square_edge() { return SQ; }
+
+// K4. qx (m, n) int8; q (n_pairs, b, b) int8, 16-byte aligned; xf (m, n)
+// f32; sx (m,) f32; gq, d (n,) f32; acc (m, n) int32 zeroed by the caller;
+// y (m, n) f32. M tiles per block: 1 for m <= 16, 2 for m <= 32, else 4.
 int symm_int8(const int8_t* qx, const int8_t* q, const int* ii, const int* jj,
               const float* xf, const float* sx, const float* gq, const float* d,
               int* acc, float* y, int m, int n, int b, int n_pairs,
               cudaStream_t stream) {
-  return launch<1>(qx, qx, q, q, ii, jj, xf, sx, gq, d, acc, acc, y, m, n, b,
-                   n_pairs, stream);
+  const long long nsq = (b + SQ - 1) / SQ;
+  const long long items = n_pairs * nsq * nsq;
+  if (m <= 0 || n <= 0 || b <= 0 || n_pairs <= 0 || n % b != 0 || items > 0x7fffffff ||
+      (m + MTILE - 1) / MTILE > 65535)
+    return int(cudaErrorInvalidValue);
+  int err = m <= MTILE       ? launch_mma<1>(qx, q, ii, jj, acc, m, n, b, int(items), stream)
+            : m <= 2 * MTILE ? launch_mma<2>(qx, q, ii, jj, acc, m, n, b, int(items), stream)
+                             : launch_mma<4>(qx, q, ii, jj, acc, m, n, b, int(items), stream);
+  if (err != 0) return err;
+  return launch_epilogue(false, b % 2 == 0, acc, acc, xf, sx, gq, d, y, m, n, stream);
 }
 
 // K5. p1, p2 (m, n) int8; q1, q2 (n_pairs, b, b) int8; acc1 (hi) and acc2
@@ -300,8 +817,20 @@ int symm_int8_split(const int8_t* p1, const int8_t* p2, const int8_t* q1,
                     const float* xf, const float* sx, const float* gq,
                     const float* d, int* acc1, int* acc2, float* y, int m,
                     int n, int b, int n_pairs, cudaStream_t stream) {
-  return launch<2>(p1, p2, q1, q2, ii, jj, xf, sx, gq, d, acc1, acc2, y, m, n,
-                   b, n_pairs, stream);
+  const int nsub = (b + S - 1) / S;
+  if (m <= 0 || n <= 0 || b <= 0 || n_pairs <= 0 || n % b != 0 ||
+      nsub * nsub > 65535)
+    return int(cudaErrorInvalidValue);
+  constexpr size_t smem = smem_bytes<2>();
+  // set on every launch: the attribute belongs to the current device
+  cudaError_t err = cudaFuncSetAttribute(
+      symm_int8_kernel<2>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err != cudaSuccess) return int(err);
+  symm_int8_kernel<2><<<dim3(n_pairs, nsub * nsub), THREADS, smem, stream>>>(
+      p1, p2, q1, q2, ii, jj, acc1, acc2, m, n, b);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return int(err);
+  return launch_epilogue(true, false, acc1, acc2, xf, sx, gq, d, y, m, n, stream);
 }
 
 const char* kernel_error_string(int err) {

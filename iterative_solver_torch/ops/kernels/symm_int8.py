@@ -25,7 +25,11 @@ both packages (``convert.py``).
 Kernels (CUDA C++ for sm_90a, ``csrc/symm_int8.cu``):
 
 - ``symm_matmat_int8_kernel`` replaces ``symm_matmat_int8_pallas`` /
-  ``_symm_matmat_int8_impl`` (K4);
+  ``_symm_matmat_int8_impl`` (K4), on the int8 tensor cores: one block per
+  ``SQUARE_INT8`` x ``SQUARE_INT8`` square of a tile and pass of up to 64
+  rows of x, derived from the block index (``int8_square_items``);
+  ``int8_square_walk`` follows that walk in plain PyTorch for the CPU tests,
+  and ``int8_flush_atomics`` counts its flushes;
 - ``symm_matmat_int8_split_kernel`` replaces
   ``symm_matmat_int8_split_pallas`` / ``_symm_matmat_int8_split_impl`` (K5).
 
@@ -65,6 +69,12 @@ Tensor = torch.Tensor
 LAUNCHES = {"symm_int8": 0, "symm_int8_split": 0}
 
 _SQRT127 = float(np.sqrt(127.0))
+
+# K4's walk (csrc/symm_int8.cu): squares of SQUARE_INT8, streamed in chunks
+# of CHUNK_INT8, for M_TILE rows of x per tensor-core M tile
+SQUARE_INT8 = 256
+CHUNK_INT8 = 64
+M_TILE = 16
 
 
 def _pack_lower(matrix: np.ndarray, b: int):
@@ -276,6 +286,70 @@ def _symm_matmat_int8_plain(qx: Tensor, q: Tensor, ii: Tensor, jj: Tensor,
     return acc.transpose(0, 1).reshape(m, nb * b).to(torch.int32)
 
 
+def int8_m_tiles(m: int) -> int:
+    """M tiles of 16 rows of x that one K4 block takes: 1 for m <= 16, 2
+    for m <= 32, else 4 (m > 64 then takes passes of 64 rows)."""
+    return 1 if m <= M_TILE else 2 if m <= 2 * M_TILE else 4
+
+
+def int8_square_items(n_pairs: int, b: int):
+    """K4's work items in block-index order: (t, r0, c0) of each
+    ``SQUARE_INT8`` square of each tile, derived as the kernel derives them
+    from ``blockIdx.x``."""
+    nsq = -(-b // SQUARE_INT8)
+    for bid in range(n_pairs * nsq * nsq):
+        t, s = divmod(bid, nsq * nsq)
+        yield t, (s // nsq) * SQUARE_INT8, (s % nsq) * SQUARE_INT8
+
+
+def int8_square_walk(qx: Tensor, q: Tensor, ii: Tensor, jj: Tensor, b: int) -> Tensor:
+    """Plain emulation of K4's walk, for the CPU tests: for each pass of
+    ``16 * int8_m_tiles(m)`` rows of x and each work item, the chunks
+    column by column as the kernel streams them, both contributions
+    y_i += x_j Qᵀ and (off the diagonal) y_j += x_i Q summed in int32; y_i
+    added into the accumulator once per item, y_j once per chunk column, as
+    the kernel flushes."""
+    m, n = qx.shape
+    rows_per_pass = M_TILE * int8_m_tiles(m)
+    acc = torch.zeros((m, n), dtype=torch.int32, device=qx.device)
+    x = qx.to(torch.int64)
+    tiles = q.to(torch.int64)
+    ii, jj = ii.tolist(), jj.tolist()
+    for mbase in range(0, m, rows_per_pass):
+        xs = x[mbase:mbase + rows_per_pass]
+        for t, r0, c0 in int8_square_items(len(ii), b):
+            diag = ii[t] == jj[t]
+            r1, c1 = min(r0 + SQUARE_INT8, b), min(c0 + SQUARE_INT8, b)
+            yi = torch.zeros((xs.shape[0], r1 - r0), dtype=torch.int32, device=qx.device)
+            for c in range(c0, c1, CHUNK_INT8):
+                width = min(CHUNK_INT8, c1 - c)
+                yj = torch.zeros((xs.shape[0], width), dtype=torch.int32, device=qx.device)
+                for a in range(r0, r1, CHUNK_INT8):
+                    chunk = tiles[t, a:a + CHUNK_INT8, c:c + width]
+                    xj = xs[:, jj[t] * b + c:jj[t] * b + c + width]
+                    yi[:, a - r0:a - r0 + chunk.shape[0]] += (xj @ chunk.T).to(torch.int32)
+                    if not diag:
+                        xi = xs[:, ii[t] * b + a:ii[t] * b + a + chunk.shape[0]]
+                        yj += (xi @ chunk).to(torch.int32)
+                if not diag:
+                    acc[mbase:mbase + rows_per_pass, jj[t] * b + c:jj[t] * b + c + width] += yj
+            acc[mbase:mbase + rows_per_pass, ii[t] * b + r0:ii[t] * b + r1] += yi
+    return acc
+
+
+def int8_flush_atomics(ii, jj, b: int, m: int) -> Tuple[int, int]:
+    """(int32 sums, reds) that one K4 call flushes into the accumulator:
+    each work item flushes once, one sum per row of x and row of its square
+    (y_i) and, off the diagonal, per row of x and column of its square
+    (y_j). Where b is even two neighbouring sums go out as one 64-bit red,
+    else each as a 32-bit one."""
+    diag = np.asarray(ii) == np.asarray(jj)
+    edges = [min(SQUARE_INT8, b - s) for s in range(0, b, SQUARE_INT8)]
+    per_tile = sum(edges) * len(edges)   # sum over squares of their rows (or columns)
+    sums = int(m * per_tile * (2 * np.sum(~diag) + np.sum(diag)))
+    return sums, sums // 2 if b % 2 == 0 else sums
+
+
 def symm_matmat_int8(x: Tensor, sym: SymmetricBlockedInt8) -> Tensor:
     """Plain PyTorch version of K4 (symm_int8.py:295-302): float32 whatever
     the dtype of x, cast back to it."""
@@ -312,6 +386,9 @@ def _int8_lib():
     lib.symm_int8_split.argtypes = [_P] * 13 + [_I] * 4 + [_P]
     lib.symm_int8.restype = _I
     lib.symm_int8_split.restype = _I
+    if lib.symm_int8_square_edge() != SQUARE_INT8:
+        raise RuntimeError(f"symm_int8.cu walks squares of {lib.symm_int8_square_edge()}, "
+                           f"symm_int8.py {SQUARE_INT8}")
     return lib
 
 
@@ -329,9 +406,10 @@ def _check_scales(x: Tensor, sym) -> Tuple[Tensor, Tensor]:
 
 
 def symm_matmat_int8_kernel(x: Tensor, sym: SymmetricBlockedInt8) -> Tensor:
-    """K4: the one-plane int8 action, one read per packed tile (replaces
-    ``symm_matmat_int8_pallas``). A CUDA tensor launches ``symm_int8`` and
-    returns float32; a CPU tensor takes the plain version."""
+    """K4: the one-plane int8 action, each packed tile read once for up to
+    64 rows of x (replaces ``symm_matmat_int8_pallas``). A CUDA tensor
+    launches ``symm_int8`` and returns float32; a CPU tensor takes the plain
+    version."""
     if x.device.type == "cpu":
         return symm_matmat_int8(x, sym)
     x = x.contiguous()

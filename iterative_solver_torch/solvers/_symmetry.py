@@ -18,6 +18,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import config as _config
+
 
 def check_symmetric_operator(
     matvec,
@@ -26,10 +28,12 @@ def check_symmetric_operator(
     dtype,
     solver: str,
     parity_hint: str,
-    device="cpu",
+    device=None,
     rel_tol: float = 1e-2,
 ) -> None:
-    """Raise ValueError if matvec is measurably non-symmetric."""
+    """Raise ValueError if matvec is measurably non-symmetric. ``device=None``
+    is the CUDA device (raises without it)."""
+    device = _config.resolve_device(device)
     rng = np.random.default_rng(0)
     u = rng.standard_normal(block_shape)
     v = rng.standard_normal(block_shape)

@@ -28,6 +28,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import config as _config
 from ..array import vector_ops as vops
 from ..array.basis_store import BasisStore, _host
 from ..utils import Logger, Statistics
@@ -56,17 +57,19 @@ class XSpace:
         capacity: int = 16,
         logger: Optional[Logger] = None,
         stats: Optional[Statistics] = None,
-        device="cpu",
+        device=None,
     ):
         self.n = int(n)
         self.dtype = dtype
-        self.device = torch.device(device)
+        self.device = _config.resolve_device(device)
         self.logger = logger or Logger()
         self.stats = stats or Statistics()
         # the JAX package's store_factory (its host/disk spill tier,
         # offload_store.py) waits for ROADMAP.md Queue 1, item 15
-        self.store_v = BasisStore(capacity, n, dtype, sharding, name="params", device=device)
-        self.store_a = BasisStore(capacity, n, dtype, sharding, name="actions", device=device)
+        self.store_v = BasisStore(capacity, n, dtype, sharding, name="params",
+                                  device=self.device)
+        self.store_a = BasisStore(capacity, n, dtype, sharding, name="actions",
+                                  device=self.device)
         # logical index lists; q newest-first
         self.p_slots: List[int] = []
         self.p_sparse: List[Dict[int, float]] = []

@@ -141,8 +141,11 @@ def test_one_step_from_carried_state_matches_jax(rr, fuse):
 def _unplaced_constructors():
     """Every packed-storage constructor of the port, each called without
     ``device``, on small inputs."""
+    from iterative_solver_torch.array.basis_store import BasisStore
     from iterative_solver_torch.models import synthetic_fci
     from iterative_solver_torch.ops.kernels import spmv, symm_int8
+    from iterative_solver_torch.solvers._symmetry import check_symmetric_operator
+    from iterative_solver_torch.subspace.xspace import XSpace
 
     mat = _matrix(64)
     z8 = np.zeros((1, 32, 32), dtype=np.int8)
@@ -175,6 +178,10 @@ def _unplaced_constructors():
         "convert.davidson_state": lambda: convert.davidson_state(
             f32, f32, f32, 0, f32, f32, f32, f32),
         "BSRMatrix.from_dense": lambda: spmv.BSRMatrix.from_dense(mat, bm=32),
+        "BasisStore": lambda: BasisStore(4, 64),
+        "XSpace": lambda: XSpace(64),
+        "check_symmetric_operator": lambda: check_symmetric_operator(
+            lambda x, op: x, None, (2, 64), torch.float64, "solver", "hint"),
     }
 
 

@@ -227,9 +227,10 @@ def test_small_solve_on_card(cuda, tier):
     np.testing.assert_allclose(rq, ref, atol=1e-5 if tier == "fast" else 1e-8)
 
 
-# K4/K5 shapes (n, b): b=32 and b=96 are one ragged sub-tile below 128;
-# b=200 is ragged and not a multiple of 16 (byte loads); b=512 and b=1024
-# are whole 128-wide sub-tiles
+# K4/K5 shapes (n, b): b=32 is below K4's 64-wide chunk and b=96 ragged in
+# it (K5: one ragged sub-tile below 128); b=200 is ragged and not a
+# multiple of 16 (4-byte copies); b=512 and b=1024 are whole 256-wide
+# squares (K5: 128-wide sub-tiles)
 INT8_SHAPES = [(96, 32), (288, 96), (400, 200), (1024, 512), (2048, 1024)]
 INT8_TIERS = {
     "int8": (symm_int8.SymmetricBlockedInt8, symm_int8.symm_matmat_int8_kernel,
@@ -254,6 +255,78 @@ def test_int8_kernel_equals_plain(cuda, tier, n, b, m):
     torch.cuda.synchronize()
     assert symm_int8.LAUNCHES[key] == before + 1
     assert torch.equal(y, plain(x, sym))
+
+
+# K4 at every M tiling: 15 and 16 rows one M tile, 17 and 32 two, 64 four,
+# 65 and 128 passes of 64 rows (the test above takes m = 1, 4, 16, 64)
+@pytest.mark.parametrize("m", [15, 17, 32, 65, 128])
+@pytest.mark.parametrize("n,b", INT8_SHAPES)
+def test_int8_kernel_m_tilings(cuda, n, b, m):
+    sym = symm_int8.SymmetricBlockedInt8.from_dense(_sym_matrix(n, 12), b=b, device=cuda)
+    x = torch.as_tensor(np.random.default_rng(13).standard_normal((m, sym.shape[0])),
+                        dtype=torch.float32, device=cuda)
+    before = symm_int8.LAUNCHES["symm_int8"]
+    y = symm_int8.symm_matmat_int8_kernel(x, sym)
+    torch.cuda.synchronize()
+    assert symm_int8.LAUNCHES["symm_int8"] == before + 1
+    assert torch.equal(y, symm_int8.symm_matmat_int8(x, sym))
+
+
+# b = 50: rows not 4-byte aligned (byte loads), b even (K4's 64-bit reds);
+# b = 25: b odd (K4's 32-bit reds)
+@pytest.mark.parametrize("m", [16, 64])
+@pytest.mark.parametrize("n,b", [(150, 50), (75, 25)])
+@pytest.mark.parametrize("tier", sorted(INT8_TIERS))
+def test_int8_kernel_unaligned_b(cuda, tier, n, b, m):
+    cls, kernel, plain, _ = INT8_TIERS[tier]
+    sym = cls.from_dense(_sym_matrix(n, 20), b=b, device=cuda)
+    x = torch.as_tensor(np.random.default_rng(21).standard_normal((m, n)),
+                        dtype=torch.float32, device=cuda)
+    y = kernel(x, sym)
+    torch.cuda.synchronize()
+    assert torch.equal(y, plain(x, sym))
+
+
+@pytest.mark.parametrize("m", [16, 64])
+@pytest.mark.parametrize("tier", sorted(INT8_TIERS))
+def test_int8_kernel_tol_dropped_tiles(cuda, tier, m):
+    cls, kernel, plain, _ = INT8_TIERS[tier]
+    n, b = 2048, 512
+    mat = _sym_matrix(n, 14)
+    mat[b:3 * b, :b] = 0.0   # tile pairs (1, 0), (2, 0) dropped
+    mat[:b, b:3 * b] = 0.0
+    sym = cls.from_dense(mat, b=b, tol=0.0, device=cuda)
+    assert sym.n_pairs == 10 - 2
+    x = torch.as_tensor(np.random.default_rng(15).standard_normal((m, n)),
+                        dtype=torch.float32, device=cuda)
+    y = kernel(x, sym)
+    torch.cuda.synchronize()
+    assert torch.equal(y, plain(x, sym))
+
+
+def test_int8_kernel_64_rows_at_n8192(cuda):
+    """The flagship's row count and tile size on the flagship's generator,
+    at n = 8192 (36 tiles of 1024)."""
+    from iterative_solver_torch.models.synthetic_fci import synthetic_packed_int8
+
+    sym, _ = synthetic_packed_int8(8192, b=1024, seed=16, device=cuda)
+    x = torch.as_tensor(np.random.default_rng(17).standard_normal((64, 8192)),
+                        dtype=torch.float32, device=cuda)
+    y = symm_int8.symm_matmat_int8_kernel(x, sym)
+    torch.cuda.synchronize()
+    assert torch.equal(y, symm_int8.symm_matmat_int8(x, sym))
+
+
+@pytest.mark.parametrize("m", [16, 64])
+def test_int8_kernel_repeated_calls_identical(cuda, m):
+    """Integer atomics are exact in any order: every call gives the same bits."""
+    sym = symm_int8.SymmetricBlockedInt8.from_dense(_sym_matrix(2048, 18), b=1024,
+                                                    device=cuda)
+    x = torch.as_tensor(np.random.default_rng(19).standard_normal((m, 2048)),
+                        dtype=torch.float32, device=cuda)
+    ys = torch.stack([symm_int8.symm_matmat_int8_kernel(x, sym) for _ in range(8)])
+    torch.cuda.synchronize()
+    assert all(torch.equal(ys[0], y) for y in ys[1:])
 
 
 def _saturated(cls, copies, b, device):

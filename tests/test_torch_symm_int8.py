@@ -223,3 +223,68 @@ def test_convert_carries_jax_storage(tier):
     assert got.shape == ts.shape and got.b == ts.b
     for name in TIERS[tier][1] + FIELDS:
         assert torch.equal(getattr(got, name), getattr(ts, name)), name
+
+
+# K4's walk (``int8_square_walk``, the kernel's order in plain PyTorch): b
+# below the 64-wide chunk (32), ragged chunks (96, 200), whole 256-wide
+# squares (1024), and tiles dropped by ``tol``; m = 17 takes two M tiles,
+# m = 64 four, m = 65 a second pass of 64 rows
+WALKS = [(96, 32, None), (288, 96, None), (400, 200, None), (2048, 1024, None),
+         (384, 96, 0.0), (3072, 1024, 0.0)]
+
+
+def _walk_operand(n, b, tol):
+    mat = _block_sparse(n, b, 16) if tol is not None else _symmetric(n, 16)
+    ts = T.SymmetricBlockedInt8.from_dense(mat, b=b, tol=tol, device="cpu")
+    if tol is not None:
+        assert ts.n_pairs < (n // b) * (n // b + 1) // 2
+    return ts
+
+
+@pytest.mark.parametrize("m", [1, 16, 17, 64, 65])
+@pytest.mark.parametrize("n,b,tol", WALKS)
+def test_square_walk_equals_plain(n, b, tol, m):
+    ts = _walk_operand(n, b, tol)
+    qx = np.random.default_rng(17).integers(-127, 128, (m, ts.shape[0])).astype(np.int8)
+    qx[m // 2] = 0
+    qx = torch.from_numpy(qx)
+    got = T.int8_square_walk(qx, ts.q, ts.ii, ts.jj, ts.b)
+    ref = T._symm_matmat_int8_plain(qx, ts.q, ts.ii, ts.jj, ts.b, ts.shape[0] // ts.b)
+    assert got.dtype == torch.int32
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("n,b,tol", WALKS)
+def test_square_items_cover_every_tile_element_once(n, b, tol):
+    """Each tile element lies in exactly one chunk of one work item; an
+    off-diagonal tile's elements give two contributions, a diagonal tile's
+    one; and ``int8_flush_atomics`` counts one int32 sum per row of x and
+    contributed row or column of every item, two to a 64-bit red where b is
+    even."""
+    ts = _walk_operand(n, b, tol)
+    ii, jj = ts.ii.numpy(), ts.jj.numpy()
+    cover = np.zeros((ts.n_pairs, b, b), dtype=np.int64)
+    contributions = np.zeros_like(cover)
+    flushes_i = flushes_j = 0
+    items = list(T.int8_square_items(ts.n_pairs, b))
+    assert len(items) == ts.n_pairs * (-(-b // T.SQUARE_INT8)) ** 2
+    for t, r0, c0 in items:
+        r1, c1 = min(r0 + T.SQUARE_INT8, b), min(c0 + T.SQUARE_INT8, b)
+        for c in range(c0, c1, T.CHUNK_INT8):
+            for a in range(r0, r1, T.CHUNK_INT8):
+                cover[t, a:min(a + T.CHUNK_INT8, r1), c:min(c + T.CHUNK_INT8, c1)] += 1
+        contributions[t, r0:r1, c0:c1] += 1 if ii[t] == jj[t] else 2
+        flushes_i += r1 - r0
+        flushes_j += 0 if ii[t] == jj[t] else c1 - c0
+    assert np.all(cover == 1)
+    assert np.all(contributions[ii == jj] == 1) and np.all(contributions[ii != jj] == 2)
+    for m in (1, 64, 65):
+        sums, reds = T.int8_flush_atomics(ii, jj, b, m)
+        assert sums == m * (flushes_i + flushes_j)
+        assert reds == (sums // 2 if b % 2 == 0 else sums)
+
+
+@pytest.mark.parametrize("m,tiles", [(1, 1), (16, 1), (17, 2), (32, 2), (33, 4), (64, 4),
+                                     (65, 4)])
+def test_m_tiles_per_block(m, tiles):
+    assert T.int8_m_tiles(m) == tiles
