@@ -104,7 +104,8 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
 
 
 def stream_handle(device) -> ctypes.c_void_p:
-    """PyTorch's current stream on ``device``, as the C entry points take it."""
+    """PyTorch's current stream on ``device``, as the C entry points take it
+    (the raw handle, without building a ``torch.cuda.Stream``)."""
     import torch
 
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+    return ctypes.c_void_p(torch._C._cuda_getCurrentRawStream(device.index))

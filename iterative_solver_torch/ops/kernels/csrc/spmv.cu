@@ -8,31 +8,44 @@
 //
 // The Pallas kernel runs one grid step per block row, streams that row's
 // value blocks HBM->VMEM through two slots and keeps the (m, bm) f32
-// accumulator on chip. Here one CTA owns one block row and IC = 32 of its
-// output columns (blockIdx.y picks which), so it writes its part of y once,
-// needs no atomics and gives the same bits on every run. Splitting a block
-// row over bm/IC CTAs costs no extra value traffic: each CTA reads only its
-// own IC rows of every block (a contiguous IC x bn slab), and only x, which
-// stays in L2, is read again. At the bench operator (64 block rows) this
-// gives 256 CTAs instead of 64.
+// accumulator on chip. Here:
 //
-// Inside the CTA, lane l of each warp owns output column i0 + l; the four
-// warps split the bn inner columns of every staged chunk, and their partial
-// sums are added in a fixed order at the end (deterministic). A chunk of JC
-// inner columns of the value slab (converted to f32) and of the x tile is
-// staged in shared memory per step: a lane reads its value row from shared
-// memory with a padded stride (no bank conflicts), and x is read as float4
-// broadcasts, MT rows at a time, into MT f32 accumulators in registers
-// (MT = 4, 8, 16, 32 or 64, the least that holds m; rows beyond m are
-// staged as zeros and never written).
+// - Work split. One CTA owns one block row and IC output columns of it:
+//   IC = 128 where m <= 16, bm > 64 and that still gives two CTAs per SM
+//   (the phenol scale: one CTA stages each x tile once for the whole
+//   block row), else 32 (the bench operator's 64 block rows: 256 CTAs);
+//   ``spmv.bsr_columns_per_cta`` chooses. CTA b takes block row
+//   b / ceil(bm / IC) and column chunk b % ceil(bm / IC): the chunks of
+//   one block row run side by side, so the x tiles they share are fetched
+//   from HBM once and then read from L2. A CTA reads only its own IC rows
+//   of each block (a contiguous IC x bn slab) and writes its outputs once:
+//   no atomics, each output summed by one owner in the row's block order,
+//   the same bits on every run. ``spmv.bsr_work_items`` lists the same
+//   split for the CPU tests.
+// - The TPU kernel's two-slot stream, done the Hopper way. The CTA's
+//   blocks, cut into steps of JC = 64 inner columns, form one stream that
+//   runs through a ring of cp.async copies across block boundaries (as
+//   many stages as 104 KB hold, 2 to 8: 8 at m = 16 and 32 columns, 2 at
+//   128 columns); a stage holds the value slab's step (staged raw: bf16
+//   is widened when read) and the matching x step, both row-major along
+//   the contraction, with padded strides (68 floats, 72 bf16) that make
+//   the 16-byte (8-byte for bf16) reads free of bank conflicts.
+// - FMAs per shared-memory read. The 4 warps form WC column groups (1 at
+//   IC = 32, 2 at IC = 128) whose warps split each step's 16 float4s of
+//   the contraction; a lane owns R = MT/4 rows of x by C = IC / (8 WC)
+//   output columns (4 or 8; MT = 4..64, the least that holds m), reading
+//   R + C float4s for 4 R C FMAs (at m = 16 and IC = 128: 12 reads, 128
+//   FMAs). The warps' sums are added in warp order at the end.
 //
-// What bounds it on this card: bytes. Every value is read once and does m
-// multiply-adds; at m = 16 that is 8 flop per f32 byte, below the CUDA
-// cores' ridge (67 TFLOP/s over 3.35 TB/s = 20 flop/byte). The sum runs in
-// f32 at full f32 precision on the CUDA cores (the Pallas kernel asks for
-// Precision.HIGHEST); bf16 values are widened exactly. The two-slot
-// pipelining of the TPU kernel (cp.async or TMA) is later work: here the
-// latency of the value loads is hidden only by the CTAs resident on an SM.
+// What bounds it on this card (NVIDIA H100 80GB HBM3, 700 W): at m = 16
+// every f32 value is read once and does 16 multiply-adds, 8 flop per byte,
+// under the CUDA cores' ridge (67 TFLOP/s over 3.35 TB/s = 20 flop/byte):
+// bytes bound it, and the ring keeps 40 to 90 KB of copies in flight per
+// CTA. At
+// m = 64 (32 flop per f32 byte, 64 per bf16 byte) it crosses the ridge and
+// f32 operations bound it. The sum runs in full f32 on the CUDA cores (the
+// Pallas kernel asks for Precision.HIGHEST); bf16 values are widened
+// exactly. No TF32, no tensor cores.
 //
 // A block row with no blocks writes zeros, so an operator with no blocks at
 // all returns zeros.
@@ -43,164 +56,265 @@
 
 namespace {
 
-constexpr int IC = 32;            // output columns per CTA (one per lane)
-constexpr int WARPS = 4;
-constexpr int THREADS = 32 * WARPS;
-constexpr int JC = 64;            // inner columns staged per step
-constexpr int CW = JC / WARPS;    // inner columns per warp per step
-constexpr int VLD = JC + 1;       // padded stride of the staged value slab
+constexpr int NW = 4;             // warps: column groups x shares of the contraction
+constexpr int THREADS = 32 * NW;
+constexpr int JC = 64;            // inner columns per step
+constexpr int XLD = JC + 4;       // padded stride of a staged x row (floats)
+constexpr int RING_BYTES = 104 * 1024;  // ring of a CTA: two CTAs fit an SM
+constexpr int MAX_STAGES = 8;
 
 template <typename T>
-__device__ __forceinline__ float to_f32(T v);
+struct Vals;
 template <>
-__device__ __forceinline__ float to_f32<float>(float v) { return v; }
+struct Vals<float> {
+  static constexpr int LD = JC + 4;   // 272 bytes: float4 reads of 8 rows hit 32 banks
+  __device__ static float4 read4(const float* p) { return *reinterpret_cast<const float4*>(p); }
+  __device__ static float zero() { return 0.0f; }
+};
 template <>
-__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
+struct Vals<__nv_bfloat16> {
+  static constexpr int LD = JC + 8;   // 144 bytes: 16-byte aligned, 8-byte reads conflict-free
+  __device__ static float4 read4(const __nv_bfloat16* p) {
+    const uint2 raw = *reinterpret_cast<const uint2*>(p);
+    // a bf16 is the high half of an f32: widening is a shift, exact
+    return make_float4(__uint_as_float(raw.x << 16), __uint_as_float(raw.x & 0xffff0000u),
+                       __uint_as_float(raw.y << 16), __uint_as_float(raw.y & 0xffff0000u));
+  }
+  __device__ static __nv_bfloat16 zero() { return __float2bfloat16(0.0f); }
+};
+
+template <typename T, int MT, int IC>
+__host__ __device__ constexpr int stage_bytes() {
+  return MT * XLD * 4 + IC * Vals<T>::LD * int(sizeof(T));
 }
 
-template <int MT>
-__host__ __device__ constexpr int smem_floats() {
-  // staging: value slab [IC][VLD] + x chunk [JC][MT + 4];
-  // after the loop the same memory holds the partials [WARPS][MT][IC]
-  return (IC * VLD + JC * (MT + 4)) > (WARPS * MT * IC)
-             ? (IC * VLD + JC * (MT + 4))
-             : (WARPS * MT * IC);
+// stages of the ring: as many as RING_BYTES holds (at least 2), at most
+// MAX_STAGES
+template <typename T, int MT, int IC>
+__host__ __device__ constexpr int stages() {
+  return RING_BYTES / stage_bytes<T, MT, IC>() < 2            ? 2
+         : RING_BYTES / stage_bytes<T, MT, IC>() < MAX_STAGES ? RING_BYTES / stage_bytes<T, MT, IC>()
+                                                              : MAX_STAGES;
 }
 
-// VEC: 16-byte loads of the value slab (bn a multiple of 16 / sizeof(T)).
-template <typename T, int MT, bool VEC>
-__global__ void __launch_bounds__(THREADS)
+template <typename T, int MT, int IC>
+__host__ __device__ constexpr int smem_bytes() {
+  return stages<T, MT, IC>() * stage_bytes<T, MT, IC>() > NW * MT * IC * 4
+             ? stages<T, MT, IC>() * stage_bytes<T, MT, IC>()
+             : NW * MT * IC * 4;
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(ok ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Stage one step: rows [0, IC) of the value slab (rows >= ncols zero) and
+// rows [0, MT) of x (rows >= m zero), inner columns [j0, j0 + JC) (those at
+// or past bn zero). VEC: 16-byte cp.async (bn a multiple of 16 bytes of
+// values, x and values 16-byte aligned); else plain loads and stores.
+template <typename T, int MT, int IC, bool VEC>
+__device__ __forceinline__ void load_step(unsigned char* stage, const float* __restrict__ x,
+                                          const T* __restrict__ slab, int cb, int j0, int m,
+                                          int n, int bn, int ncols) {
+  constexpr int VLD = Vals<T>::LD;
+  float* xs = reinterpret_cast<float*>(stage);
+  T* vs = reinterpret_cast<T*>(stage + MT * XLD * 4);
+  const float* xb = x + size_t(cb) * bn + j0;
+  const T* vb = slab + j0;
+  const int jn = min(JC, bn - j0);
+  if (VEC) {
+    constexpr int VW = 16 / int(sizeof(T));
+    for (int e = threadIdx.x; e < IC * (JC / VW); e += THREADS) {
+      const int r = e / (JC / VW);
+      const int c = (e % (JC / VW)) * VW;
+      const bool ok = r < ncols && c < jn;
+      cp_async16(vs + r * VLD + c, ok ? vb + size_t(r) * bn + c : slab, ok);
+    }
+    for (int e = threadIdx.x; e < MT * (JC / 4); e += THREADS) {
+      const int r = e / (JC / 4);
+      const int c = (e % (JC / 4)) * 4;
+      const bool ok = r < m && c < jn;
+      cp_async16(xs + r * XLD + c, ok ? xb + size_t(r) * n + c : x, ok);
+    }
+  } else {
+    for (int e = threadIdx.x; e < IC * JC; e += THREADS) {
+      const int r = e / JC;
+      const int c = e % JC;
+      vs[r * VLD + c] = (r < ncols && c < jn) ? vb[size_t(r) * bn + c] : Vals<T>::zero();
+    }
+    for (int e = threadIdx.x; e < MT * JC; e += THREADS) {
+      const int r = e / JC;
+      const int c = e % JC;
+      xs[r * XLD + c] = (r < m && c < jn) ? xb[size_t(r) * n + c] : 0.0f;
+    }
+  }
+}
+
+// WC column groups of NW / WC warps; a column group owns 8 C output
+// columns, and its warps split the contraction.
+template <typename T, int MT, int C, int WC, bool VEC>
+__global__ void __launch_bounds__(THREADS, 2)
 bsr_kernel(const float* __restrict__ x, const T* __restrict__ values,
            const int* __restrict__ row_ptr, const int* __restrict__ col_idx,
            float* __restrict__ y, int m, int n, int ny, int bm, int bn) {
-  constexpr int XLD = MT + 4;     // float4-aligned stride of staged x
-  __shared__ __align__(16) float smem[smem_floats<MT>()];
-  float* vs = smem;               // [IC][VLD]
-  float* xs = smem + IC * VLD;    // [JC][XLD]; IC * VLD * 4 bytes is 16-aligned
+  constexpr int IC = 8 * C * WC;  // output columns of the CTA
+  constexpr int KW = NW / WC;     // warps sharing one column group's contraction
+  constexpr int R = MT / 4;       // rows of x per lane
+  constexpr int VLD = Vals<T>::LD;
+  constexpr int SB = stage_bytes<T, MT, IC>();
+  constexpr int STAGES = stages<T, MT, IC>();
+  extern __shared__ __align__(16) unsigned char smem[];
 
-  const int rb = blockIdx.x;
-  const int i0 = blockIdx.y * IC;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int ncols = min(IC, bm - i0);   // valid output columns of this CTA
+  const int nci = (bm + IC - 1) / IC;
+  const int rb = blockIdx.x / nci;
+  const int i0 = (blockIdx.x % nci) * IC;
+  const int ncols = min(IC, bm - i0);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int kw = warp % KW;       // share of the contraction
+  const int rr = lane >> 3;       // rows rr + 4p
+  const int cc = (warp / KW) * 8 * C + (lane & 7);  // columns cc + 8q
   const int k0 = row_ptr[rb];
-  const int k1 = row_ptr[rb + 1];
+  const int nj = (bn + JC - 1) / JC;
+  const int steps = (row_ptr[rb + 1] - k0) * nj;
 
-  float acc[MT];
-#pragma unroll
-  for (int mm = 0; mm < MT; ++mm) acc[mm] = 0.0f;
+  auto issue = [&](int s) {
+    const int k = k0 + s / nj;
+    const T* slab = values + (size_t(k) * bm + i0) * bn;
+    load_step<T, MT, IC, VEC>(smem + (s % STAGES) * SB, x, slab, col_idx[k], (s % nj) * JC, m,
+                              n, bn, ncols);
+  };
 
-  for (int k = k0; k < k1; ++k) {
-    const size_t cb = size_t(col_idx[k]);
-    const T* slab = values + size_t(k) * bm * bn + size_t(i0) * bn;
-    const float* xb = x + cb * bn;
-    for (int j0 = 0; j0 < bn; j0 += JC) {
-      const int jn = min(JC, bn - j0);
-      __syncthreads();  // the previous chunk is consumed
-      if (VEC) {
-        constexpr int VW = 16 / sizeof(T);
-        for (int e = tid; e < IC * (JC / VW); e += THREADS) {
-          const int r = e / (JC / VW);
-          const int c = (e % (JC / VW)) * VW;
-          float* dst = vs + r * VLD + c;
-          if (r < ncols && c < jn) {
-            const uint4 raw =
-                __ldcs(reinterpret_cast<const uint4*>(slab + size_t(r) * bn + j0 + c));
-            const T* vals = reinterpret_cast<const T*>(&raw);
+  float acc[R][C];
 #pragma unroll
-            for (int q = 0; q < VW; ++q) dst[q] = to_f32<T>(vals[q]);
-          } else {
+  for (int p = 0; p < R; ++p)
 #pragma unroll
-            for (int q = 0; q < VW; ++q) dst[q] = 0.0f;
-          }
-        }
-      } else {
-        for (int e = tid; e < IC * JC; e += THREADS) {
-          const int r = e / JC;
-          const int c = e % JC;
-          vs[r * VLD + c] =
-              (r < ncols && c < jn) ? to_f32<T>(slab[size_t(r) * bn + j0 + c]) : 0.0f;
-        }
-      }
-      for (int e = tid; e < MT * JC; e += THREADS) {
-        const int mm = e / JC;
-        const int c = e % JC;
-        xs[c * XLD + mm] = (mm < m && c < jn) ? xb[size_t(mm) * n + j0 + c] : 0.0f;
-      }
-      __syncthreads();
+    for (int q = 0; q < C; ++q) acc[p][q] = 0.0f;
 
-      const float* vrow = vs + lane * VLD + warp * CW;
-      const float* xcol = xs + warp * CW * XLD;
-#pragma unroll 4
-      for (int c = 0; c < CW; ++c) {
-        const float a = vrow[c];
-        const float4* x4 = reinterpret_cast<const float4*>(xcol + c * XLD);
 #pragma unroll
-        for (int v4 = 0; v4 < MT / 4; ++v4) {
-          const float4 h = x4[v4];
-          acc[4 * v4 + 0] = fmaf(h.x, a, acc[4 * v4 + 0]);
-          acc[4 * v4 + 1] = fmaf(h.y, a, acc[4 * v4 + 1]);
-          acc[4 * v4 + 2] = fmaf(h.z, a, acc[4 * v4 + 2]);
-          acc[4 * v4 + 3] = fmaf(h.w, a, acc[4 * v4 + 3]);
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < steps) issue(s);
+    cp_commit();
+  }
+  for (int s = 0; s < steps; ++s) {
+    cp_wait<STAGES - 2>();
+    __syncthreads();  // step s has landed, step s - 1 is consumed
+    if (s + STAGES - 1 < steps) issue(s + STAGES - 1);
+    cp_commit();
+    const float* xs = reinterpret_cast<const float*>(smem + (s % STAGES) * SB);
+    const T* vs = reinterpret_cast<const T*>(smem + (s % STAGES) * SB + MT * XLD * 4);
+#pragma unroll
+    for (int t = 0; t < JC / 4 / KW; ++t) {
+      const int k = 4 * (kw + KW * t);
+      float4 b[C];
+#pragma unroll
+      for (int q = 0; q < C; ++q) b[q] = Vals<T>::read4(vs + (cc + 8 * q) * VLD + k);
+#pragma unroll
+      for (int p = 0; p < R; ++p) {
+        const float4 a = *reinterpret_cast<const float4*>(xs + (rr + 4 * p) * XLD + k);
+#pragma unroll
+        for (int q = 0; q < C; ++q) {
+          float v = acc[p][q];
+          v = fmaf(a.x, b[q].x, v);
+          v = fmaf(a.y, b[q].y, v);
+          v = fmaf(a.z, b[q].z, v);
+          v = fmaf(a.w, b[q].w, v);
+          acc[p][q] = v;
         }
       }
     }
   }
+  cp_wait<0>();
+  __syncthreads();  // the ring is free
 
-  // add the warps' partial sums in a fixed order and write y once
-  __syncthreads();
-  float* red = smem;  // [WARPS][MT][IC]
+  // add each column group's warp sums in warp order and write y once
+  float* red = reinterpret_cast<float*>(smem);  // [NW][R * C][32]
 #pragma unroll
-  for (int mm = 0; mm < MT; ++mm) red[(warp * MT + mm) * IC + lane] = acc[mm];
-  __syncthreads();
-  for (int e = tid; e < MT * IC; e += THREADS) {
-    const int mm = e / IC;
-    const int l = e % IC;
-    if (mm < m && l < ncols) {
-      float s = red[mm * IC + l];
+  for (int p = 0; p < R; ++p)
 #pragma unroll
-      for (int w = 1; w < WARPS; ++w) s += red[(w * MT + mm) * IC + l];
-      y[size_t(mm) * ny + size_t(rb) * bm + i0 + l] = s;
+    for (int q = 0; q < C; ++q) red[((warp * R + p) * C + q) * 32 + lane] = acc[p][q];
+  __syncthreads();
+  for (int e = threadIdx.x; e < MT * IC; e += THREADS) {
+    const int r = e / IC;
+    const int i = e % IC;
+    if (r < m && i < ncols) {
+      const int il = i % (8 * C);
+      const int at = (((i / (8 * C)) * KW * R + (r >> 2)) * C + (il >> 3)) * 32 + (r & 3) * 8 +
+                     (il & 7);
+      float s = red[at];
+#pragma unroll
+      for (int w = 1; w < KW; ++w) s += red[w * R * C * 32 + at];
+      y[size_t(r) * ny + size_t(rb) * bm + i0 + i] = s;
     }
   }
 }
 
-template <typename T, int MT>
-void launch_mt(dim3 grid, cudaStream_t stream, bool vec, const float* x,
-               const T* values, const int* row_ptr, const int* col_idx,
-               float* y, int m, int n, int ny, int bm, int bn) {
-  if (vec)
-    bsr_kernel<T, MT, true><<<grid, THREADS, 0, stream>>>(
-        x, values, row_ptr, col_idx, y, m, n, ny, bm, bn);
-  else
-    bsr_kernel<T, MT, false><<<grid, THREADS, 0, stream>>>(
-        x, values, row_ptr, col_idx, y, m, n, ny, bm, bn);
+template <typename T, int MT, int C, int WC, bool VEC>
+cudaError_t launch_one(int grid, cudaStream_t stream, const float* x, const T* values,
+                       const int* row_ptr, const int* col_idx, float* y, int m, int n, int ny,
+                       int bm, int bn) {
+  constexpr int SMEM = smem_bytes<T, MT, 8 * C * WC>();
+  static bool attr = false;  // the ring takes more than 48 KB of shared memory
+  if (!attr) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        bsr_kernel<T, MT, C, WC, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+    if (err != cudaSuccess) return err;
+    attr = true;
+  }
+  bsr_kernel<T, MT, C, WC, VEC><<<grid, THREADS, SMEM, stream>>>(x, values, row_ptr, col_idx,
+                                                                 y, m, n, ny, bm, bn);
+  return cudaGetLastError();
+}
+
+template <typename T, bool VEC>
+cudaError_t launch_vec(int mt, int ic, int grid, cudaStream_t stream, const float* x,
+                       const T* values, const int* row_ptr, const int* col_idx, float* y, int m,
+                       int n, int ny, int bm, int bn) {
+#define BSR_CASE(MT, C, WC)                                                                   \
+  if (mt == MT && ic == 8 * C * WC)                                                           \
+    return launch_one<T, MT, C, WC, VEC>(grid, stream, x, values, row_ptr, col_idx, y, m, n, \
+                                         ny, bm, bn);
+  BSR_CASE(4, 4, 1)
+  BSR_CASE(8, 4, 1)
+  BSR_CASE(16, 4, 1)
+  BSR_CASE(32, 4, 1)
+  BSR_CASE(64, 4, 1)
+  BSR_CASE(4, 8, 2)
+  BSR_CASE(8, 8, 2)
+  BSR_CASE(16, 8, 2)
+#undef BSR_CASE
+  return cudaErrorInvalidValue;
 }
 
 template <typename T>
-int launch(const float* x, const T* values, const int* row_ptr,
-           const int* col_idx, float* y, int m, int n, int bm, int bn,
-           int n_rb, cudaStream_t stream) {
-  const int nchunks = (bm + IC - 1) / IC;
-  if (m <= 0 || m > 64 || n <= 0 || bm <= 0 || bn <= 0 || n_rb <= 0 ||
-      n % bn != 0 || nchunks > 65535 || size_t(n_rb) * bm > 2147483647u)
+int launch(const float* x, const T* values, const int* row_ptr, const int* col_idx, float* y,
+           int m, int n, int bm, int bn, int n_rb, int ic, cudaStream_t stream) {
+  if (m <= 0 || m > 64 || n <= 0 || bm <= 0 || bn <= 0 || n_rb <= 0 || n % bn != 0 ||
+      (ic != 32 && ic != 128) || size_t(n_rb) * bm > 2147483647u ||
+      size_t(n_rb) * ((bm + ic - 1) / ic) > 2147483647u)
     return int(cudaErrorInvalidValue);
+  const int mt = m <= 4 ? 4 : m <= 8 ? 8 : m <= 16 ? 16 : m <= 32 ? 32 : 64;
+  if (ic == 128 && mt > 16) return int(cudaErrorInvalidValue);
+  const int grid = n_rb * ((bm + ic - 1) / ic);
   const int ny = n_rb * bm;
-  const bool vec = bn % int(16 / sizeof(T)) == 0;
-  const dim3 grid(n_rb, nchunks);
-  if (m <= 4)
-    launch_mt<T, 4>(grid, stream, vec, x, values, row_ptr, col_idx, y, m, n, ny, bm, bn);
-  else if (m <= 8)
-    launch_mt<T, 8>(grid, stream, vec, x, values, row_ptr, col_idx, y, m, n, ny, bm, bn);
-  else if (m <= 16)
-    launch_mt<T, 16>(grid, stream, vec, x, values, row_ptr, col_idx, y, m, n, ny, bm, bn);
-  else if (m <= 32)
-    launch_mt<T, 32>(grid, stream, vec, x, values, row_ptr, col_idx, y, m, n, ny, bm, bn);
-  else
-    launch_mt<T, 64>(grid, stream, vec, x, values, row_ptr, col_idx, y, m, n, ny, bm, bn);
-  return int(cudaGetLastError());
+  const bool vec = bn % int(16 / sizeof(T)) == 0 &&
+                   reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(values) % 16 == 0;
+  const cudaError_t err =
+      vec ? launch_vec<T, true>(mt, ic, grid, stream, x, values, row_ptr, col_idx, y, m, n,
+                                ny, bm, bn)
+          : launch_vec<T, false>(mt, ic, grid, stream, x, values, row_ptr, col_idx, y, m, n,
+                                 ny, bm, bn);
+  return int(err);
 }
 
 }  // namespace
@@ -208,18 +322,19 @@ int launch(const float* x, const T* values, const int* row_ptr,
 extern "C" {
 
 // y (m, n_rb*bm) f32, every entry written; x (m, n) f32 with n = n_cb*bn;
-// values (nb, bm, bn); row_ptr (n_rb + 1,), col_idx (nb,) int32.
+// values (nb, bm, bn); row_ptr (n_rb + 1,), col_idx (nb,) int32; ic the
+// output columns per CTA, 32 or 128 (128 only for m <= 16).
 int bsr_matmat_f32(const float* x, const float* values, const int* row_ptr,
-                   const int* col_idx, float* y, int m, int n, int bm, int bn,
-                   int n_rb, cudaStream_t stream) {
-  return launch<float>(x, values, row_ptr, col_idx, y, m, n, bm, bn, n_rb, stream);
+                   const int* col_idx, float* y, int m, int n, int bm, int bn, int n_rb,
+                   int ic, cudaStream_t stream) {
+  return launch<float>(x, values, row_ptr, col_idx, y, m, n, bm, bn, n_rb, ic, stream);
 }
 
-int bsr_matmat_bf16(const float* x, const __nv_bfloat16* values,
-                    const int* row_ptr, const int* col_idx, float* y, int m,
-                    int n, int bm, int bn, int n_rb, cudaStream_t stream) {
-  return launch<__nv_bfloat16>(x, values, row_ptr, col_idx, y, m, n, bm, bn,
-                               n_rb, stream);
+int bsr_matmat_bf16(const float* x, const __nv_bfloat16* values, const int* row_ptr,
+                    const int* col_idx, float* y, int m, int n, int bm, int bn, int n_rb,
+                    int ic, cudaStream_t stream) {
+  return launch<__nv_bfloat16>(x, values, row_ptr, col_idx, y, m, n, bm, bn, n_rb, ic,
+                               stream);
 }
 
 const char* kernel_error_string(int err) {

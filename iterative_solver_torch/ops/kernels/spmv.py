@@ -49,6 +49,11 @@ LAUNCHES = {"bsr": 0}
 
 # rows of x the kernel takes in one launch
 MAX_ROWS = 64
+# K6's work split: output columns per CTA, the wide one for at most 16
+# rows of x; and the CTAs it keeps for the H100's 132 SMs before it takes
+# the wide one
+NARROW_COLUMNS, WIDE_COLUMNS = 32, 128
+_MIN_CTAS = 2 * 132
 
 
 @dataclasses.dataclass
@@ -127,6 +132,32 @@ def bsr_matmat(x: Tensor, bsr: BSRMatrix) -> Tensor:
     return y.transpose(0, 1).reshape(m, n_rb * bsr.bm)
 
 
+@functools.lru_cache(maxsize=256)
+def bsr_columns_per_cta(n_rb: int, bm: int, m: int) -> int:
+    """K6's output columns per CTA: WIDE_COLUMNS where m <= 16, bm needs
+    more than half of them and that still gives two CTAs per SM (one CTA
+    stages each x tile for the whole block row), else NARROW_COLUMNS."""
+    if (m <= 16 and 2 * bm > WIDE_COLUMNS
+            and n_rb * -(-bm // WIDE_COLUMNS) >= _MIN_CTAS):
+        return WIDE_COLUMNS
+    return NARROW_COLUMNS
+
+
+def bsr_work_items(bsr: BSRMatrix, m: int) -> np.ndarray:
+    """K6's CTAs in launch order, as rows ``(block row, first output column
+    of the row block, output columns, first block, end block)``: CTA b takes
+    block row b // ceil(bm / ic) and column chunk b % ceil(bm / ic), and sums
+    the blocks [row_ptr[rb], row_ptr[rb + 1]) in order. The kernel derives
+    the same from its block index and ``row_ptr``."""
+    n_rb = bsr.shape[0] // bsr.bm
+    ic = bsr_columns_per_cta(n_rb, bsr.bm, m)
+    nci = -(-bsr.bm // ic)
+    b = np.arange(n_rb * nci)
+    rb, i0 = b // nci, (b % nci) * ic
+    row_ptr = bsr.row_ptr.cpu().numpy().astype(np.int64)
+    return np.stack([rb, i0, np.minimum(ic, bsr.bm - i0), row_ptr[rb], row_ptr[rb + 1]], 1)
+
+
 def _check_operands(x: Tensor, bsr: BSRMatrix) -> None:
     """What K6 takes: float32 x of 1 to MAX_ROWS rows and the operator's
     column width; float32 or bf16 values of shape (nb, bm, bn); int32
@@ -172,14 +203,15 @@ _I = ctypes.c_int
 def _spmv_lib():
     lib = _build.load("spmv")
     for fn in (lib.bsr_matmat_f32, lib.bsr_matmat_bf16):
-        fn.argtypes = [_P] * 5 + [_I] * 5 + [_P]
+        fn.argtypes = [_P] * 5 + [_I] * 6 + [_P]
         fn.restype = _I
     return lib
 
 
 def bsr_matmat_kernel(x: Tensor, bsr: BSRMatrix) -> Tensor:
-    """K6: the BSR action y = x Aᵀ, one CTA per block row and 32 output
-    columns (replaces ``bsr_matmat_pallas``). A CUDA tensor launches
+    """K6: the BSR action y = x Aᵀ, one CTA per block row and 32 or 128
+    output columns (``bsr_work_items``), replacing ``bsr_matmat_pallas``.
+    A CUDA tensor launches
     ``bsr_matmat_f32`` / ``bsr_matmat_bf16`` and returns float32; a CPU
     tensor takes the plain version ``bsr_matmat``."""
     if x.device.type == "cpu":
@@ -189,13 +221,13 @@ def bsr_matmat_kernel(x: Tensor, bsr: BSRMatrix) -> Tensor:
     m, n = x.shape
     n_rb = bsr.shape[0] // bsr.bm
     # the kernel writes every entry: empty block rows get zeros
-    y = torch.empty((m, n_rb * bsr.bm), dtype=torch.float32, device=x.device)
+    y = x.new_empty((m, n_rb * bsr.bm))
     lib = _spmv_lib()
     bf16 = bsr.values.dtype == torch.bfloat16
     fn = lib.bsr_matmat_bf16 if bf16 else lib.bsr_matmat_f32
     err = fn(x.data_ptr(), bsr.values.data_ptr(), bsr.row_ptr.data_ptr(),
              bsr.col_idx.data_ptr(), y.data_ptr(), m, n, bsr.bm, bsr.bn, n_rb,
-             _build.stream_handle(x.device))
+             bsr_columns_per_cta(n_rb, bsr.bm, m), _build.stream_handle(x.device))
     _build.check(lib, err, "bsr_matmat_bf16" if bf16 else "bsr_matmat_f32")
     LAUNCHES["bsr"] += 1
     return y

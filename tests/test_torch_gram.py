@@ -94,3 +94,57 @@ def test_wrapper_takes_the_plain_version_on_the_cpu():
     assert T.LAUNCHES["gram"] == before and got.dtype == torch.float64
     g = v.astype(np.float64) @ w.astype(np.float64).T
     np.testing.assert_allclose(got.numpy(), 0.5 * (g + g.T), rtol=0, atol=1e-13)
+
+
+@pytest.mark.parametrize("m", [1, 17, 64])
+@pytest.mark.parametrize("n", [512, 8192, 1 << 20, 777, 96, 1, 33, 1 << 16])
+def test_chunk_plan_covers_each_column_once(n, m):
+    chunk, nchunks = T.chunk_plan(n, m)
+    assert chunk % T.STEP == 0
+    # one CTA per block pair at least, at most two per SM
+    assert T.block_pairs(m) <= nchunks <= T.TARGET_CHUNKS
+    covered = np.zeros(n, dtype=np.int64)
+    for c in range(nchunks):
+        covered[c * chunk:min(n, (c + 1) * chunk)] += 1
+    assert np.all(covered == 1)
+    # chunks past N only where the block pairs need the CTAs
+    assert nchunks == T.block_pairs(m) or (nchunks - 1) * chunk < n
+
+
+def test_block_pairs():
+    assert [T.block_pairs(m) for m in (1, 4, 5, 17, 64)] == [1, 1, 3, 15, 136]
+    assert T.chunk_plan(8192, 64) == (32, 256)
+    assert T.chunk_plan(1 << 20, 64) == (4000, 263)
+    assert T.chunk_plan(8192, 64, ctas=200) == (64, 136)
+
+
+@pytest.mark.parametrize("tile", [128, 256, 512, 1024])
+def test_chunk_plan_ignores_the_tile(tile):
+    """The tiles of test_tile_sweep_matches_pallas pass the Pallas check,
+    and the kernel's chunks do not depend on them."""
+    tile_n, n_tiles = T.tile_grid(512, tile)
+    assert tile_n * n_tiles == 512
+    assert T.chunk_plan(512, 8) == (T.STEP, 16)
+
+
+@pytest.mark.parametrize("m,n", [(40, 8192), (64, 5000), (7, 777), (64, 1 << 16)])
+def test_chunked_sum_matches_plain(m, n):
+    """K7's order of the sum, emulated in float64: each chunk's partial;
+    in the block pair's CTA, lane group q of warp w adds chunks 4w + q,
+    4w + q + 32, ... in order; each warp adds its four groups as (s0 + s2)
+    + (s1 + s3); the 8 warps are added in order; then the mask and the
+    symmetrisation."""
+    v, w = _stacks(m, n, 4)
+    mask = (np.arange(m) < max(1, 5 * m // 8)).astype(np.float32)
+    chunk, nchunks = T.chunk_plan(n, m)
+    parts = [v[:, c * chunk:(c + 1) * chunk].astype(np.float64)
+             @ w[:, c * chunk:(c + 1) * chunk].astype(np.float64).T for c in range(nchunks)]
+    groups = [sum(parts[g::32], np.zeros((m, m))) for g in range(32)]
+    warps = [(groups[4 * w] + groups[4 * w + 2]) + (groups[4 * w + 1] + groups[4 * w + 3])
+             for w in range(8)]
+    hmat = sum(warps[1:], warps[0]) * mask[:, None] * mask[None, :]
+    got = 0.5 * (hmat + hmat.T)
+    ref = T.masked_gram(torch.as_tensor(v, dtype=torch.float64),
+                        torch.as_tensor(w, dtype=torch.float64),
+                        torch.as_tensor(mask, dtype=torch.float64), tile=n).numpy()
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-12 * np.abs(ref).max())

@@ -13,7 +13,7 @@ import pytest
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "iterative_solver_tpu"}
 PORT_FILES = sorted((ROOT / "iterative_solver_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "calibrate_sparse_cpu.py"]
+    ROOT / "chip_smoke.py", ROOT / "calibrate_sparse_cpu.py", ROOT / "compare_kernels.py"]
 
 
 def _imported_roots(path):
@@ -30,7 +30,7 @@ def test_port_files_found():
     names = {p.name for p in PORT_FILES}
     assert {"fused_davidson.py", "symm.py", "chain.py", "chip_smoke.py", "symm_int8.py",
             "fused_ppcg.py", "synthetic_fci.py", "spmv.py", "gram.py", "core.py",
-            "factory.py", "calibrate_sparse_cpu.py"} <= names
+            "factory.py", "calibrate_sparse_cpu.py", "compare_kernels.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))

@@ -16,6 +16,8 @@ the plain result's max magnitude (for K7, of the largest sum of |terms|,
 since a single dot product may cancel), and the same bits on a second run.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -448,7 +450,7 @@ BSR_SHAPES = [(512, 128, 128), (384, 32, 16), (300, 64, 32), (400, 40, 100),
               (96, 40, 6), (512, 256, 128)]
 
 
-@pytest.mark.parametrize("m", [1, 4, 5, 16, 33, 64])
+@pytest.mark.parametrize("m", [1, 4, 5, 15, 16, 17, 33, 64])
 @pytest.mark.parametrize("n,bm,bn", BSR_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_bsr_kernel_matches_plain(cuda, n, bm, bn, m, dtype):
@@ -467,6 +469,55 @@ def test_bsr_kernel_matches_plain(cuda, n, bm, bn, m, dtype):
     assert _rel(y, ref) <= TOL
     assert torch.all(y[:, bm:2 * bm] == 0)
     # one CTA writes each output: the same bits on a second run
+    assert torch.equal(spmv.bsr_matmat_kernel(x, bsr), y)
+
+
+@functools.lru_cache(maxsize=1)
+def _phenol_host(n):
+    from chip_smoke import phenol_int8_bsr
+
+    return phenol_int8_bsr(n)
+
+
+def _phenol_bsr(n, dtype, device):
+    """chip_smoke's phenol-scale topology at size n, values q s/127 plus the
+    diagonal, in ``dtype``."""
+    q, rows, cols, row_ptr, diag, s = _phenol_host(n)
+    values = q.astype(np.float32) * np.float32(s / 127.0)
+    on_diag = np.nonzero(rows == cols)[0]
+    ar = np.arange(q.shape[1])
+    values[on_diag[:, None], ar, ar] += diag[rows[on_diag][:, None] * q.shape[1] + ar]
+    t = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
+    return spmv.BSRMatrix(values=t(values).to(dtype), col_idx=t(cols), row_idx=t(rows),
+                          row_ptr=t(row_ptr), shape=(n, n), bm=q.shape[1], bn=q.shape[1])
+
+
+def _dense_row(n, bm, bn, blocks, seed):
+    """A block-sparse matrix whose block row 2 holds ``blocks`` blocks."""
+    a = _block_sparse(n, bm, bn, seed)
+    a[2 * bm:3 * bm, :blocks * bn] = np.random.default_rng(seed + 1).standard_normal(
+        (bm, blocks * bn))
+    return a
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", ["row_of_24", "phenol_2^14", "phenol_2^15", "phenol_2^16"])
+@pytest.mark.parametrize("m", [1, 4, 15, 16, 17, 33, 64])
+def test_bsr_kernel_long_rows_and_phenol_topology(cuda, case, m, dtype):
+    """A block row of 24 blocks (48 steps of the stream, bm != bn), and the
+    phenol-scale topology at 2^14 and 2^15 (32 output columns per CTA) and
+    2^16 (128 where m <= 16)."""
+    if case == "row_of_24":
+        bsr = spmv.BSRMatrix.from_dense(_dense_row(24 * 96, 64, 96, 24, 30), bm=64, bn=96,
+                                        dtype=dtype, device=cuda)
+        assert int(torch.diff(bsr.row_ptr).max()) >= 24
+    else:
+        bsr = _phenol_bsr(1 << int(case.split("^")[1]), dtype, cuda)
+    x = torch.as_tensor(np.random.default_rng(31).standard_normal((m, bsr.shape[1])),
+                        dtype=torch.float32, device=cuda)
+    y = spmv.bsr_matmat_kernel(x, bsr)
+    torch.cuda.synchronize()
+    assert _rel(y, spmv.bsr_matmat(x, bsr)) <= TOL
     assert torch.equal(spmv.bsr_matmat_kernel(x, bsr), y)
 
 
@@ -493,9 +544,9 @@ def test_bsr_kernel_refuses_what_it_does_not_take(cuda):
         spmv.bsr_matmat_kernel(x, f64)
 
 
-@pytest.mark.parametrize("m", [1, 7, 40, 64])
+@pytest.mark.parametrize("m", [1, 7, 17, 40, 64])
 @pytest.mark.parametrize("n,tile", [(8192, 512), (1000, 100), (4096, 128), (777, 512),
-                                    (300, 1024)])
+                                    (300, 1024), (1 << 16, 512)])
 def test_gram_kernel_matches_plain(cuda, m, n, tile):
     rng = np.random.default_rng(23)
     f32 = dict(dtype=torch.float32, device=cuda)
@@ -513,6 +564,24 @@ def test_gram_kernel_matches_plain(cuda, m, n, tile):
     assert err <= TOL * scale
     assert torch.equal(h, h.T)
     assert torch.equal(gram.masked_gram_kernel(v, w, mask, tile=tile), h)
+
+
+@pytest.mark.parametrize("m", [1, 17, 64])
+@pytest.mark.parametrize("start,n", [(1, 8192), (3, 777), (4, 4096)])
+def test_gram_kernel_column_slices(cuda, m, start, n):
+    """v and w as column slices of wider stacks: rows apart by more than n,
+    unaligned where start is odd; the kernel reads them in place."""
+    rng = np.random.default_rng(25)
+    f32 = dict(dtype=torch.float32, device=cuda)
+    big_v = torch.as_tensor(rng.standard_normal((m, n + 8)), **f32)
+    big_w = torch.as_tensor(rng.standard_normal((m, n + 8)), **f32)
+    v, w = big_v[:, start:start + n], big_w[:, start:start + n]
+    mask = torch.ones(m, **f32)
+    h = gram.masked_gram_kernel(v, w, mask, tile=n)
+    ref = gram.masked_gram(v.contiguous(), w.contiguous(), mask, tile=n)
+    scale = float((v.abs() @ w.abs().T).max())
+    assert float((h.double() - ref.double()).abs().max()) <= TOL * scale
+    assert torch.equal(gram.masked_gram_kernel(v, w, mask, tile=n), h)
 
 
 def test_gram_kernel_all_zero_mask_and_tiles(cuda):

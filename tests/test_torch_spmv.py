@@ -306,3 +306,99 @@ def test_bsr_matvec_uses_its_operand():
     x = torch.as_tensor(_x(2, 64, 9))
     y = matvec(x, (2.0 * values, row_ptr, col_idx))
     assert torch.allclose(y, 2.0 * T.bsr_matmat(x, tb), rtol=0, atol=1e-13)
+
+
+# -- K6's work split, emulated on the CPU ----------------------------------------
+
+def _walk(x, bsr, items):
+    """K6's CTAs in order, each summing its blocks' products in the row's
+    block order into its own output columns, in float64."""
+    x = x.to(torch.float64)
+    vals = bsr.values.to(torch.float64)
+    cols = bsr.col_idx.tolist()
+    y = torch.full((x.shape[0], bsr.shape[0]), float("nan"), dtype=torch.float64)
+    for rb, i0, ncols, k0, k1 in items.tolist():
+        acc = torch.zeros((x.shape[0], ncols), dtype=torch.float64)
+        for k in range(k0, k1):
+            xt = x[:, cols[k] * bsr.bn:(cols[k] + 1) * bsr.bn]
+            acc += xt @ vals[k, i0:i0 + ncols].T
+        y[:, rb * bsr.bm + i0:rb * bsr.bm + i0 + ncols] = acc
+    return y
+
+
+def _split_cases():
+    """(name, BSRMatrix on the CPU): bm != bn, empty block rows, a row of 24
+    blocks, ragged output chunks, 128 columns per CTA, and the phenol-scale
+    topology at 2^14."""
+    from chip_smoke import phenol_int8_bsr
+
+    mat = _block_sparse(480, 48, density=0.3, seed=40)
+    mat[48:96, :] = 0.0                       # block row 1 empty
+    mat[96:144, :] = np.random.default_rng(41).standard_normal((48, 480))
+    yield "ragged", T.BSRMatrix.from_dense(mat, bm=48, bn=20, device="cpu")
+    dense_row = _block_sparse(24 * 40, 40, density=0.2, seed=42)
+    dense_row[:80, :] = np.random.default_rng(43).standard_normal((80, 24 * 40))
+    yield "row_of_24", T.BSRMatrix.from_dense(dense_row, bm=80, bn=40, device="cpu")
+    # 300 block rows of 128 x 4 blocks, 0 to 3 per row: 128 columns per CTA
+    # at m <= 16
+    rng = np.random.default_rng(45)
+    counts = rng.integers(0, 4, size=300)
+    row_ptr = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    rows = np.repeat(np.arange(300), counts).astype(np.int32)
+    cols = rng.integers(0, 50, size=rows.size).astype(np.int32)
+    t = torch.as_tensor
+    yield "wide_128", T.BSRMatrix(values=t(rng.standard_normal((rows.size, 128, 4))),
+                                  col_idx=t(cols), row_idx=t(rows), row_ptr=t(row_ptr),
+                                  shape=(300 * 128, 200), bm=128, bn=4)
+    q, rows, cols, row_ptr, _, s = phenol_int8_bsr(1 << 14)
+    values = torch.as_tensor(q, dtype=torch.float64) * (s / 127.0)
+    yield "phenol_2^14", T.BSRMatrix(values=values, col_idx=t(cols), row_idx=t(rows),
+                                     row_ptr=t(row_ptr), shape=(1 << 14, 1 << 14),
+                                     bm=128, bn=128)
+
+
+SPLIT_CASES = dict(_split_cases())
+
+
+@pytest.mark.parametrize("m", [1, 4, 15, 16, 17, 33, 64])
+@pytest.mark.parametrize("case", sorted(SPLIT_CASES))
+def test_bsr_work_items_cover_each_output_once(case, m):
+    bsr = SPLIT_CASES[case]
+    items = T.bsr_work_items(bsr, m)
+    n_rb = bsr.shape[0] // bsr.bm
+    ic = T.bsr_columns_per_cta(n_rb, bsr.bm, m)
+    assert ic in (T.NARROW_COLUMNS, T.WIDE_COLUMNS) and (ic == T.NARROW_COLUMNS or m <= 16)
+    covered = np.zeros(bsr.shape[0], dtype=np.int64)
+    row_ptr = bsr.row_ptr.numpy()
+    for rb, i0, ncols, k0, k1 in items.tolist():
+        assert 0 < ncols <= ic and (k0, k1) == (row_ptr[rb], row_ptr[rb + 1])
+        covered[rb * bsr.bm + i0:rb * bsr.bm + i0 + ncols] += 1
+    assert np.all(covered == 1)
+    # the column chunks of one block row are neighbours in launch order
+    assert np.all(np.diff(items[:, 0]) >= 0)
+    if case == "row_of_24":
+        assert int(np.max(items[:, 4] - items[:, 3])) >= 24
+
+
+@pytest.mark.parametrize("m", [1, 16, 17, 64])
+@pytest.mark.parametrize("case", sorted(SPLIT_CASES))
+def test_bsr_work_items_walk_equals_plain(case, m):
+    bsr = SPLIT_CASES[case]
+    x = torch.as_tensor(_x(m, bsr.shape[1], 44))
+    got = _walk(x, bsr, T.bsr_work_items(bsr, m))
+    ref = T.bsr_matmat(x, bsr)
+    assert not torch.isnan(got).any()
+    assert torch.allclose(got, ref, rtol=0, atol=1e-12 * float(ref.abs().max()))
+
+
+def test_bsr_columns_per_cta_fills_the_card():
+    """The bench operator (64 block rows of 128) keeps 32 columns, 256 CTAs;
+    the phenol scale (8192 block rows) takes all 128 at 16 rows, 32 above;
+    32 where 128 would leave too few CTAs or bm is 64."""
+    assert T.bsr_columns_per_cta(64, 128, 16) == 32
+    assert T.bsr_columns_per_cta(64, 128, 4) == 32
+    assert T.bsr_columns_per_cta(8192, 128, 16) == 128
+    assert T.bsr_columns_per_cta(8192, 128, 17) == 32
+    assert T.bsr_columns_per_cta(200, 128, 16) == 32
+    assert T.bsr_columns_per_cta(8192, 64, 8) == 32
+    assert T.bsr_columns_per_cta(8192, 100, 8) == 128
