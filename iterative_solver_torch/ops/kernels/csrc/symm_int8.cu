@@ -2,20 +2,23 @@
 //
 // Replaces two Pallas kernels of iterative_solver_tpu/ops/kernels/symm_int8.py:
 //   symm_int8       <- _symm_matmat_int8_impl (K4, :344, pallas_call :397),
-//                      one int8 plane Q: symm_int8_mma_kernel below;
+//                      one int8 plane Q: symm_int8_mma_kernel<MT, 1>;
 //   symm_int8_split <- _symm_matmat_int8_split_impl (K5, :430, pallas_call
 //                      :493), two planes Q1, Q2 and two x planes p1, p2:
-//                      symm_int8_kernel<2>, the first port's design, kept
-//                      as it was (see its own note further down).
+//                      the same kernel on two planes, symm_int8_mma_kernel<1, 2>
+//                      (hi = p1 Q1, lo = p1 Q2 + p2 Q1; see Cfg). It
+//                      replaced the first port's dp4a kernel, which ran at
+//                      22% of its byte bound.
 //
 // The off-diagonal part of the operator is stored as the (b, b) int8 tiles
 // Q_ij of its lower triangle, listed by (ii[t], jj[t]) with jj <= ii. x comes
 // in already quantized (qx, or p1 and p2, int8, made by the wrapper with the
 // plain version's torch ops). Every tile carries two contributions,
 //     acc_i += qx_j Q_ij^T        and, when i != j,      acc_j += qx_i Q_ij,
-// summed exactly in int32 into an (m, n) accumulator that the wrapper
-// zeroes. Integer addition is exact in any order, so the accumulator, and
-// the epilogue's y, equal the plain version bit for bit.
+// summed exactly in int32 into (m, n) accumulators that the wrapper zeroes
+// (K5: hi and lo, three such products per tile). Integer addition is exact
+// in any order, so the accumulators, and the epilogue's y, equal the plain
+// version bit for bit.
 //
 // What bounds K4 on this card: the tile stream. At the solver's row counts
 // (m = 16 to 64) each tile byte feeds 2m int8 products; at m = 64 the
@@ -91,7 +94,9 @@
 //   K5: y = (float(hi) + float(lo) * (float)(1/254)) * sx[row] * gq[col] + xf * d[col]
 // written with __fmul_rn / __fadd_rn in the order PyTorch's plain expression
 // rounds, ((acc * sx) * gq) + (xf * d), so nvcc contracts nothing into an
-// FMA and y equals the plain version bit for bit too.
+// FMA and y equals the plain version bit for bit too. Where b is even it
+// first adds back the 64-bit reds' carry into the odd columns of each
+// accumulator (hi and lo alike; red_pair).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -151,7 +156,7 @@ __device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// ------------------------------------------------ K4: int8 tensor cores
+// ------------------------------------ K4 and K5: int8 tensor cores
 
 constexpr int SQ = 256;              // square edge (symm_int8.py SQUARE_INT8)
 constexpr int CH = 64;               // chunk edge, bytes of a tile row
@@ -167,18 +172,31 @@ constexpr int XLD = SQ + 16;         // staged x row stride, bytes (conflict-fre
 // (64 / NW) w .. + 64 / NW - 1 for all MT M tiles; y_j warp w takes the
 // chunk's columns 16 (w & 3) .. + 15 for the MJ M tiles from MJ (w >> 2).
 // Both do 4 MT products per chunk at MT = 1 and 8 at MT = 2, 4.
-template <int MT>
+//
+// PL planes: K4 has one (Q, x quantized as qx); K5 two (Q1, Q2; p1, p2),
+// and per fragment pair three products into two sums, hi += p1 Q1 and
+// lo += p1 Q2 + p2 Q1 (the p2 Q2 term is dropped, as in the plain
+// version). Each stage holds the chunk column of both planes, and the x
+// buffers both x planes. The y_i warp's sums double with the second plane:
+// at MT = 1 they are 64 registers, at MT = 2 they would be 128, over the
+// 128-register cap of two blocks per SM. So K5 takes MT = 1 at every m (16
+// rows of x per pass over the tiles; m > 16 takes passes), two blocks per
+// SM (the cap of three would spill) and two stages (99 KB: three stages of
+// two planes, 131 KB, would leave one block per SM).
+template <int MT, int PL>
 struct Cfg {
+  static_assert(PL == 1 || MT == 1, "two planes take one M tile");
   static constexpr int NW = MT == 4 ? 8 : 4;          // warps per role
   static constexpr int RG = 8 / NW;                   // y_i: 8-row groups per warp
   static constexpr int MJ = MT == 1 ? 1 : 2;          // y_j: M tiles per warp
   static constexpr int THREADS = 64 * NW;
-  static constexpr int BLOCKS_PER_SM = MT == 4 ? 1 : (MT == 2 ? 2 : 3);
-  static constexpr int STAGES = MT == 4 ? 4 : 3;
+  static constexpr int BLOCKS_PER_SM = PL == 2 ? 2 : (MT == 4 ? 1 : (MT == 2 ? 2 : 3));
+  static constexpr int STAGES = PL == 2 ? 2 : (MT == 4 ? 4 : 3);
   static constexpr int ROWS = MTILE * MT;             // rows of x per block
-  static constexpr int RING = STAGES * STAGE;
+  static constexpr int RING = STAGES * PL * STAGE;    // a stage: the chunk column of each plane
   static constexpr int XS = ROWS * XLD;               // one staged x buffer
-  static constexpr size_t SMEM = size_t(RING) + 4 * XS;  // ring, x_j and x_i of two items
+  // ring, then x_j and x_i of each plane for two items
+  static constexpr size_t SMEM = size_t(RING) + 4 * PL * XS;
 };
 
 // 16-byte segment s of stage row r is stored at s ^ swz(r): conflict-free
@@ -206,10 +224,10 @@ __device__ __forceinline__ Square square_of(int item, int b) {
 
 // x at SQ columns from col0 into [ROWS][XLD] bytes, zero past m and past
 // ``extent``: 16-byte cp.async (vec 16), 4-byte (vec 4) or byte loads.
-template <int MT>
+template <int MT, int PL>
 __device__ __forceinline__ void fetch_x(unsigned char* xs, const int8_t* x, int m, int n,
                                         int mbase, int col0, int extent, int vec, int tid) {
-  using C = Cfg<MT>;
+  using C = Cfg<MT, PL>;
   if (vec == 16) {
     for (int e = tid; e < C::ROWS * (SQ / 16); e += C::THREADS) {
       const int mm = e / (SQ / 16);
@@ -251,16 +269,21 @@ __device__ __forceinline__ void red_pair(int* p, int v0, int v1) {
 // blockIdx.x + gridDim.x, ... of the tiles, for ROWS rows of x from
 // blockIdx.y * ROWS. vec, xvec: 16 (16-byte copies), 4 or 1 (byte loads)
 // for the tiles and for x; packed: b even, 64-bit reds of column pairs.
-template <int MT>
-__global__ void __launch_bounds__(Cfg<MT>::THREADS, Cfg<MT>::BLOCKS_PER_SM)
-symm_int8_mma_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ q,
+// PL = 2: x, x2 = p1, p2; q, q2 = Q1, Q2; acc, acc2 = hi, lo.
+template <int MT, int PL>
+__global__ void __launch_bounds__(Cfg<MT, PL>::THREADS, Cfg<MT, PL>::BLOCKS_PER_SM)
+symm_int8_mma_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ x2,
+                     const int8_t* __restrict__ q, const int8_t* __restrict__ q2,
                      const int* __restrict__ ii, const int* __restrict__ jj,
-                     int* __restrict__ acc, int m, int n, int b, int items, int vec,
-                     int xvec) {
-  using C = Cfg<MT>;
+                     int* __restrict__ acc, int* __restrict__ acc2, int m, int n, int b,
+                     int items, int vec, int xvec) {
+  using C = Cfg<MT, PL>;
   extern __shared__ __align__(128) unsigned char smem_k4[];
   unsigned char* ring = smem_k4;
-  unsigned char* xbuf = ring + C::RING;   // [item & 1][x_j, x_i]
+  unsigned char* xbuf = ring + C::RING;   // [item & 1][x_j of each plane, x_i of each plane]
+  const int8_t* const xs_src[2] = {x, x2};
+  const int8_t* const qs_src[2] = {q, q2};
+  int* const out_acc[2] = {acc, acc2};
 
   const bool packed = (b & 1) == 0;
   const int ncs = (min(b, SQ) + CH - 1) / CH;  // chunk columns per item, at most
@@ -270,9 +293,9 @@ symm_int8_mma_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ q,
   const int lane = tid & 31;
 
   // Stage g of this block's stream: chunk column g % ncs of its item g / ncs
-  // (rows past the square zero-filled); past the last item, or past a ragged
-  // square's columns, nothing. At an item's first column, also x of the item
-  // after it, into the other x buffer.
+  // (rows past the square zero-filled), of each plane; past the last item,
+  // or past a ragged square's columns, nothing. At an item's first column,
+  // also x of the item after it, into the other x buffer.
   auto fetch = [&](int g) {
     const int j = g / ncs;
     const int c = g - j * ncs;
@@ -280,33 +303,36 @@ symm_int8_mma_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ q,
     if (item < items) {
       const Square sq = square_of(item, b);
       if (c < sq.nc) {
-        unsigned char* stage = ring + (g % C::STAGES) * STAGE;
-        const int8_t* tile = q + size_t(sq.t) * b * b;
         const int col = sq.c0 + c * CH;    // first tile column of the chunk column
         const int qmax = sq.cols - c * CH; // its valid columns
-        if (vec == 16) {
-          for (int e = tid; e < sq.na * CH * 4; e += C::THREADS) {
-            const int r = e >> 2;
-            const int sg = e & 3;
-            const bool ok = r < sq.rows && 16 * sg < qmax;
-            cp_async16(smem_u32(stage + r * CH + ((sg ^ swz(r)) << 4)),
-                       ok ? tile + size_t(sq.r0 + r) * b + col + 16 * sg : tile, ok ? 16 : 0);
-          }
-        } else {
-          for (int e = tid; e < sq.na * CH * 16; e += C::THREADS) {
-            const int r = e >> 4;
-            const int w = e & 15;
-            unsigned char* dst = stage + r * CH + (((w >> 2) ^ swz(r)) << 4) + 4 * (w & 3);
-            const int8_t* src = tile + size_t(sq.r0 + r) * b + col + 4 * w;
-            if (vec == 4) {
-              const bool ok = r < sq.rows && 4 * w < qmax;
-              cp_async4(smem_u32(dst), ok ? src : tile, ok ? 4 : 0);
-            } else {
-              uint32_t v = 0u;
-              if (r < sq.rows)
-                for (int k = 0; k < 4 && 4 * w + k < qmax; ++k)
-                  v |= uint32_t(uint8_t(src[k])) << (8 * k);
-              *reinterpret_cast<uint32_t*>(dst) = v;
+#pragma unroll
+        for (int pl = 0; pl < PL; ++pl) {
+          unsigned char* stage = ring + ((g % C::STAGES) * PL + pl) * STAGE;
+          const int8_t* tile = qs_src[pl] + size_t(sq.t) * b * b;
+          if (vec == 16) {
+            for (int e = tid; e < sq.na * CH * 4; e += C::THREADS) {
+              const int r = e >> 2;
+              const int sg = e & 3;
+              const bool ok = r < sq.rows && 16 * sg < qmax;
+              cp_async16(smem_u32(stage + r * CH + ((sg ^ swz(r)) << 4)),
+                         ok ? tile + size_t(sq.r0 + r) * b + col + 16 * sg : tile, ok ? 16 : 0);
+            }
+          } else {
+            for (int e = tid; e < sq.na * CH * 16; e += C::THREADS) {
+              const int r = e >> 4;
+              const int w = e & 15;
+              unsigned char* dst = stage + r * CH + (((w >> 2) ^ swz(r)) << 4) + 4 * (w & 3);
+              const int8_t* src = tile + size_t(sq.r0 + r) * b + col + 4 * w;
+              if (vec == 4) {
+                const bool ok = r < sq.rows && 4 * w < qmax;
+                cp_async4(smem_u32(dst), ok ? src : tile, ok ? 4 : 0);
+              } else {
+                uint32_t v = 0u;
+                if (r < sq.rows)
+                  for (int k = 0; k < 4 && 4 * w + k < qmax; ++k)
+                    v |= uint32_t(uint8_t(src[k])) << (8 * k);
+                *reinterpret_cast<uint32_t*>(dst) = v;
+              }
             }
           }
         }
@@ -317,10 +343,15 @@ symm_int8_mma_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ q,
     const int item = blockIdx.x + j * gridDim.x;
     if (item < items) {
       const Square sq = square_of(item, b);
-      unsigned char* xs = xbuf + (j & 1) * 2 * C::XS;
-      fetch_x<MT>(xs, x, m, n, mbase, jj[sq.t] * b + sq.c0, sq.cols, xvec, tid);
-      if (ii[sq.t] != jj[sq.t])
-        fetch_x<MT>(xs + C::XS, x, m, n, mbase, ii[sq.t] * b + sq.r0, sq.rows, xvec, tid);
+      unsigned char* xs = xbuf + (j & 1) * 2 * PL * C::XS;
+#pragma unroll
+      for (int pl = 0; pl < PL; ++pl) {
+        fetch_x<MT, PL>(xs + pl * C::XS, xs_src[pl], m, n, mbase, jj[sq.t] * b + sq.c0, sq.cols,
+                        xvec, tid);
+        if (ii[sq.t] != jj[sq.t])
+          fetch_x<MT, PL>(xs + (PL + pl) * C::XS, xs_src[pl], m, n, mbase,
+                          ii[sq.t] * b + sq.r0, sq.rows, xvec, tid);
+      }
     }
   };
   fetch_item_x(0);
@@ -352,21 +383,23 @@ symm_int8_mma_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ q,
       const int bi = ii[sq.t];
       const int bj = jj[sq.t];
       const bool diag = bi == bj;
-      const unsigned char* xj_s = xbuf + (k & 1) * 2 * C::XS;
-      const unsigned char* xi_s = xj_s + C::XS;
+      const unsigned char* xj_s = xbuf + (k & 1) * 2 * PL * C::XS;   // + pl * XS
+      const unsigned char* xi_s = xj_s + PL * C::XS;                 // + pl * XS
 
-      // y_i: per chunk row, 8-row group and M tile, rows g4 and g4 + 8 of
-      // the M tile at tile rows p, p + 1 (p = 2 t4 in the group)
-      int acc_i[YI ? NCH : 1][C::RG][MT][4];
+      // y_i: per sum (hi, lo), chunk row, 8-row group and M tile, rows g4
+      // and g4 + 8 of the M tile at tile rows p, p + 1 (p = 2 t4 in the group)
+      int acc_i[YI ? PL : 1][YI ? NCH : 1][C::RG][MT][4];
       if constexpr (YI) {
 #pragma unroll
-        for (int a = 0; a < NCH; ++a)
+        for (int pl = 0; pl < PL; ++pl)
 #pragma unroll
-          for (int rg = 0; rg < C::RG; ++rg)
+          for (int a = 0; a < NCH; ++a)
 #pragma unroll
-            for (int mt = 0; mt < MT; ++mt)
+            for (int rg = 0; rg < C::RG; ++rg)
 #pragma unroll
-              for (int e = 0; e < 4; ++e) acc_i[a][rg][mt][e] = 0;
+              for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) acc_i[pl][a][rg][mt][e] = 0;
       }
 
 #pragma unroll 1
@@ -382,69 +415,96 @@ symm_int8_mma_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ q,
         if (c == 0) fetch_item_x(k + 1);
         cp_async_commit();
         if (c >= sq.nc) continue;
-        const unsigned char* st = ring + (g % C::STAGES) * STAGE;
+        const unsigned char* st = ring + (g % C::STAGES) * PL * STAGE;   // + pl * STAGE
 
         if constexpr (YI) {
           // y_i += x_j Q^T: B[k = q][n = p] = Q[p][q]; x_j of chunk column c
-          // in two k-steps of 32 columns, for all M tiles
-          uint32_t fxj[MT][2][4];
+          // in two k-steps of 32 columns, for all M tiles and planes
+          uint32_t fxj[PL][MT][2][4];
 #pragma unroll
-          for (int mt = 0; mt < MT; ++mt)
+          for (int pl = 0; pl < PL; ++pl)
 #pragma unroll
-            for (int ks = 0; ks < 2; ++ks)
-              ldsm_x4(smem_u32(xj_s + (mt * MTILE + xrow) * XLD + c * CH + ks * 32 + xk),
-                      fxj[mt][ks]);
+            for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+              for (int ks = 0; ks < 2; ++ks)
+                ldsm_x4(smem_u32(xj_s + pl * C::XS + (mt * MTILE + xrow) * XLD + c * CH +
+                                 ks * 32 + xk),
+                        fxj[pl][mt][ks]);
 #pragma unroll
           for (int a = 0; a < NCH; ++a) {
             if (a >= sq.na) continue;
-            const unsigned char* sc = st + a * CH * CH;   // chunk (a, c)
 #pragma unroll
             for (int rg = 0; rg < C::RG; ++rg) {
               const int r = 8 * (C::RG * w + rg) + (lane & 7);
-              uint32_t bq[4];
-              ldsm_x4(smem_u32(sc + r * CH + (((lane >> 3) ^ swz(r)) << 4)), bq);
+              uint32_t bq[PL][4];
+#pragma unroll
+              for (int pl = 0; pl < PL; ++pl)   // chunk (a, c) of plane pl
+                ldsm_x4(smem_u32(st + pl * STAGE + a * CH * CH + r * CH +
+                                 (((lane >> 3) ^ swz(r)) << 4)),
+                        bq[pl]);
 #pragma unroll
               for (int mt = 0; mt < MT; ++mt) {
-                mma_s8(acc_i[a][rg][mt], fxj[mt][0], bq[0], bq[1]);
-                mma_s8(acc_i[a][rg][mt], fxj[mt][1], bq[2], bq[3]);
+                mma_s8(acc_i[0][a][rg][mt], fxj[0][mt][0], bq[0][0], bq[0][1]);
+                mma_s8(acc_i[0][a][rg][mt], fxj[0][mt][1], bq[0][2], bq[0][3]);
+                if constexpr (PL == 2) {   // lo += p1 Q2 + p2 Q1
+                  mma_s8(acc_i[1][a][rg][mt], fxj[0][mt][0], bq[1][0], bq[1][1]);
+                  mma_s8(acc_i[1][a][rg][mt], fxj[0][mt][1], bq[1][2], bq[1][3]);
+                  mma_s8(acc_i[1][a][rg][mt], fxj[1][mt][0], bq[0][0], bq[0][1]);
+                  mma_s8(acc_i[1][a][rg][mt], fxj[1][mt][1], bq[0][2], bq[0][3]);
+                }
               }
             }
           }
         } else {
           if (diag) continue;
           // y_j += x_i Q: B[k = p][n = q] = Q[p][q], transposed in registers;
-          // even columns in acc_j[.][0], odd in acc_j[.][1]
+          // even columns in acc_j[.][.][0], odd in acc_j[.][.][1]
           const int seg = w & 3;
           const int mj0 = (w >> 2) * C::MJ;
-          int acc_j[C::MJ][2][4];
+          int acc_j[PL][C::MJ][2][4];
 #pragma unroll
-          for (int mj = 0; mj < C::MJ; ++mj)
+          for (int pl = 0; pl < PL; ++pl)
 #pragma unroll
-            for (int e = 0; e < 4; ++e) acc_j[mj][0][e] = acc_j[mj][1][e] = 0;
+            for (int mj = 0; mj < C::MJ; ++mj)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) acc_j[pl][mj][0][e] = acc_j[pl][mj][1][e] = 0;
 #pragma unroll
           for (int a = 0; a < NCH; ++a) {
             if (a >= sq.na) continue;
-            const unsigned char* sc = st + a * CH * CH;   // chunk (a, c)
 #pragma unroll
             for (int h = 0; h < 2; ++h) {
               const int p = 32 * h + tr;
-              uint32_t bt[4];
-              ldsm_x4_trans(smem_u32(sc + p * CH + ((seg ^ swz(p)) << 4)), bt);
-              uint32_t fxi[C::MJ][4];
+              // rows 4 t4 .. + 3 of column 2 g4 (ev, even) and 2 g4 + 1 (od)
+              uint32_t ev[PL][2], od[PL][2];
 #pragma unroll
-              for (int mj = 0; mj < C::MJ; ++mj)
-                ldsm_x4(smem_u32(xi_s + ((mj0 + mj) * MTILE + xrow) * XLD + a * CH + 32 * h +
-                                 xk),
-                        fxi[mj]);
-              // rows 4 t4 .. + 3 of column 2 g4 (even) and 2 g4 + 1 (odd)
-              const uint32_t ev0 = __byte_perm(bt[0], bt[1], 0x6420);
-              const uint32_t ev1 = __byte_perm(bt[2], bt[3], 0x6420);
-              const uint32_t od0 = __byte_perm(bt[0], bt[1], 0x7531);
-              const uint32_t od1 = __byte_perm(bt[2], bt[3], 0x7531);
+              for (int pl = 0; pl < PL; ++pl) {   // chunk (a, c) of plane pl
+                uint32_t bt[4];
+                ldsm_x4_trans(smem_u32(st + pl * STAGE + a * CH * CH + p * CH +
+                                       ((seg ^ swz(p)) << 4)),
+                              bt);
+                ev[pl][0] = __byte_perm(bt[0], bt[1], 0x6420);
+                ev[pl][1] = __byte_perm(bt[2], bt[3], 0x6420);
+                od[pl][0] = __byte_perm(bt[0], bt[1], 0x7531);
+                od[pl][1] = __byte_perm(bt[2], bt[3], 0x7531);
+              }
+              uint32_t fxi[PL][C::MJ][4];
+#pragma unroll
+              for (int pl = 0; pl < PL; ++pl)
+#pragma unroll
+                for (int mj = 0; mj < C::MJ; ++mj)
+                  ldsm_x4(smem_u32(xi_s + pl * C::XS + ((mj0 + mj) * MTILE + xrow) * XLD +
+                                   a * CH + 32 * h + xk),
+                          fxi[pl][mj]);
 #pragma unroll
               for (int mj = 0; mj < C::MJ; ++mj) {
-                mma_s8(acc_j[mj][0], fxi[mj], ev0, ev1);
-                mma_s8(acc_j[mj][1], fxi[mj], od0, od1);
+                mma_s8(acc_j[0][mj][0], fxi[0][mj], ev[0][0], ev[0][1]);
+                mma_s8(acc_j[0][mj][1], fxi[0][mj], od[0][0], od[0][1]);
+                if constexpr (PL == 2) {   // lo += p1 Q2 + p2 Q1
+                  mma_s8(acc_j[1][mj][0], fxi[0][mj], ev[1][0], ev[1][1]);
+                  mma_s8(acc_j[1][mj][1], fxi[0][mj], od[1][0], od[1][1]);
+                  mma_s8(acc_j[1][mj][0], fxi[1][mj], ev[0][0], ev[0][1]);
+                  mma_s8(acc_j[1][mj][1], fxi[1][mj], od[0][0], od[0][1]);
+                }
               }
             }
           }
@@ -454,22 +514,25 @@ symm_int8_mma_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ q,
           const int qmax = sq.cols - c * CH;
           if (ql >= qmax) continue;
 #pragma unroll
-          for (int mj = 0; mj < C::MJ; ++mj) {
+          for (int pl = 0; pl < PL; ++pl) {
 #pragma unroll
-            for (int h = 0; h < 2; ++h) {
-              const int row = mbase + (mj0 + mj) * MTILE + g4 + 8 * h;
-              if (row >= m) continue;
-              int* out = acc + size_t(row) * n + bj * b + sq.c0 + c * CH + ql;
-              const int v0 = acc_j[mj][0][2 * h], v1 = acc_j[mj][1][2 * h];
-              const int v2 = acc_j[mj][0][2 * h + 1], v3 = acc_j[mj][1][2 * h + 1];
-              if (packed) {
-                red_pair(out, v0, v1);
-                if (ql + 2 < qmax) red_pair(out + 2, v2, v3);
-              } else {
-                atomicAdd(out, v0);
-                if (ql + 1 < qmax) atomicAdd(out + 1, v1);
-                if (ql + 2 < qmax) atomicAdd(out + 2, v2);
-                if (ql + 3 < qmax) atomicAdd(out + 3, v3);
+            for (int mj = 0; mj < C::MJ; ++mj) {
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                const int row = mbase + (mj0 + mj) * MTILE + g4 + 8 * h;
+                if (row >= m) continue;
+                int* out = out_acc[pl] + size_t(row) * n + bj * b + sq.c0 + c * CH + ql;
+                const int v0 = acc_j[pl][mj][0][2 * h], v1 = acc_j[pl][mj][1][2 * h];
+                const int v2 = acc_j[pl][mj][0][2 * h + 1], v3 = acc_j[pl][mj][1][2 * h + 1];
+                if (packed) {
+                  red_pair(out, v0, v1);
+                  if (ql + 2 < qmax) red_pair(out + 2, v2, v3);
+                } else {
+                  atomicAdd(out, v0);
+                  if (ql + 1 < qmax) atomicAdd(out + 1, v1);
+                  if (ql + 2 < qmax) atomicAdd(out + 2, v2);
+                  if (ql + 3 < qmax) atomicAdd(out + 3, v3);
+                }
               }
             }
           }
@@ -479,25 +542,28 @@ symm_int8_mma_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ q,
       // y_i of the square, from the registers
       if constexpr (YI) {
 #pragma unroll
-        for (int a = 0; a < NCH; ++a) {
+        for (int pl = 0; pl < PL; ++pl) {
 #pragma unroll
-          for (int rg = 0; rg < C::RG; ++rg) {
-            const int p = a * CH + 8 * (C::RG * w + rg) + 2 * t4;
-            if (a >= sq.na || p >= sq.rows) continue;
+          for (int a = 0; a < NCH; ++a) {
 #pragma unroll
-            for (int mt = 0; mt < MT; ++mt) {
+            for (int rg = 0; rg < C::RG; ++rg) {
+              const int p = a * CH + 8 * (C::RG * w + rg) + 2 * t4;
+              if (a >= sq.na || p >= sq.rows) continue;
 #pragma unroll
-              for (int h = 0; h < 2; ++h) {
-                const int row = mbase + mt * MTILE + g4 + 8 * h;
-                if (row >= m) continue;
-                int* out = acc + size_t(row) * n + bi * b + sq.r0 + p;
-                const int v0 = acc_i[a][rg][mt][2 * h];
-                const int v1 = acc_i[a][rg][mt][2 * h + 1];
-                if (packed) {
-                  red_pair(out, v0, v1);
-                } else {
-                  atomicAdd(out, v0);
-                  if (p + 1 < sq.rows) atomicAdd(out + 1, v1);
+              for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+                for (int h = 0; h < 2; ++h) {
+                  const int row = mbase + mt * MTILE + g4 + 8 * h;
+                  if (row >= m) continue;
+                  int* out = out_acc[pl] + size_t(row) * n + bi * b + sq.r0 + p;
+                  const int v0 = acc_i[pl][a][rg][mt][2 * h];
+                  const int v1 = acc_i[pl][a][rg][mt][2 * h + 1];
+                  if (packed) {
+                    red_pair(out, v0, v1);
+                  } else {
+                    atomicAdd(out, v0);
+                    if (p + 1 < sq.rows) atomicAdd(out + 1, v1);
+                  }
                 }
               }
             }
@@ -513,209 +579,6 @@ symm_int8_mma_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ q,
   cp_async_wait<0>();
 }
 
-// ------------------------------------------ K5: the first port's kernel
-//
-// symm_int8_kernel<2>, kept as the first port wrote it (PLANES == 1 is no
-// longer instantiated). A block stages one S x S sub-tile of each plane in
-// shared memory, so each tile is read once for both contributions. Half of
-// its threads own a row of the sub-tile (the p Q^T term, reduced along the
-// row), half own a column (the p Q term, reduced down the column). Products
-// are __dp4a: four int8 x int8 products added into an int32 in one
-// instruction. Along a row four consecutive bytes are one word; down a
-// column they are not, so the block also keeps a transposed copy of the
-// sub-tile, built from the row-major copy in 4 x 4 byte blocks with
-// __byte_perm. Partial sums go into the int32 accumulators hi = p1 Q1 and
-// lo = p1 Q2 + p2 Q1 with one integer atomic per row of x and owned row or
-// column. Its limits (CUDA cores, a synchronous stage, m scalar atomics per
-// thread and sub-tile) are K4's before its redesign; a later port gives K5
-// the tensor-core design above with a second plane.
-
-constexpr int S = 128;            // sub-tile edge, in bytes of a tile row
-constexpr int SW = S / 4;         // 32-bit words in a sub-tile row
-constexpr int LDW = SW + 1;       // padded row stride in words (no bank conflicts
-                                  // when lanes walk rows at a fixed word)
-constexpr int MB = 16;            // rows of x per pass over the staged sub-tile
-constexpr int THREADS = 2 * S;    // S row owners + S column owners
-
-// shared memory, in words: per plane a row-major and a transposed sub-tile,
-// then the staged x words [part][which][word k][row mm]
-template <int PLANES>
-__host__ __device__ constexpr int tile_words() { return PLANES * 2 * S * LDW; }
-
-template <int PLANES>
-__host__ __device__ constexpr size_t smem_bytes() {
-  return size_t(tile_words<PLANES>() + PLANES * 2 * SW * MB) * 4;
-}
-
-// PLANES == 1: q0 = Q, x0 = qx, acc0 = acc.
-// PLANES == 2: q0 = Q1, q1 = Q2, x0 = p1, x1 = p2, acc0 = hi, acc1 = lo.
-template <int PLANES>
-__global__ void __launch_bounds__(THREADS)
-symm_int8_kernel(const int8_t* __restrict__ x0, const int8_t* __restrict__ x1,
-                 const int8_t* __restrict__ q0, const int8_t* __restrict__ q1,
-                 const int* __restrict__ ii, const int* __restrict__ jj,
-                 int* __restrict__ acc0, int* __restrict__ acc1, int m, int n,
-                 int b) {
-  extern __shared__ __align__(16) int smem[];
-  int* xs = smem + tile_words<PLANES>();
-
-  const int t = blockIdx.x;
-  const int nsub = (b + S - 1) / S;
-  const int r0 = (blockIdx.y / nsub) * S;
-  const int c0 = (blockIdx.y % nsub) * S;
-  const int bi = ii[t];
-  const int bj = jj[t];
-  const int tid = threadIdx.x;
-  const size_t tile_base = size_t(t) * b * b;
-  const int pmax = min(S, b - r0);   // valid rows of the sub-tile
-  const int qmax = min(S, b - c0);   // valid columns
-
-  // ---- stage each plane's sub-tile row-major, zero outside the tile
-  const int8_t* planes[2] = {q0, q1};
-#pragma unroll
-  for (int pl = 0; pl < PLANES; ++pl) {
-    const int8_t* a = planes[pl] + tile_base;
-    int* dst = smem + (2 * pl) * S * LDW;
-    if (b % 16 == 0) {
-      // 16-byte loads; with b and c0 multiples of 16 a chunk is all in or all out
-      for (int e = tid; e < S * (S / 16); e += THREADS) {
-        const int r = e / (S / 16);
-        const int c = (e % (S / 16)) * 16;
-        uint4 v = make_uint4(0u, 0u, 0u, 0u);
-        if (r < pmax && c < qmax)
-          v = __ldcs(reinterpret_cast<const uint4*>(a + size_t(r0 + r) * b + c0 + c));
-        int* d = dst + r * LDW + c / 4;
-        d[0] = int(v.x);
-        d[1] = int(v.y);
-        d[2] = int(v.z);
-        d[3] = int(v.w);
-      }
-    } else {
-      for (int e = tid; e < S * SW; e += THREADS) {
-        const int r = e / SW;
-        const int c = (e % SW) * 4;
-        uint32_t w = 0u;
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          if (r < pmax && c + k < qmax)
-            w |= uint32_t(uint8_t(a[size_t(r0 + r) * b + c0 + c + k])) << (8 * k);
-        }
-        dst[r * LDW + c / 4] = int(w);
-      }
-    }
-  }
-  __syncthreads();
-
-  // ---- transposed copy: word (q, p/4) holds Q[p..p+3][q]
-#pragma unroll
-  for (int pl = 0; pl < PLANES; ++pl) {
-    const int* src = smem + (2 * pl) * S * LDW;
-    int* dst = smem + (2 * pl + 1) * S * LDW;
-    for (int e = tid; e < SW * SW; e += THREADS) {
-      const int rb = e / SW;   // rows 4rb .. 4rb+3
-      const int cw = e % SW;   // columns 4cw .. 4cw+3
-      const uint32_t w0 = uint32_t(src[(4 * rb + 0) * LDW + cw]);
-      const uint32_t w1 = uint32_t(src[(4 * rb + 1) * LDW + cw]);
-      const uint32_t w2 = uint32_t(src[(4 * rb + 2) * LDW + cw]);
-      const uint32_t w3 = uint32_t(src[(4 * rb + 3) * LDW + cw]);
-      // byte k of w_r is Q[4rb + r][4cw + k]
-      const uint32_t lo01 = __byte_perm(w0, w1, 0x5140);  // w0.0 w1.0 w0.1 w1.1
-      const uint32_t hi01 = __byte_perm(w0, w1, 0x7362);  // w0.2 w1.2 w0.3 w1.3
-      const uint32_t lo23 = __byte_perm(w2, w3, 0x5140);
-      const uint32_t hi23 = __byte_perm(w2, w3, 0x7362);
-      dst[(4 * cw + 0) * LDW + rb] = int(__byte_perm(lo01, lo23, 0x5410));
-      dst[(4 * cw + 1) * LDW + rb] = int(__byte_perm(lo01, lo23, 0x7632));
-      dst[(4 * cw + 2) * LDW + rb] = int(__byte_perm(hi01, hi23, 0x5410));
-      dst[(4 * cw + 3) * LDW + rb] = int(__byte_perm(hi01, hi23, 0x7632));
-    }
-  }
-
-  const bool row_owner = tid < S;
-  const int idx = row_owner ? tid : tid - S;
-  const int which = row_owner ? 0 : 1;   // x_j at the columns / x_i at the rows
-  const bool active = row_owner ? (idx < pmax) : (idx < qmax && bi != bj);
-  const int kw = ((row_owner ? qmax : pmax) + 3) / 4;   // words to reduce over
-  // row owner p reads row p of the row-major copy; column owner q reads row q
-  // of the transposed copy
-  const int* a0 = smem + which * S * LDW + idx * LDW;
-  const int* a1 = smem + (2 + which) * S * LDW + idx * LDW;
-  const int col = row_owner ? bi * b + r0 + idx : bj * b + c0 + idx;
-
-  for (int mbase = 0; mbase < m; mbase += MB) {
-    __syncthreads();  // the transpose, or the previous pass, is done with xs
-    // ---- stage MB rows of each x plane: columns of block j, rows of block i
-    for (int e = tid; e < PLANES * 2 * MB * SW; e += THREADS) {
-      const int k4 = e % SW;
-      const int mm = (e / SW) % MB;
-      const int wh = (e / (SW * MB)) % 2;
-      const int part = e / (2 * SW * MB);
-      const int lim = wh == 0 ? qmax : pmax;
-      const int base = (wh == 0 ? bj * b + c0 : bi * b + r0) + 4 * k4;
-      uint32_t w = 0u;
-      if (mbase + mm < m) {
-        const int8_t* xp = (part == 0 ? x0 : x1) + size_t(mbase + mm) * n + base;
-        if (b % 4 == 0) {
-          // lim is then a multiple of 4 and the word is aligned
-          if (4 * k4 < lim) w = *reinterpret_cast<const uint32_t*>(xp);
-        } else {
-#pragma unroll
-          for (int k = 0; k < 4; ++k)
-            if (4 * k4 + k < lim) w |= uint32_t(uint8_t(xp[k])) << (8 * k);
-        }
-      }
-      xs[((part * 2 + wh) * SW + k4) * MB + mm] = int(w);
-    }
-    __syncthreads();
-
-    if (active) {
-      int hi[MB];
-      int lo[MB];
-#pragma unroll
-      for (int mm = 0; mm < MB; ++mm) {
-        hi[mm] = 0;
-        lo[mm] = 0;
-      }
-      for (int k = 0; k < kw; ++k) {
-        const int qa = a0[k];
-        const int4* xv = reinterpret_cast<const int4*>(xs + (which * SW + k) * MB);
-        if constexpr (PLANES == 2) {
-          const int qb = a1[k];
-          const int4* xv2 = reinterpret_cast<const int4*>(xs + ((2 + which) * SW + k) * MB);
-#pragma unroll
-          for (int v = 0; v < MB / 4; ++v) {
-            const int4 u = xv[v];    // p1
-            const int4 u2 = xv2[v];  // p2
-            hi[4 * v + 0] = __dp4a(qa, u.x, hi[4 * v + 0]);
-            hi[4 * v + 1] = __dp4a(qa, u.y, hi[4 * v + 1]);
-            hi[4 * v + 2] = __dp4a(qa, u.z, hi[4 * v + 2]);
-            hi[4 * v + 3] = __dp4a(qa, u.w, hi[4 * v + 3]);
-            lo[4 * v + 0] = __dp4a(qa, u2.x, __dp4a(qb, u.x, lo[4 * v + 0]));
-            lo[4 * v + 1] = __dp4a(qa, u2.y, __dp4a(qb, u.y, lo[4 * v + 1]));
-            lo[4 * v + 2] = __dp4a(qa, u2.z, __dp4a(qb, u.z, lo[4 * v + 2]));
-            lo[4 * v + 3] = __dp4a(qa, u2.w, __dp4a(qb, u.w, lo[4 * v + 3]));
-          }
-        } else {
-#pragma unroll
-          for (int v = 0; v < MB / 4; ++v) {
-            const int4 u = xv[v];
-            hi[4 * v + 0] = __dp4a(qa, u.x, hi[4 * v + 0]);
-            hi[4 * v + 1] = __dp4a(qa, u.y, hi[4 * v + 1]);
-            hi[4 * v + 2] = __dp4a(qa, u.z, hi[4 * v + 2]);
-            hi[4 * v + 3] = __dp4a(qa, u.w, hi[4 * v + 3]);
-          }
-        }
-      }
-#pragma unroll
-      for (int mm = 0; mm < MB; ++mm) {
-        if (mbase + mm < m) {
-          atomicAdd(acc0 + size_t(mbase + mm) * n + col, hi[mm]);
-          if constexpr (PLANES == 2) atomicAdd(acc1 + size_t(mbase + mm) * n + col, lo[mm]);
-        }
-      }
-    }
-  }
-}
-
 template <bool SPLIT>
 __global__ void symm_int8_epilogue(const int* __restrict__ acc0,
                                    const int* __restrict__ acc1,
@@ -729,11 +592,15 @@ __global__ void symm_int8_epilogue(const int* __restrict__ acc0,
        i += size_t(gridDim.x) * blockDim.x) {
     const int row = int(i / n);
     const int col = int(i % n);
+    const bool carry = packed && (col & 1);   // the packed column pairs' carry
     int v = acc0[i];
-    if (packed && (col & 1)) v += acc0[i - 1] < 0;   // K4's packed column pairs
+    if (carry) v += acc0[i - 1] < 0;
     float a = __int2float_rn(v);
-    if constexpr (SPLIT)
-      a = __fadd_rn(a, __fmul_rn(__int2float_rn(acc1[i]), float(1.0 / 254.0)));
+    if constexpr (SPLIT) {
+      int lo = acc1[i];
+      if (carry) lo += acc1[i - 1] < 0;
+      a = __fadd_rn(a, __fmul_rn(__int2float_rn(lo), float(1.0 / 254.0)));
+    }
     y[i] = __fadd_rn(__fmul_rn(__fmul_rn(a, sx[row]), gq[col]), __fmul_rn(xf[i], d[col]));
   }
 }
@@ -756,31 +623,36 @@ int launch_epilogue(bool split, bool packed, const int* acc0, const int* acc1,
   return int(cudaGetLastError());
 }
 
-template <int MT>
-int launch_mma(const int8_t* qx, const int8_t* q, const int* ii, const int* jj, int* acc,
-               int m, int n, int b, int items, cudaStream_t stream) {
-  using C = Cfg<MT>;
+int alignment(const void* p, int b) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(p);
+  return (b % 16 == 0 && a % 16 == 0) ? 16 : (b % 4 == 0 && a % 4 == 0) ? 4 : 1;
+}
+
+template <int MT, int PL>
+int launch_mma(const int8_t* x, const int8_t* x2, const int8_t* q, const int8_t* q2,
+               const int* ii, const int* jj, int* acc, int* acc2, int m, int n, int b,
+               int items, cudaStream_t stream) {
+  using C = Cfg<MT, PL>;
   // set on every launch: the attribute belongs to the current device
   cudaError_t err = cudaFuncSetAttribute(
-      symm_int8_mma_kernel<MT>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(C::SMEM));
+      symm_int8_mma_kernel<MT, PL>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(C::SMEM));
   if (err != cudaSuccess) return int(err);
   int device = 0, sms = 0, per_sm = 0;
   if ((err = cudaGetDevice(&device)) != cudaSuccess ||
       (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) !=
           cudaSuccess ||
-      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, symm_int8_mma_kernel<MT>,
-                                                           C::THREADS, C::SMEM)) != cudaSuccess)
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, symm_int8_mma_kernel<MT, PL>, C::THREADS, C::SMEM)) != cudaSuccess)
     return int(err);
   if (per_sm < 1) return int(cudaErrorInvalidConfiguration);
   // persistent blocks: each walks the squares blockIdx.x + k * gridDim.x
   const int grid = items < sms * per_sm ? items : sms * per_sm;
   const int passes = (m + C::ROWS - 1) / C::ROWS;
-  const int vec = (b % 16 == 0 && reinterpret_cast<uintptr_t>(q) % 16 == 0) ? 16
-                  : (b % 4 == 0 && reinterpret_cast<uintptr_t>(q) % 4 == 0) ? 4 : 1;
-  const int xvec = (b % 16 == 0 && reinterpret_cast<uintptr_t>(qx) % 16 == 0) ? 16
-                   : (b % 4 == 0 && reinterpret_cast<uintptr_t>(qx) % 4 == 0) ? 4 : 1;
-  symm_int8_mma_kernel<MT><<<dim3(grid, passes), C::THREADS, C::SMEM, stream>>>(
-      qx, q, ii, jj, acc, m, n, b, items, vec, xvec);
+  // the copies both planes take (both tensors of a pair alike)
+  const int vec = PL == 1 ? alignment(q, b) : min(alignment(q, b), alignment(q2, b));
+  const int xvec = PL == 1 ? alignment(x, b) : min(alignment(x, b), alignment(x2, b));
+  symm_int8_mma_kernel<MT, PL><<<dim3(grid, passes), C::THREADS, C::SMEM, stream>>>(
+      x, x2, q, q2, ii, jj, acc, acc2, m, n, b, items, vec, xvec);
   return int(cudaGetLastError());
 }
 
@@ -788,7 +660,7 @@ int launch_mma(const int8_t* qx, const int8_t* q, const int* ii, const int* jj, 
 
 extern "C" {
 
-// The square edge of K4's work items (symm_int8.py SQUARE_INT8).
+// The square edge of K4's and K5's work items (symm_int8.py SQUARE_INT8).
 int symm_int8_square_edge() { return SQ; }
 
 // K4. qx (m, n) int8; q (n_pairs, b, b) int8, 16-byte aligned; xf (m, n)
@@ -803,34 +675,32 @@ int symm_int8(const int8_t* qx, const int8_t* q, const int* ii, const int* jj,
   if (m <= 0 || n <= 0 || b <= 0 || n_pairs <= 0 || n % b != 0 || items > 0x7fffffff ||
       (m + MTILE - 1) / MTILE > 65535)
     return int(cudaErrorInvalidValue);
-  int err = m <= MTILE       ? launch_mma<1>(qx, q, ii, jj, acc, m, n, b, int(items), stream)
-            : m <= 2 * MTILE ? launch_mma<2>(qx, q, ii, jj, acc, m, n, b, int(items), stream)
-                             : launch_mma<4>(qx, q, ii, jj, acc, m, n, b, int(items), stream);
+  const int it = int(items);
+  int err = m <= MTILE ? launch_mma<1, 1>(qx, qx, q, q, ii, jj, acc, acc, m, n, b, it, stream)
+            : m <= 2 * MTILE
+                ? launch_mma<2, 1>(qx, qx, q, q, ii, jj, acc, acc, m, n, b, it, stream)
+                : launch_mma<4, 1>(qx, qx, q, q, ii, jj, acc, acc, m, n, b, it, stream);
   if (err != 0) return err;
   return launch_epilogue(false, b % 2 == 0, acc, acc, xf, sx, gq, d, y, m, n, stream);
 }
 
 // K5. p1, p2 (m, n) int8; q1, q2 (n_pairs, b, b) int8; acc1 (hi) and acc2
-// (lo) (m, n) int32 zeroed by the caller; the rest as K4.
+// (lo) (m, n) int32 zeroed by the caller; the rest as K4. One M tile per
+// block at every m (passes of 16 rows of x; see Cfg).
 int symm_int8_split(const int8_t* p1, const int8_t* p2, const int8_t* q1,
                     const int8_t* q2, const int* ii, const int* jj,
                     const float* xf, const float* sx, const float* gq,
                     const float* d, int* acc1, int* acc2, float* y, int m,
                     int n, int b, int n_pairs, cudaStream_t stream) {
-  const int nsub = (b + S - 1) / S;
-  if (m <= 0 || n <= 0 || b <= 0 || n_pairs <= 0 || n % b != 0 ||
-      nsub * nsub > 65535)
+  const long long nsq = (b + SQ - 1) / SQ;
+  const long long items = n_pairs * nsq * nsq;
+  if (m <= 0 || n <= 0 || b <= 0 || n_pairs <= 0 || n % b != 0 || items > 0x7fffffff ||
+      (m + MTILE - 1) / MTILE > 65535)
     return int(cudaErrorInvalidValue);
-  constexpr size_t smem = smem_bytes<2>();
-  // set on every launch: the attribute belongs to the current device
-  cudaError_t err = cudaFuncSetAttribute(
-      symm_int8_kernel<2>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  if (err != cudaSuccess) return int(err);
-  symm_int8_kernel<2><<<dim3(n_pairs, nsub * nsub), THREADS, smem, stream>>>(
-      p1, p2, q1, q2, ii, jj, acc1, acc2, m, n, b);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return int(err);
-  return launch_epilogue(true, false, acc1, acc2, xf, sx, gq, d, y, m, n, stream);
+  const int err =
+      launch_mma<1, 2>(p1, p2, q1, q2, ii, jj, acc1, acc2, m, n, b, int(items), stream);
+  if (err != 0) return err;
+  return launch_epilogue(true, b % 2 == 0, acc1, acc2, xf, sx, gq, d, y, m, n, stream);
 }
 
 const char* kernel_error_string(int err) {

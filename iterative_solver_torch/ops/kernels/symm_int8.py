@@ -25,13 +25,18 @@ both packages (``convert.py``).
 Kernels (CUDA C++ for sm_90a, ``csrc/symm_int8.cu``):
 
 - ``symm_matmat_int8_kernel`` replaces ``symm_matmat_int8_pallas`` /
-  ``_symm_matmat_int8_impl`` (K4), on the int8 tensor cores: one block per
-  ``SQUARE_INT8`` x ``SQUARE_INT8`` square of a tile and pass of up to 64
-  rows of x, derived from the block index (``int8_square_items``);
-  ``int8_square_walk`` follows that walk in plain PyTorch for the CPU tests,
-  and ``int8_flush_atomics`` counts its flushes;
+  ``_symm_matmat_int8_impl`` (K4), on the int8 tensor cores: persistent
+  blocks walk the ``SQUARE_INT8`` x ``SQUARE_INT8`` squares of the tiles,
+  derived from the block index (``int8_square_items``), for passes of up
+  to 64 rows of x;
 - ``symm_matmat_int8_split_kernel`` replaces
-  ``symm_matmat_int8_split_pallas`` / ``_symm_matmat_int8_split_impl`` (K5).
+  ``symm_matmat_int8_split_pallas`` / ``_symm_matmat_int8_split_impl`` (K5)
+  with the same kernel on two planes: each tile byte pair feeds three
+  products into two int32 sums, hi = p1 Q1 and lo = p1 Q2 + p2 Q1, for
+  passes of 16 rows of x (``INT8_SPLIT_ROWS``).
+
+``int8_square_walk`` follows both walks in plain PyTorch for the CPU
+tests, and ``int8_flush_atomics`` counts their flushes.
 
 x is quantized in the wrapper with the same torch ops as the plain version
 (the JAX package quantizes outside its Pallas kernels too). The kernels add
@@ -75,6 +80,9 @@ _SQRT127 = float(np.sqrt(127.0))
 SQUARE_INT8 = 256
 CHUNK_INT8 = 64
 M_TILE = 16
+# K5's rows of x per pass: one M tile (its two planes' sums fill the
+# registers that K4 gives to more rows)
+INT8_SPLIT_ROWS = M_TILE
 
 
 def _pack_lower(matrix: np.ndarray, b: int):
@@ -302,51 +310,67 @@ def int8_square_items(n_pairs: int, b: int):
         yield t, (s // nsq) * SQUARE_INT8, (s % nsq) * SQUARE_INT8
 
 
-def int8_square_walk(qx: Tensor, q: Tensor, ii: Tensor, jj: Tensor, b: int) -> Tensor:
-    """Plain emulation of K4's walk, for the CPU tests: for each pass of
-    ``16 * int8_m_tiles(m)`` rows of x and each work item, the chunks
-    column by column as the kernel streams them, both contributions
-    y_i += x_j Qᵀ and (off the diagonal) y_j += x_i Q summed in int32; y_i
-    added into the accumulator once per item, y_j once per chunk column, as
-    the kernel flushes."""
+def int8_square_walk(qx: Tensor, q: Tensor, ii: Tensor, jj: Tensor, b: int,
+                     p2: Optional[Tensor] = None, q2: Optional[Tensor] = None):
+    """Plain emulation of the K4 and K5 walk, for the CPU tests: for each
+    pass of rows of x (``16 * int8_m_tiles(m)``, or ``INT8_SPLIT_ROWS`` on
+    two planes) and each work item, the chunks column by column as the
+    kernel streams them, both contributions y_i += x_j Qᵀ and (off the
+    diagonal) y_j += x_i Q summed in int32; y_i added into the accumulator
+    once per item, y_j once per chunk column, as the kernel flushes.
+
+    One plane (``qx``, ``q``): returns the accumulator. Two planes (``qx``
+    = p1, ``q`` = Q1, and ``p2``, ``q2`` = Q2): returns (hi, lo), hi = p1 Q1
+    and lo = p1 Q2 + p2 Q1, each product pair taken chunk by chunk."""
     m, n = qx.shape
-    rows_per_pass = M_TILE * int8_m_tiles(m)
-    acc = torch.zeros((m, n), dtype=torch.int32, device=qx.device)
-    x = qx.to(torch.int64)
-    tiles = q.to(torch.int64)
+    split = p2 is not None
+    rows_per_pass = INT8_SPLIT_ROWS if split else M_TILE * int8_m_tiles(m)
+    # (x plane, tile plane, sum) of each product
+    products = ((0, 0, 0), (0, 1, 1), (1, 0, 1)) if split else ((0, 0, 0),)
+    xs_all = [a.to(torch.int64) for a in ((qx, p2) if split else (qx,))]
+    tiles = [a.to(torch.int64) for a in ((q, q2) if split else (q,))]
+    accs = [torch.zeros((m, n), dtype=torch.int32, device=qx.device)
+            for _ in range(2 if split else 1)]
     ii, jj = ii.tolist(), jj.tolist()
     for mbase in range(0, m, rows_per_pass):
-        xs = x[mbase:mbase + rows_per_pass]
+        xs = [a[mbase:mbase + rows_per_pass] for a in xs_all]
+        rows = xs[0].shape[0]
         for t, r0, c0 in int8_square_items(len(ii), b):
             diag = ii[t] == jj[t]
             r1, c1 = min(r0 + SQUARE_INT8, b), min(c0 + SQUARE_INT8, b)
-            yi = torch.zeros((xs.shape[0], r1 - r0), dtype=torch.int32, device=qx.device)
+            yi = [torch.zeros((rows, r1 - r0), dtype=torch.int32, device=qx.device)
+                  for _ in accs]
             for c in range(c0, c1, CHUNK_INT8):
                 width = min(CHUNK_INT8, c1 - c)
-                yj = torch.zeros((xs.shape[0], width), dtype=torch.int32, device=qx.device)
+                yj = [torch.zeros((rows, width), dtype=torch.int32, device=qx.device)
+                      for _ in accs]
                 for a in range(r0, r1, CHUNK_INT8):
-                    chunk = tiles[t, a:a + CHUNK_INT8, c:c + width]
-                    xj = xs[:, jj[t] * b + c:jj[t] * b + c + width]
-                    yi[:, a - r0:a - r0 + chunk.shape[0]] += (xj @ chunk.T).to(torch.int32)
-                    if not diag:
-                        xi = xs[:, ii[t] * b + a:ii[t] * b + a + chunk.shape[0]]
-                        yj += (xi @ chunk).to(torch.int32)
+                    for xp, qp, k in products:
+                        chunk = tiles[qp][t, a:a + CHUNK_INT8, c:c + width]
+                        xj = xs[xp][:, jj[t] * b + c:jj[t] * b + c + width]
+                        yi[k][:, a - r0:a - r0 + chunk.shape[0]] += (xj @ chunk.T).to(torch.int32)
+                        if not diag:
+                            xi = xs[xp][:, ii[t] * b + a:ii[t] * b + a + chunk.shape[0]]
+                            yj[k] += (xi @ chunk).to(torch.int32)
                 if not diag:
-                    acc[mbase:mbase + rows_per_pass, jj[t] * b + c:jj[t] * b + c + width] += yj
-            acc[mbase:mbase + rows_per_pass, ii[t] * b + r0:ii[t] * b + r1] += yi
-    return acc
+                    for acc, y in zip(accs, yj):
+                        acc[mbase:mbase + rows, jj[t] * b + c:jj[t] * b + c + width] += y
+            for acc, y in zip(accs, yi):
+                acc[mbase:mbase + rows, ii[t] * b + r0:ii[t] * b + r1] += y
+    return tuple(accs) if split else accs[0]
 
 
-def int8_flush_atomics(ii, jj, b: int, m: int) -> Tuple[int, int]:
-    """(int32 sums, reds) that one K4 call flushes into the accumulator:
-    each work item flushes once, one sum per row of x and row of its square
-    (y_i) and, off the diagonal, per row of x and column of its square
-    (y_j). Where b is even two neighbouring sums go out as one 64-bit red,
-    else each as a 32-bit one."""
+def int8_flush_atomics(ii, jj, b: int, m: int, planes: int = 1) -> Tuple[int, int]:
+    """(int32 sums, reds) that one K4 (``planes=1``) or K5 (``planes=2``:
+    hi and lo) call flushes into its accumulators: each work item flushes
+    once, one sum per accumulator, row of x and row of its square (y_i)
+    and, off the diagonal, per row of x and column of its square (y_j).
+    Where b is even two neighbouring sums go out as one 64-bit red, else
+    each as a 32-bit one."""
     diag = np.asarray(ii) == np.asarray(jj)
     edges = [min(SQUARE_INT8, b - s) for s in range(0, b, SQUARE_INT8)]
     per_tile = sum(edges) * len(edges)   # sum over squares of their rows (or columns)
-    sums = int(m * per_tile * (2 * np.sum(~diag) + np.sum(diag)))
+    sums = int(planes * m * per_tile * (2 * np.sum(~diag) + np.sum(diag)))
     return sums, sums // 2 if b % 2 == 0 else sums
 
 
@@ -430,7 +454,8 @@ def symm_matmat_int8_kernel(x: Tensor, sym: SymmetricBlockedInt8) -> Tensor:
 
 
 def symm_matmat_int8_split_kernel(x: Tensor, sym: SymmetricBlockedInt8Split) -> Tensor:
-    """K5: the two-plane int8 action (replaces
+    """K5: the two-plane int8 action on the int8 tensor cores, each packed
+    tile of both planes read once per 16 rows of x (replaces
     ``symm_matmat_int8_split_pallas``). A CUDA tensor launches
     ``symm_int8_split`` and returns float32; a CPU tensor takes the plain
     version."""

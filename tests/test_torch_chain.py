@@ -1,7 +1,8 @@
 """The port's expand chain (iterative_solver_torch/ops/kernels/chain.py)
 against the JAX package's fused chain kernel K2 (ops/kernels/chain_pallas.py,
 run in interpret mode on the CPU, as its own tests run it) and its
-whitening, in f64 to 1e-12."""
+whitening, in f64 to 1e-12; and the plain emulation of the CUDA kernel's
+column partition and summation order (``expand_chain_emulated``) in f32."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -40,6 +41,99 @@ def test_plain_chain_matches_interpreted_k2(jacobi, seed, shape):
         b = np.asarray(b)
         np.testing.assert_allclose(a.numpy(), b, rtol=1e-12, atol=1e-12 * np.abs(b).max(),
                                    err_msg=name)
+
+
+def _phenol_like(n, nroots=16, m_max=64, active=48, seed=0):
+    """The phenol check's kind of step in f32: a random orthonormal basis
+    with its last rows dead, Ritz values just below the lowest of 64 low
+    diagonal entries (one large column per row of t)."""
+    rng = np.random.default_rng(seed)
+    diag = rng.uniform(0.5, 50.0, n)
+    diag[rng.choice(n, 64, replace=False)] = np.linspace(-2.0, 3.0, 64)
+    evals = np.sort(diag)[:nroots] - 1e-4
+    mask = np.zeros(m_max)
+    mask[:active] = 1.0
+    v = np.linalg.qr(rng.standard_normal((n, m_max)))[0].T * mask[:, None]
+    r = rng.standard_normal((nroots, n))
+    return [torch.tensor(a, dtype=torch.float32) for a in (r, v, mask, diag, evals)]
+
+
+@pytest.mark.parametrize("ctas", [1, 3, 64])
+@pytest.mark.parametrize("jacobi", [False, True])
+@pytest.mark.parametrize("shape", [(4, 12, 256), (3, 16, 200), (16, 64, 1000),
+                                   (1, 128, 384), (20, 100, 777)])
+def test_emulated_chain_matches_plain_and_interpreted_k2(shape, jacobi, ctas):
+    """The CUDA kernel's partition and order of sums, emulated in f32, is
+    the same chain as the plain version and JAX's interpreted K2, within
+    1e-5 of each result's largest entry."""
+    nroots, m_max, n = shape
+    r, v, mask, diag, evals = _t(*_setup(nroots, m_max, n, seed=nroots))
+    f32 = [a.float() for a in (r, v, mask, diag, evals)]
+    extra = f32[3:] if jacobi else ()
+    got = T.expand_chain_emulated(*f32[:3], *extra, ctas=ctas)
+    ref = T.expand_chain(*f32[:3], *extra)
+    jref = J.fused_expand_chain(*(jnp.asarray(a.numpy()) for a in (*f32[:3], *extra)))
+    for name, a, b, c in zip(("t", "n0", "n2", "g"), got, ref, jref):
+        assert a.dtype == torch.float32
+        c = torch.from_numpy(np.array(c)).reshape(b.shape)
+        assert c.dtype == torch.float32
+        for other in (b, c):
+            err = float((a.double() - other.double()).abs().max())
+            assert err <= 1e-5 * float(other.abs().max()), name
+
+
+@pytest.mark.parametrize("ctas", [1, 2, 5, 64, 264])
+@pytest.mark.parametrize("n", [1, 127, 128, 129, 300, 8192, 8193, 1 << 17])
+def test_chain_steps_cover_every_column_once(n, ctas):
+    plan = T.chain_steps(n, ctas)
+    assert len(plan) == ctas
+    cols = np.concatenate([np.arange(c0, c1) for steps in plan for c0, c1 in steps])
+    np.testing.assert_array_equal(np.sort(cols), np.arange(n))
+    for b, steps in enumerate(plan):
+        for k, (c0, c1) in enumerate(steps):
+            # CTA b streams the steps b, b + ctas, ... of CHAIN_STEP columns
+            assert c0 == (b + k * ctas) * T.CHAIN_STEP and 0 < c1 - c0 <= T.CHAIN_STEP
+
+
+@pytest.mark.parametrize("shape,capacity,ctas", [
+    ((16, 64, 8192), 264, 64), ((16, 64, 1 << 20), 264, 264), ((16, 64, 1 << 20), 132, 132),
+    ((3, 12, 300), 264, 3), ((32, 128, 256), 132, 64), ((1, 1, 5), 264, 1)])
+def test_chain_cta_count(shape, capacity, ctas):
+    """One CTA per step, at least one per 64 entries of a pass's partials,
+    at most what the card holds."""
+    assert T.chain_ctas(*shape, capacity) == ctas
+
+
+@pytest.mark.parametrize("seed", [0, 3])
+def test_emulated_chain_accuracy_at_2_17(seed):
+    """At n = 2^17 in f32 the kernel's order of sums errs against float64
+    (on the same f32 inputs) no more than the plain f32 version in n2 and
+    g, up to two roundings of the result (2^-23 of its largest entry: both
+    round the same t, and a plain sum can cancel part of t's own error),
+    and everything lies within 1e-5. The first design's order (each CTA's
+    partial added atomically into one global sum) erred by 4.6e-5 at
+    n = 2^20 on the card."""
+    args = _phenol_like(1 << 17, seed=seed)
+    ref = T.expand_chain(*(a.double() for a in args))
+    emul = T.expand_chain_emulated(*args, ctas=264)
+    plain = T.expand_chain(*args)
+
+    def err(a, b):
+        return float((a.double() - b).abs().max() / b.abs().max())
+
+    for name, e, p, f in zip(("t", "n0", "n2", "g"), emul, plain, ref):
+        assert err(e, f) <= 1e-5, name
+        if name in ("n2", "g"):
+            assert err(e, f) <= err(p, f) + 2.0 ** -23, name
+
+
+def test_emulated_chain_refuses_the_second_paths_shapes():
+    r, v, mask, _, _ = _t(*_setup(40, 150, 256))
+    with pytest.raises(ValueError):
+        T.expand_chain_emulated(r.float(), v.float(), mask.float())
+    assert T.chain_fast_dims(40, 150) is None
+    assert T.chain_fast_dims(16, 64) == (16, 64)
+    assert T.chain_fast_dims(17, 65) == (32, 128)
 
 
 def test_wrapper_takes_plain_version_on_cpu():

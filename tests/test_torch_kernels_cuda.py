@@ -6,14 +6,14 @@ JAX, so it also runs on a machine without it:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_kernels_cuda.py
 
-Tolerance: 1e-5 of the plain result's max magnitude for K1, K2 and K3 (both
-contributions and the chain's reductions add partial sums with f32 atomics,
-so the order of the sum differs from the plain version's). K4 and K5 add
-integer partial sums, exact in any order, and round their epilogue in the
-plain version's order: they must equal it bit for bit (tolerance 0). K6
-and K7 add in a fixed order of their own (no atomics): tolerance 1e-5 of
-the plain result's max magnitude (for K7, of the largest sum of |terms|,
-since a single dot product may cancel), and the same bits on a second run.
+Tolerance: 1e-5 of the plain result's max magnitude for K1 and K3 (both
+contributions add partial sums with f32 atomics, so the order of the sum
+differs from the plain version's). K4 and K5 add integer partial sums,
+exact in any order, and round their epilogue in the plain version's order:
+they must equal it bit for bit (tolerance 0). K2, K6 and K7 add in a fixed
+order of their own (no atomics): tolerance 1e-5 of the plain result's max
+magnitude (for K7, of the largest sum of |terms|, since a single dot
+product may cancel), and the same bits on a second run.
 """
 
 import functools
@@ -182,15 +182,12 @@ def test_symm_kernel_rejects_f64(cuda):
         symm.symm_matmat_kernel(torch.zeros((2, 64), dtype=torch.float64, device=cuda), sym)
 
 
-@pytest.mark.parametrize("jacobi", [False, True])
-@pytest.mark.parametrize("r,m_max,n,passes", [(16, 64, 8192, 2), (3, 12, 300, 2),
-                                              (5, 40, 1000, 1), (4, 16, 777, 3)])
-def test_chain_kernel_matches_plain(cuda, jacobi, r, m_max, n, passes):
-    rng = np.random.default_rng(6)
+def _chain_inputs(r, m_max, n, jacobi, device, seed=6):
+    rng = np.random.default_rng(seed)
     q = np.linalg.qr(rng.standard_normal((n, m_max)))[0].T
     mask = np.zeros(m_max)
     mask[: 3 * m_max // 4] = 1.0
-    f32 = dict(dtype=torch.float32, device=cuda)
+    f32 = dict(dtype=torch.float32, device=device)
     v = torch.as_tensor(q * mask[:, None], **f32)
     mask = torch.as_tensor(mask, **f32)
     res = torch.as_tensor(rng.standard_normal((r, n)), **f32)
@@ -198,12 +195,82 @@ def test_chain_kernel_matches_plain(cuda, jacobi, r, m_max, n, passes):
     if jacobi:
         extra = (torch.as_tensor(rng.standard_normal(n) + 4.0, **f32),
                  torch.as_tensor(np.linspace(-1.0, 0.0, r), **f32))
+    return (res, v, mask, *extra)
+
+
+# K2's fast path (R <= 32, M <= 128, n a multiple of 4): 8196 and 4100 end
+# in a ragged step of 128 columns, R = 1 and M = 128, R = 20 (32 padded
+# rows); its second path: n = 8191, 300, 777 and 1000 (not multiples of 4
+# or of a step) at small R and M, and R = 40, M = 150; gs_passes 1 to 3
+CHAIN_SHAPES = [(16, 64, 8192, 2), (3, 12, 300, 2), (5, 40, 1000, 1), (4, 16, 777, 3),
+                (16, 64, 8196, 2), (16, 64, 8191, 2), (1, 64, 4096, 2), (16, 128, 8196, 1),
+                (1, 128, 4100, 3), (20, 100, 2048, 2), (40, 150, 2000, 2)]
+
+
+@pytest.mark.parametrize("jacobi", [False, True])
+@pytest.mark.parametrize("r,m_max,n,passes", CHAIN_SHAPES)
+def test_chain_kernel_matches_plain(cuda, jacobi, r, m_max, n, passes):
+    args = _chain_inputs(r, m_max, n, jacobi, cuda)
     before = chain.LAUNCHES["chain"]
-    got = chain.fused_expand_chain(res, v, mask, *extra, gs_passes=passes)
-    ref = chain.expand_chain(res, v, mask, *extra, gs_passes=passes)
+    got = chain.fused_expand_chain(*args, gs_passes=passes)
+    ref = chain.expand_chain(*args, gs_passes=passes)
     torch.cuda.synchronize()
     assert chain.LAUNCHES["chain"] == before + 1
     for name, a, b in zip(("t", "n0", "n2", "g"), got, ref):
+        assert _rel(a, b) <= TOL, name
+    if chain.chain_fast_dims(r, m_max) is not None and n % 4 == 0:
+        # the kernel's own partition and order, emulated on the card
+        ctas = chain.chain_ctas(r, m_max, n, chain._chain_capacity(cuda, r, m_max, n, True))
+        emul = chain.expand_chain_emulated(*args, gs_passes=passes, ctas=ctas)
+        for name, a, b in zip(("t", "n0", "n2", "g"), got, emul):
+            assert _rel(a, b) <= TOL, name
+
+
+@pytest.mark.parametrize("r,m_max,n,passes", [(16, 64, 8192, 2), (16, 64, 8191, 2),
+                                              (1, 128, 4100, 3), (40, 150, 2000, 2)])
+def test_chain_kernel_repeated_calls_identical(cuda, r, m_max, n, passes):
+    """K2 adds every partial in a fixed order: every call gives the same bits."""
+    args = _chain_inputs(r, m_max, n, True, cuda, seed=7)
+    outs = [chain.fused_expand_chain(*args, gs_passes=passes) for _ in range(4)]
+    torch.cuda.synchronize()
+    for other in outs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(outs[0], other))
+
+
+def test_chain_kernel_never_takes_the_plain_path(cuda, monkeypatch):
+    args = _chain_inputs(16, 64, 8192, True, cuda, seed=8)
+    ref = chain.expand_chain(*args)
+
+    def refuse(*a, **k):
+        raise AssertionError("a CUDA launch reached the plain version")
+
+    for name in ("expand_chain", "expand_chain_emulated"):
+        monkeypatch.setattr(chain, name, refuse)
+    before = chain.LAUNCHES["chain"]
+    got = chain.fused_expand_chain(*args)
+    torch.cuda.synchronize()
+    assert chain.LAUNCHES["chain"] == before + 1
+    for name, a, b in zip(("t", "n0", "n2", "g"), got, ref):
+        assert _rel(a, b) <= TOL, name
+    with pytest.raises(TypeError):
+        chain.fused_expand_chain(*(a.double() for a in args))
+
+
+def test_chain_kernel_against_float64_at_2_18(cuda):
+    """At n = 2^18, a phenol-like step (Ritz values just below the lowest
+    diagonal entries: one large column per row of t) within 1e-5 of the
+    plain version in float64 on the same f32 inputs, in t, n0, n2 and g."""
+    n, nroots = 1 << 18, 16
+    rng = np.random.default_rng(9)
+    d = rng.uniform(0.5, 50.0, n)
+    d[rng.choice(n, 64, replace=False)] = np.linspace(-2.0, 3.0, 64)
+    res, v, mask = _chain_inputs(nroots, 64, n, False, cuda, seed=9)
+    diag = torch.as_tensor(d, dtype=torch.float32, device=cuda)
+    evals = torch.as_tensor(np.sort(d)[:nroots] - 1e-4, dtype=torch.float32, device=cuda)
+    got = chain.fused_expand_chain(res, v, mask, diag, evals)
+    ref64 = chain.expand_chain(*(a.double() for a in (res, v, mask, diag, evals)))
+    torch.cuda.synchronize()
+    for name, a, b in zip(("t", "n0", "n2", "g"), got, ref64):
         assert _rel(a, b) <= TOL, name
 
 
@@ -229,10 +296,9 @@ def test_small_solve_on_card(cuda, tier):
     np.testing.assert_allclose(rq, ref, atol=1e-5 if tier == "fast" else 1e-8)
 
 
-# K4/K5 shapes (n, b): b=32 is below K4's 64-wide chunk and b=96 ragged in
-# it (K5: one ragged sub-tile below 128); b=200 is ragged and not a
-# multiple of 16 (4-byte copies); b=512 and b=1024 are whole 256-wide
-# squares (K5: 128-wide sub-tiles)
+# K4/K5 shapes (n, b): b=32 is below the 64-wide chunk and b=96 ragged in
+# it; b=200 is ragged and not a multiple of 16 (4-byte copies); b=512 and
+# b=1024 are whole 256-wide squares
 INT8_SHAPES = [(96, 32), (288, 96), (400, 200), (1024, 512), (2048, 1024)]
 INT8_TIERS = {
     "int8": (symm_int8.SymmetricBlockedInt8, symm_int8.symm_matmat_int8_kernel,
@@ -274,8 +340,34 @@ def test_int8_kernel_m_tilings(cuda, n, b, m):
     assert torch.equal(y, symm_int8.symm_matmat_int8(x, sym))
 
 
-# b = 50: rows not 4-byte aligned (byte loads), b even (K4's 64-bit reds);
-# b = 25: b odd (K4's 32-bit reds)
+# K5 at every pass count: 16 rows of x per pass, so 17 and 40 take two and
+# three passes, 64 four, 100 seven
+@pytest.mark.parametrize("m", [1, 17, 40, 64, 100])
+@pytest.mark.parametrize("n,b", INT8_SHAPES)
+def test_split_kernel_row_passes(cuda, n, b, m):
+    sym = symm_int8.SymmetricBlockedInt8Split.from_dense(_sym_matrix(n, 22), b=b, device=cuda)
+    x = torch.as_tensor(np.random.default_rng(23).standard_normal((m, sym.shape[0])),
+                        dtype=torch.float32, device=cuda)
+    before = symm_int8.LAUNCHES["symm_int8_split"]
+    y = symm_int8.symm_matmat_int8_split_kernel(x, sym)
+    torch.cuda.synchronize()
+    assert symm_int8.LAUNCHES["symm_int8_split"] == before + 1
+    assert torch.equal(y, symm_int8.symm_matmat_int8_split(x, sym))
+
+
+def test_split_kernel_repeated_calls_identical(cuda):
+    """Integer reds are exact in any order: every K5 call gives the same bits."""
+    sym = symm_int8.SymmetricBlockedInt8Split.from_dense(_sym_matrix(2048, 24), b=1024,
+                                                         device=cuda)
+    x = torch.as_tensor(np.random.default_rng(25).standard_normal((16, 2048)),
+                        dtype=torch.float32, device=cuda)
+    ys = torch.stack([symm_int8.symm_matmat_int8_split_kernel(x, sym) for _ in range(8)])
+    torch.cuda.synchronize()
+    assert all(torch.equal(ys[0], y) for y in ys[1:])
+
+
+# b = 50: rows not 4-byte aligned (byte loads), b even (64-bit reds);
+# b = 25: b odd (32-bit reds)
 @pytest.mark.parametrize("m", [16, 64])
 @pytest.mark.parametrize("n,b", [(150, 50), (75, 25)])
 @pytest.mark.parametrize("tier", sorted(INT8_TIERS))

@@ -254,6 +254,52 @@ def test_square_walk_equals_plain(n, b, tol, m):
     assert torch.equal(got, ref)
 
 
+def _split_walk_operand(n, b, tol):
+    mat = _block_sparse(n, b, 18) if tol is not None else _symmetric(n, 18)
+    return T.SymmetricBlockedInt8Split.from_dense(mat, b=b, tol=tol, device="cpu")
+
+
+# K5's walk: the same squares and chunks on two planes, passes of 16 rows
+# (m = 17 and 40 take two and three)
+@pytest.mark.parametrize("m", [1, 16, 17, 40])
+@pytest.mark.parametrize("n,b,tol", WALKS)
+def test_split_square_walk_equals_plain(n, b, tol, m):
+    ts = _split_walk_operand(n, b, tol)
+    rng = np.random.default_rng(19)
+    p1, p2 = (torch.from_numpy(rng.integers(-127, 128, (m, ts.shape[0])).astype(np.int8))
+              for _ in range(2))
+    p1[m // 2] = 0
+    hi, lo = T.int8_square_walk(p1, ts.q1, ts.ii, ts.jj, ts.b, p2=p2, q2=ts.q2)
+    nb = ts.shape[0] // ts.b
+    ref_hi = T._symm_matmat_int8_plain(p1, ts.q1, ts.ii, ts.jj, ts.b, nb)
+    ref_lo = (T._symm_matmat_int8_plain(p1, ts.q2, ts.ii, ts.jj, ts.b, nb)
+              + T._symm_matmat_int8_plain(p2, ts.q1, ts.ii, ts.jj, ts.b, nb))
+    assert hi.dtype == lo.dtype == torch.int32
+    assert torch.equal(hi, ref_hi)
+    assert torch.equal(lo, ref_lo)
+
+
+@pytest.mark.parametrize("planes", [1, 2])
+@pytest.mark.parametrize("n,b,tol", WALKS + [(150, 50, None), (75, 25, None)])
+def test_flush_atomics_count_by_numpy(n, b, tol, planes):
+    """``int8_flush_atomics`` against a numpy count over the walk's squares:
+    per accumulator (one, or hi and lo), row of x and square, one sum per
+    row of the square and, off the diagonal, one per column; two sums to a
+    64-bit red where b is even."""
+    ts = _walk_operand(n, b, tol) if planes == 1 else _split_walk_operand(n, b, tol)
+    ii, jj = ts.ii.numpy(), ts.jj.numpy()
+    nsq = -(-b // T.SQUARE_INT8)
+    t = np.repeat(np.arange(ts.n_pairs), nsq * nsq)
+    s = np.tile(np.arange(nsq * nsq), ts.n_pairs)
+    rows = np.minimum(T.SQUARE_INT8, b - (s // nsq) * T.SQUARE_INT8)
+    cols = np.minimum(T.SQUARE_INT8, b - (s % nsq) * T.SQUARE_INT8)
+    per_x_row = np.sum(rows + np.where(ii[t] != jj[t], cols, 0))
+    for m in (1, 16, 17, 64):
+        sums, reds = T.int8_flush_atomics(ii, jj, b, m, planes=planes)
+        assert sums == planes * m * int(per_x_row)
+        assert reds == (sums // 2 if b % 2 == 0 else sums)
+
+
 @pytest.mark.parametrize("n,b,tol", WALKS)
 def test_square_items_cover_every_tile_element_once(n, b, tol):
     """Each tile element lies in exactly one chunk of one work item; an
