@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """CPU calibration of the sparse checks in chip_smoke.py.
 
-    python3 calibrate_sparse_cpu.py [bsr] [parity] [phenol]
+    python3 calibrate_sparse_cpu.py [bsr] [parity] [parity_linear] [phenol]
 
 Each part prints one JSON line per run; the constants and limits
 chip_smoke.py holds the card to are set from them (PERF.md says with what
@@ -16,6 +16,11 @@ does.
 - ``parity``: ``create_linear_eigensystem(8192, 4, "Davidson",
   "convergence_threshold=1e-5")`` on a Problem whose action is the BSR
   action of the same operator;
+- ``parity_linear``: ``create_linear_equations(8192, 4, "Davidson",
+  "convergence_threshold=1e-5")`` on the same operator plus 3 I (its
+  diagonal shifted the same way) with 4 right-hand sides from
+  ``default_rng(3)``: iterations, stats, the f64 relative residual, and the
+  count of actions it applied;
 - ``phenol``: the phenol-scale solve of chip_smoke.py (16 roots, m_max 64,
   tol PHENOL_TOL) at n = 2^16 and at n = 2^14, and at n = 2^14 the 16
   lowest eigenvalues of the dense operator by ``np.linalg.eigvalsh`` against
@@ -107,6 +112,21 @@ def parity(op) -> None:
           **f64_quality(params, dense, ref), "seconds": time.perf_counter() - t0})
 
 
+def parity_linear(op) -> None:
+    matrix, dense, _ = op
+    problem = chip_smoke.shifted_bsr_problem(matrix)
+    calls = []
+    action = problem.action
+    problem.action = lambda p: calls.append(p.shape[0]) or action(p)
+    solver, conv, rhs, seconds = chip_smoke.parity_linear_solve(matrix, CPU, problem=problem,
+                                                                dtype=F32)
+    emit({"part": "parity_create_linear_equations", "converged": bool(conv),
+          "iterations": solver.stats.iterations, "stats": str(solver.stats),
+          "actions": len(calls), "max_error": float(max(solver.errors)),
+          "f64_relative_residual": chip_smoke.parity_linear_residual(solver, dense, rhs),
+          "seconds": seconds})
+
+
 def phenol() -> None:
     for n in (1 << 16, 1 << 14):
         t0 = time.perf_counter()
@@ -135,16 +155,19 @@ def phenol() -> None:
 
 
 def main(argv) -> int:
-    parts = argv or ["bsr", "parity", "phenol"]
-    unknown = set(parts) - {"bsr", "parity", "phenol"}
+    parts = argv or ["bsr", "parity", "parity_linear", "phenol"]
+    unknown = set(parts) - {"bsr", "parity", "parity_linear", "phenol"}
     if unknown:
-        raise SystemExit(f"unknown parts {sorted(unknown)}: use bsr, parity or phenol")
-    op = bench_operator() if {"bsr", "parity"} & set(parts) else None
+        raise SystemExit(f"unknown parts {sorted(unknown)}: use bsr, parity, parity_linear "
+                         f"or phenol")
+    op = bench_operator() if {"bsr", "parity", "parity_linear"} & set(parts) else None
     for part in parts:
         if part == "bsr":
             bsr(op)
         elif part == "parity":
             parity(op)
+        elif part == "parity_linear":
+            parity_linear(op)
         else:
             phenol()
     return 0

@@ -83,6 +83,44 @@ Phases, one JSON line each:
     card, steady seconds per iteration; and a torch.profiler breakdown of
     one more such solve.
 
+16. after the headline profile (11), the slice of the linear systems:
+    a. the P-space Davidson: tier "precise", rr "full", tol 1e-5, m_max 96,
+       P the unit vectors of the 32 lowest diagonal entries with their
+       exact f64 rows as ``p_actions``, the guess one-hot on the next 16;
+       the limits of the precise solve, and the iteration count of the
+       port's CPU run (PSPACE_ITERATIONS); K3 launches for init, probe,
+       iterations and restarts, none for P;
+    b. checkpoint and resume: the headline solve through ``run_fast``
+       (sweeps of 3 steps), uninterrupted; one sweep checkpointed to an
+       .npz in a temporary directory; ``resume_fast`` on a fresh solver:
+       the same iteration count, Ritz values within 1e-6; a solver with 8
+       roots must refuse the file. (The headline converges within its first
+       sweep, so the resume returns the converged checkpoint; a resume that
+       restarts and sweeps on is tests/test_torch_kernels_cuda.py's);
+    c. the batched solve: examples/batched_scan.py's scan at 8 x n = 1024,
+       3 roots, m_max 18, float32, tol 1e-5 (each element converged, its
+       eigenvalues within 1e-5 of eigvalsh), its steady wall time beside 8
+       sequential chunked solves';
+    d. FusedLinearEquations on the bench matrix + 3 I (spectrum >= 1,
+       condition number about 53) with 16 right-hand sides from
+       default_rng(2), fused chain (K2 in raw mode), each tier at its
+       tolerance (LINEAR_TOLS): converged, the f64 relative residual and
+       the relative error against np.linalg.solve within LINEAR_LIMITS
+       (from calibrate_linear_cpu.py), launches init + probe + iterations +
+       restarts (K2: iterations); then a torch.profiler breakdown of one
+       more "precise" linear solve;
+    e. K2 in raw mode alone (16 rows, a 64-row basis, n = 8192, no
+       diagonal), with K2's checks;
+    f. refinement to 1e-8 (bench.py's precise_1e8 leg): the precise solve,
+       then EigenpairRefiner (the f64 action on the card, the K3 matvec in
+       the deflated CG): converged, f64 residual <= 1e-8, the 4 lowest
+       eigenvalues within 1e-9; refine_on_host from the same vectors;
+    g. after the parity eigen phase (14): ``create_linear_equations(8192, 4,
+       "Davidson", "convergence_threshold=1e-5")`` on a Problem whose action
+       is K6 on the sparse operator plus 3 I, 4 right-hand sides from
+       default_rng(3): the f64 relative residual <= 1e-5, the iteration
+       count and stats of the port's CPU run, one K6 launch per iteration.
+
 Each Davidson solve reports iterations, convergence, time per iteration,
 the f64 residual ||A x - rho x|| of each normalised Ritz vector against the
 dense f64 matrix, the 4 lowest Rayleigh quotients against
@@ -106,7 +144,8 @@ card's nvidia-smi line; and as the last line ``{"ok": true, "device":
 that last line. It also exits non-zero where CUDA is absent, and where the
 package beside it is missing. The limits of the sparse phases come from
 ``calibrate_sparse_cpu.py``, those of the int8 phases from
-``calibrate_int8_cpu.py``.
+``calibrate_int8_cpu.py``, those of the P-space and linear phases from
+``calibrate_linear_cpu.py``.
 """
 
 from __future__ import annotations
@@ -166,6 +205,43 @@ PHENOL_RES_LIMIT = 2e-4
 PHENOL_ORTHO_LIMIT = 1e-4
 PHENOL_SKIP_LIMIT = 0.01
 GRAM_ACTIVE = 40
+
+# the P-space Davidson: the unit vectors of the 32 lowest diagonal entries
+# with their exact f64 rows as actions; a basis of 2 x 16 + 32 rows; the
+# iteration count of the port's CPU run in float32 (calibrate_linear_cpu.py)
+PSPACE_P = 32
+PSPACE_M_MAX = 96
+PSPACE_ITERATIONS = 3
+# examples/batched_scan.py at the size its docstring measured
+BATCH_POINTS = 8
+BATCH_N = 1024
+BATCH_ROOTS = 3
+BATCH_M_MAX = 18
+BATCH_TOL = 1e-5
+# the response-equation operator (bench matrix + 3 I: spectrum >= 1,
+# condition number about 53) and its right-hand sides
+LINEAR_SHIFT = 3.0
+LINEAR_RHS_SEED = 2
+# "fast" at 2e-3: the bf16 tier rounds x to bf16 (as the TPU kernel does),
+# which floors a dense solution's residual near 8e-4 (calibrate_linear_cpu.py;
+# at 2e-4 the port's float32 run did not converge in 60 iterations)
+LINEAR_TOLS = {"fast": 2e-3, "precise": 1e-5, "exact": 1e-5, "int8": 5e-3,
+               "int8_precise": 1e-5}
+# (f64 relative residual, f64 relative solution error) limits of each tier,
+# from calibrate_linear_cpu.py (PERF.md gives the margins)
+LINEAR_LIMITS = {"fast": (1e-2, 1e-2), "precise": (5e-5, 5e-5), "exact": (1e-5, 2e-5),
+                 "int8": (1e-2, 1e-2), "int8_precise": (5e-5, 5e-5)}
+# the refinement leg (bench.py:755-789): to 1e-8, eigenvalues within 1e-9
+REFINE_TOL = 1e-8
+REFINE_RQ_LIMIT = 1e-9
+# the parity linear equations on the shifted sparse operator: 4 right-hand
+# sides, and the iteration count and stats of the port's CPU run in float32
+# (calibrate_sparse_cpu.py parity_linear)
+PARITY_LINEAR_RHS_SEED = 3
+PARITY_LINEAR_ITERATIONS = 4
+PARITY_LINEAR_STATS = ("iterations = 4, R vectors created = 16, Q vectors created = 32, "
+                       "gemm_inner_ops = 16, gemm_outer_ops = 8")
+PARITY_LINEAR_RES_LIMIT = 1e-5
 
 # H100 SXM data-sheet peaks (dense): memory 3.35 TB/s; bf16 tensor cores
 # 989 TFLOP/s; int8 tensor cores 1979 TOP/s; float32 outside the tensor
@@ -483,11 +559,28 @@ def check_kernels(matrix: np.ndarray, device) -> list:
     return results
 
 
+def check_chain_raw(n: int, device) -> dict:
+    """K2 in the raw mode FusedLinearEquations launches (no Jacobi inside),
+    at the linear solve's shapes: 16 rows, a 64-row basis, n = 8192; the
+    inputs of check_kernels' K2."""
+    import torch
+
+    rng = np.random.default_rng(1)
+    x = torch.as_tensor(rng.standard_normal((NROOTS, n)), dtype=torch.float32, device=device)
+    q, _ = torch.linalg.qr(torch.as_tensor(rng.standard_normal((n, M_MAX)),
+                                           dtype=torch.float32, device=device))
+    rec = chain_case("K2-raw", x, q, None, None, device)
+    emit({"phase": "kernel_check_k2_raw", **rec})
+    return rec
+
+
 def chain_case(name, r, q, diag_np, evals_np, device) -> dict:
     """K2 against its plain version at a step's shapes: the residuals ``r``,
     a basis stack of the orthonormal columns of ``q`` filled to 48 of 64
     rows (dead rows hold zeros, as in the solver), the operator diagonal,
-    and Ritz values ``evals_np`` near its lowest entries.
+    and Ritz values ``evals_np`` near its lowest entries. With ``diag_np``
+    None it is K2's raw mode, as FusedLinearEquations calls it: ``r`` is
+    the new-direction block, and no Jacobi step runs inside.
 
     Checks: t, n0, n2 and g within KERNEL_TOL of the plain version and of
     the plain version in float64 on the same inputs (the plain version's
@@ -504,13 +597,16 @@ def chain_case(name, r, q, diag_np, evals_np, device) -> dict:
     mask = torch.zeros(M_MAX, dtype=torch.float32, device=device)
     mask[:48] = 1.0
     v = (q.T * mask[:, None]).contiguous()
-    diag = torch.as_tensor(diag_np, dtype=torch.float32, device=device)
-    evals = torch.as_tensor(evals_np, dtype=torch.float32, device=device)
-    got = chain.fused_expand_chain(r, v, mask, diag, evals)
-    again = chain.fused_expand_chain(r, v, mask, diag, evals)
-    ref = chain.expand_chain(r, v, mask, diag, evals)
     f64 = torch.float64
-    ref64 = chain.expand_chain(r.to(f64), v.to(f64), mask.to(f64), diag.to(f64), evals.to(f64))
+    if diag_np is None:
+        args = ()
+    else:
+        args = (torch.as_tensor(diag_np, dtype=torch.float32, device=device),
+                torch.as_tensor(evals_np, dtype=torch.float32, device=device))
+    got = chain.fused_expand_chain(r, v, mask, *args)
+    again = chain.fused_expand_chain(r, v, mask, *args)
+    ref = chain.expand_chain(r, v, mask, *args)
+    ref64 = chain.expand_chain(r.to(f64), v.to(f64), mask.to(f64), *(a.to(f64) for a in args))
     torch.cuda.synchronize(device)
     errs = [rel_err(a, b) for a, b in zip(got, ref)]
     kernel_f64 = [rel_err(a, b)[1] for a, b in zip(got, ref64)]
@@ -526,16 +622,20 @@ def chain_case(name, r, q, diag_np, evals_np, device) -> dict:
     if not all(torch.equal(a, b) for a, b in zip(got, again)):
         raise AssertionError(f"{name}: a second call gave other bits")
     del again
-    kernel_ms, plain_ms = in_turns(lambda: chain.expand_chain(r, v, mask, diag, evals),
-                                   lambda: chain.fused_expand_chain(r, v, mask, diag, evals),
+    kernel_ms, plain_ms = in_turns(lambda: chain.expand_chain(r, v, mask, *args),
+                                   lambda: chain.fused_expand_chain(r, v, mask, *args),
                                    device)
     # one cooperative launch per call
     kernel_device_ms, call_device_ms, _ = device_ms(
-        lambda: chain.fused_expand_chain(r, v, mask, diag, evals), device, "chain_", 1)
+        lambda: chain.fused_expand_chain(r, v, mask, *args), device, "chain_", 1)
     rn = nroots * n
-    nbytes = 4 * (2 * rn + M_MAX * n + M_MAX + n + nroots + 2 * nroots + nroots * nroots)
-    # Jacobi (3), n0 (2), two GS passes (2 x 2 x 2 x M), n2 (2), g (2 R)
-    flops = rn * (3 + 2 + 8 * M_MAX + 2 + 2 * nroots)
+    jacobi = diag_np is not None
+    # r in, t out, v, mask, (diag, evals), n0, n2, g
+    nbytes = 4 * (2 * rn + M_MAX * n + M_MAX + (n + nroots if jacobi else 0) + 2 * nroots
+                  + nroots * nroots)
+    # Jacobi (3, Jacobi mode only), n0 (2), two GS passes (2 x 2 x 2 x M),
+    # n2 (2), g (2 R)
+    flops = rn * ((3 if jacobi else 0) + 2 + 8 * M_MAX + 2 + 2 * nroots)
     bound_ms, bound_by = bound(nbytes, flops, "f32")
     # two GS passes: v is read three times
     floor_bytes = nbytes + 2 * 4 * M_MAX * n
@@ -552,6 +652,7 @@ def chain_case(name, r, q, diag_np, evals_np, device) -> dict:
         "library_ms": None, "kernel_device_ms": kernel_device_ms,
         "call_device_ms": call_device_ms, "share_of_bound": bound_ms / kernel_device_ms,
         "shapes": {"r": nroots, "m_max": M_MAX, "n": n, "active": 48},
+        "mode": "jacobi" if jacobi else "raw",
     }
 
 
@@ -668,11 +769,13 @@ def check_int8_kernels(matrix: np.ndarray, flagship, device) -> list:
     return results
 
 
-def expected_restarts(iters: int, nroots: int, m_max: int) -> int:
-    k, restarts = nroots, 0
+def expected_restarts(iters: int, nroots: int, m_max: int, n_p: int = 0) -> int:
+    """Restarts of a solve that steps ``iters`` times, restarting whenever
+    the next append would overflow (the frozen P slots stay)."""
+    k, restarts = n_p + nroots, 0
     for _ in range(iters):
         if k + nroots > m_max:
-            k, restarts = nroots, restarts + 1
+            k, restarts = n_p + nroots, restarts + 1
         k += nroots
     return restarts
 
@@ -703,11 +806,12 @@ def solve_launches(action_key: str) -> dict:
 
 
 def solve_phase(matrix, ref_evals, device, tier, rr, tol, res_limit, rq_limit,
-                action_key, built=None, phase=None, **solver_kw) -> dict:
+                action_key, built=None, phase=None, v0=None, **solver_kw) -> dict:
     """One solve through the public entry points; raises on a failed check.
     Returns the phase record with the launches counted during the solve.
     ``built`` is ``(solver, setup seconds)`` of a solver made elsewhere;
-    without it the solver is ``from_dense_symmetric(matrix, tier=tier)``."""
+    without it the solver is ``from_dense_symmetric(matrix, tier=tier)``.
+    ``v0`` defaults to the one-hot guess on the lowest diagonal entries."""
     import torch
 
     from iterative_solver_torch import FusedDavidson
@@ -722,7 +826,7 @@ def solve_phase(matrix, ref_evals, device, tier, rr, tol, res_limit, rq_limit,
     else:
         solver, setup_s = built
     phase = phase or f"solve_{tier}"
-    v0 = guess(diag, NROOTS)
+    v0 = guess(diag, NROOTS) if v0 is None else v0
 
     reset_launches()
     torch.cuda.synchronize(device)
@@ -739,7 +843,7 @@ def solve_phase(matrix, ref_evals, device, tier, rr, tol, res_limit, rq_limit,
     torch.cuda.synchronize(device)
     wall2 = time.perf_counter() - t0
 
-    restarts = expected_restarts(iters, NROOTS, M_MAX)
+    restarts = expected_restarts(iters, NROOTS, solver.m_max, solver.n_p)
     expected = {"action": 1 + 2 + iters + restarts, "chain": iters, "gram": 0}
     converged = bool(np.max(errors) <= tol)
 
@@ -753,7 +857,8 @@ def solve_phase(matrix, ref_evals, device, tier, rr, tol, res_limit, rq_limit,
 
     rec = {
         "phase": phase, "tier": tier, "rr": rr, "n": matrix.shape[0],
-        "nroots": NROOTS, "m_max": M_MAX, "tol": tol, "fuse_chain": solver.fuse_chain,
+        "nroots": NROOTS, "m_max": solver.m_max, "n_p": solver.n_p, "tol": tol,
+        "fuse_chain": solver.fuse_chain,
         "iterations": iters, "restarts": restarts, "converged": converged,
         "max_error": float(np.max(errors)), "seconds": wall,
         "seconds_per_iteration": wall / max(iters, 1),
@@ -886,16 +991,21 @@ def solve_ppcg_flagship(sym, diag, gen_s, device, tol=FLAGSHIP_TOL,
     return rec
 
 
-def profile_solve(solver, v0, device, phase: str) -> dict:
+def profile_solve(solver, v0, device, phase: str, run=None) -> dict:
     """Device time by kernel family, the device's idle share, and the host's
-    waits on the device, over one more solve of a warm solver."""
+    waits on the device, over one more solve of a warm solver: ``run()``,
+    which returns the iteration count (default: ``run_on_device(v0)``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    if run is None:
+        def run():
+            return solver.run_on_device(v0)[3]
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         pad_events(device)
         t0 = time.perf_counter()
-        _, _, _, iters = solver.run_on_device(v0)
+        iters = run()
         torch.cuda.synchronize(device)
         wall = time.perf_counter() - t0
         pad_events(device)
@@ -1331,6 +1441,448 @@ def solve_phenol(bsr, diag, gen_s, device, tol=PHENOL_TOL) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# the P-space Davidson, checkpoint/resume, the batched solve, the linear
+# systems and the refinement
+
+
+def pspace_inputs(matrix):
+    """(p_space, p_actions, v0): the unit vectors of the PSPACE_P lowest
+    diagonal entries as ``{index: 1.0}`` dicts, their exact f64 rows, and
+    the one-hot guess on the NROOTS lowest entries outside P."""
+    order = np.argsort(np.diagonal(matrix))
+    p_idx = order[:PSPACE_P]
+    v0 = np.zeros((NROOTS, matrix.shape[0]))
+    v0[np.arange(NROOTS), order[PSPACE_P:PSPACE_P + NROOTS]] = 1.0
+    return [{int(i): 1.0} for i in p_idx], matrix[p_idx].copy(), v0
+
+
+def pspace_solver(matrix, **kw):
+    from iterative_solver_torch import FusedDavidson
+
+    p_space, p_actions, v0 = pspace_inputs(matrix)
+    solver = FusedDavidson.from_dense_symmetric(
+        matrix, NROOTS, tier="precise", rr="full", m_max=PSPACE_M_MAX,
+        convergence_threshold=1e-5, max_iter=60, p_space=p_space, p_actions=p_actions, **kw)
+    return solver, v0
+
+
+def solve_pspace(matrix, device) -> dict:
+    """The precise solve with a 32-vector P space whose actions are given:
+    K3 launches for init, probe, iterations and restarts, none for P."""
+    t0 = time.perf_counter()
+    solver, v0 = pspace_solver(matrix)
+    setup_s = time.perf_counter() - t0
+    rec = solve_phase(matrix, REFERENCE_EIGENVALUES, device, "precise", "full", 1e-5, 1e-4,
+                      1e-8, "symm_split", built=(solver, setup_s), phase="solve_pspace_precise",
+                      v0=v0)
+    if PSPACE_ITERATIONS is not None and rec["iterations"] != PSPACE_ITERATIONS:
+        raise AssertionError(f"solve_pspace_precise: {rec['iterations']} iterations, the "
+                             f"port's CPU run takes {PSPACE_ITERATIONS}")
+    return rec
+
+
+def solve_checkpointed(matrix, device) -> dict:
+    """The headline solve ("fast", rr "window", tol 2e-4) through run_fast:
+    uninterrupted; then one sweep checkpointed to an .npz in a temporary
+    directory; then resume_fast on a fresh solver. The resumed run must
+    report the uninterrupted run's iteration count and Ritz values within
+    1e-6, and a solver with another nroots must refuse the file."""
+    import os
+    import tempfile
+
+    import torch
+
+    from iterative_solver_torch import FusedDavidson
+
+    def solver(max_iter=60, nroots=NROOTS):
+        return FusedDavidson.from_dense_symmetric(
+            matrix, nroots, tier="fast", m_max=M_MAX, rr="window",
+            convergence_threshold=2e-4, max_iter=max_iter)
+
+    v0 = guess(np.diagonal(matrix), NROOTS)
+    steps = (M_MAX - NROOTS) // NROOTS
+    launches = {}
+    reset_launches()
+    full_evals, _, full_errors, full_iters = solver().run_fast(v0)
+    torch.cuda.synchronize(device)
+    launches["uninterrupted"] = solve_launches("symm_bf16")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "davidson.npz")
+        reset_launches()
+        _, _, _, first_iters = solver(max_iter=steps).run_fast(v0, checkpoint_path=path)
+        torch.cuda.synchronize(device)
+        launches["interrupted"] = solve_launches("symm_bf16")
+        size = os.path.getsize(path)
+        reset_launches()
+        t0 = time.perf_counter()
+        evals, _, errors, iters = solver().resume_fast(path)
+        torch.cuda.synchronize(device)
+        resume_s = time.perf_counter() - t0
+        launches["resumed"] = solve_launches("symm_bf16")
+        try:
+            solver(nroots=8).resume_fast(path)
+            refused = None
+        except ValueError as err:
+            refused = str(err)
+    sweeps = -(-full_iters // steps)
+    expected = {
+        "uninterrupted": {"action": 1 + 2 + full_iters + sweeps - 1, "chain": full_iters,
+                          "gram": 0},
+        "interrupted": {"action": 1 + 2 + first_iters, "chain": first_iters, "gram": 0},
+        # no init and no probe: a restart before each remaining sweep (none
+        # where the interrupted sweep already converged)
+        "resumed": {"action": sweeps - 1 + iters - first_iters,
+                    "chain": iters - first_iters, "gram": 0},
+    }
+    evals_err = float(np.max(np.abs(np.sort(evals) - np.sort(full_evals))))
+    rec = {
+        "phase": "solve_checkpoint_resume", "tier": "fast", "rr": "window",
+        "m_max": M_MAX, "sweep_steps": steps, "tol": 2e-4,
+        "checkpoint_converged": first_iters == full_iters,
+        "uninterrupted_iterations": full_iters, "interrupted_iterations": first_iters,
+        "resumed_iterations": iters, "max_error": float(np.max(errors)),
+        "uninterrupted_max_error": float(np.max(full_errors)),
+        "ritz_values_max_abs_diff": evals_err, "ritz_limit": 1e-6,
+        "checkpoint_bytes": size, "resume_seconds": resume_s,
+        "refused_other_nroots": refused, "launches": launches,
+        "expected_launches": expected, "action_kernel": "symm_bf16",
+    }
+    emit(rec)
+    failures = []
+    if iters != full_iters:
+        failures.append(f"resumed after {iters} iterations, uninterrupted {full_iters}")
+    if not np.max(errors) <= 2e-4:
+        failures.append(f"resumed run not converged: {np.max(errors):.3e}")
+    if not evals_err <= 1e-6:
+        failures.append(f"Ritz values differ by {evals_err:.3e} > 1e-6")
+    if refused is None:
+        failures.append("a solver with nroots=8 accepted the checkpoint")
+    if launches != expected:
+        failures.append(f"launches {launches} != expected {expected}")
+    if failures:
+        raise AssertionError("solve_checkpoint_resume: " + "; ".join(failures))
+    return rec
+
+
+def batched_scan_inputs():
+    """examples/batched_scan.py's scan at BATCH_POINTS x n = BATCH_N:
+    couplings 0.1/sqrt(n) from default_rng(0), diagonal linspace(0, 12, n),
+    coupling strength linspace(0.2, 1.2); the one-hot guesses."""
+    rng = np.random.default_rng(0)
+    n = BATCH_N
+    base = rng.standard_normal((n, n)) * (0.1 / np.sqrt(n))
+    base = base + base.T
+    mats = np.stack([lam * base + np.diag(np.linspace(0.0, 12.0, n))
+                     for lam in np.linspace(0.2, 1.2, BATCH_POINTS)])
+    diags = np.stack([np.diag(m) for m in mats])
+    v0 = np.stack([guess(d, BATCH_ROOTS) for d in diags])
+    return mats, diags, v0
+
+
+def solve_batched(device) -> dict:
+    """make_batched_davidson_solve on the scan in float32 at tol 1e-5, and
+    the same 8 systems solved one after another by the chunked solve; both
+    timed on a second call (steady)."""
+    import torch
+
+    from iterative_solver_torch.solvers import fused_davidson as fd
+
+    mats, diags, v0 = batched_scan_inputs()
+    f32 = dict(dtype=torch.float32, device=device)
+    tm, td, tv = (torch.as_tensor(a, **f32) for a in (mats, diags, v0))
+
+    def matvec(x, op):
+        return torch.matmul(x, op.T)
+
+    binit, bsolve = fd.make_batched_davidson_solve(matvec, BATCH_ROOTS, BATCH_M_MAX)
+    init = fd.make_davidson_init(matvec, BATCH_ROOTS, BATCH_M_MAX)
+    chunked = fd.make_davidson_solve_chunked(matvec, BATCH_ROOTS, BATCH_M_MAX)
+
+    def batched():
+        return bsolve(binit(tv, tm), tm, td, BATCH_TOL, 800)
+
+    def sequential():
+        return [chunked(init(tv[p], tm[p]), tm[p], td[p], BATCH_TOL, 800)
+                for p in range(BATCH_POINTS)]
+
+    walls = {}
+    for name, fn in (("batched", batched), ("sequential", sequential)):
+        for _ in range(2):  # the second call is steady
+            torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize(device)
+            walls[name] = time.perf_counter() - t0
+        if name == "batched":
+            final, iters = out
+        else:
+            seq = out
+    errs, eig_errs = [], []
+    for p in range(BATCH_POINTS):
+        ref = np.linalg.eigvalsh(mats[p])[:BATCH_ROOTS]
+        ev = np.sort(final.evals[p].double().cpu().numpy())
+        errs.append(float(final.errors[p].max()))
+        eig_errs.append(float(np.max(np.abs(ev - ref))))
+    seq_iters = [int(it) for _, it in seq]
+    rec = {
+        "phase": "solve_batched_scan", "points": BATCH_POINTS, "n": BATCH_N,
+        "nroots": BATCH_ROOTS, "m_max": BATCH_M_MAX, "tol": BATCH_TOL, "dtype": "float32",
+        "iterations": iters.tolist(), "sequential_iterations": seq_iters,
+        "max_errors": errs, "eigenvalue_errors": eig_errs, "eigenvalue_limit": 1e-5,
+        "batched_steady_seconds": walls["batched"],
+        "sequential_steady_seconds": walls["sequential"],
+        "speedup": walls["sequential"] / walls["batched"],
+    }
+    emit(rec)
+    failures = []
+    if not max(errs) <= BATCH_TOL:
+        failures.append(f"an element is not converged: {errs}")
+    if not max(eig_errs) <= 1e-5:
+        failures.append(f"eigenvalues off eigvalsh by {max(eig_errs):.3e} > 1e-5")
+    if failures:
+        raise AssertionError("solve_batched_scan: " + "; ".join(failures))
+    return rec
+
+
+LINEAR_KEYS = {"fast": "symm_bf16", "precise": "symm_split", "exact": "symm_f32",
+               "int8": "symm_int8", "int8_precise": "symm_int8_split"}
+
+
+def linear_rhs(n: int) -> np.ndarray:
+    return np.random.default_rng(LINEAR_RHS_SEED).standard_normal((NROOTS, n))
+
+
+def linear_quality(x, matrix, b, x_ref) -> dict:
+    """The f64 relative residual ||A x - b|| / ||b|| against the f64 matrix
+    and the relative error ||x - A^-1 b|| / ||A^-1 b||, each the max over
+    the right-hand sides."""
+    x = np.asarray(x, dtype=np.float64)
+    res = np.linalg.norm(x @ matrix - b, axis=1) / np.linalg.norm(b, axis=1)
+    err = np.linalg.norm(x - x_ref, axis=1) / np.linalg.norm(x_ref, axis=1)
+    return {"f64_relative_residual": float(res.max()), "f64_solution_error": float(err.max())}
+
+
+def linear_solver(shifted, tier, **kw):
+    from iterative_solver_torch import FusedLinearEquations
+
+    return FusedLinearEquations.from_dense_symmetric(
+        shifted, NROOTS, tier=tier, convergence_threshold=LINEAR_TOLS[tier], max_iter=60,
+        **kw)
+
+
+def profile_linear(shifted, b, device) -> dict:
+    """``profile_solve`` over one "precise" linear solve of a warm solver."""
+    solver = linear_solver(shifted, "precise")
+    solver.solve(b)  # warm: probe, library handles
+    return profile_solve(solver, None, device, "profile_linear_precise",
+                         run=lambda: solver.solve(b)[2])
+
+
+def solve_linear(shifted, b, x_ref, device, tier) -> dict:
+    """FusedLinearEquations.from_dense_symmetric(bench + 3 I, 16, tier) on
+    the 16 right-hand sides, fused chain (K2 in raw mode) on."""
+    import torch
+
+    t0 = time.perf_counter()
+    solver = linear_solver(shifted, tier)
+    setup_s = time.perf_counter() - t0
+    key = LINEAR_KEYS[tier]
+    reset_launches()
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    x, errors, iters = solver.solve(b)
+    torch.cuda.synchronize(device)
+    wall = time.perf_counter() - t0
+    launches = solve_launches(key)
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    _, _, iters2 = solver.solve(b)
+    torch.cuda.synchronize(device)
+    wall2 = time.perf_counter() - t0
+    restarts = expected_restarts(iters, NROOTS, solver.m_max)
+    expected = {"action": 1 + 2 + iters + restarts, "chain": iters, "gram": 0}
+    tol = LINEAR_TOLS[tier]
+    checks = linear_quality(x.cpu().numpy(), shifted, b, x_ref)
+    res_limit, err_limit = LINEAR_LIMITS[tier]
+    rec = {
+        "phase": f"solve_linear_{tier}", "tier": tier, "n": shifted.shape[0],
+        "nrhs": NROOTS, "m_max": solver.m_max, "tol": tol, "fuse_chain": solver.fuse_chain,
+        "iterations": iters, "restarts": restarts, "converged": bool(np.max(errors) <= tol),
+        "max_error": float(np.max(errors)), "seconds": wall,
+        "seconds_per_iteration": wall / max(iters, 1), "steady_seconds": wall2,
+        "steady_seconds_per_iteration": wall2 / max(iters2, 1), "setup_seconds": setup_s,
+        **checks, "f64_residual_limit": res_limit, "f64_solution_error_limit": err_limit,
+        "launches": launches, "expected_launches": expected, "action_kernel": key,
+    }
+    emit(rec)
+    failures = []
+    if not rec["converged"]:
+        failures.append(f"not converged: max error {np.max(errors):.3e} > {tol}")
+    if not checks["f64_relative_residual"] <= res_limit:
+        failures.append(f"f64 relative residual {checks['f64_relative_residual']:.3e} > "
+                        f"{res_limit}")
+    if not checks["f64_solution_error"] <= err_limit:
+        failures.append(f"f64 solution error {checks['f64_solution_error']:.3e} > {err_limit}")
+    if launches != expected or min(launches["action"], launches["chain"]) == 0:
+        failures.append(f"launches {launches} != expected {expected}")
+    if failures:
+        raise AssertionError(f"solve_linear_{tier}: " + "; ".join(failures))
+    return rec
+
+
+def refine_precise(matrix, device) -> dict:
+    """bench.py's precise_1e8 leg: the precise solve (16 roots, rr "full",
+    tol 1e-5), then EigenpairRefiner with the f64 action (on the card) and
+    the K3 matvec for the deflated CG corrections, to 1e-8; and
+    refine_on_host from the same vectors."""
+    import torch
+
+    from iterative_solver_torch import FusedDavidson
+    from iterative_solver_torch.ops.precise import refine_on_host
+    from iterative_solver_torch.solvers.refine import EigenpairRefiner
+
+    solver = FusedDavidson.from_dense_symmetric(
+        matrix, NROOTS, tier="precise", m_max=M_MAX, rr="full", convergence_threshold=1e-5,
+        max_iter=60)
+    diag = np.diagonal(matrix)
+    _, x, _, solve_iters = solver.run_on_device(guess(diag, NROOTS))
+    x = x.detach().to("cpu", torch.float64).numpy()
+    a64 = torch.as_tensor(matrix, dtype=torch.float64, device=device)
+
+    def action_f64(xs):
+        return (torch.as_tensor(xs, dtype=torch.float64, device=device) @ a64).cpu().numpy()
+
+    refiner = EigenpairRefiner(action_f64, solver.matvec, solver.operand, diag,
+                               matrix.shape[0], NROOTS)
+    reset_launches()
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    out = refiner.refine(x, tol=REFINE_TOL)
+    torch.cuda.synchronize(device)
+    wall = time.perf_counter() - t0
+    launches = solve_launches("symm_split")
+    del a64
+    # each pass: the CG init's action, then one per CG iteration
+    expected = {"action": sum(1 + it for it in refiner.cg_iterations), "chain": 0, "gram": 0}
+    rq_err = float(np.max(np.abs(np.sort(out.eigenvalues)[:4] - REFERENCE_EIGENVALUES)))
+    t0 = time.perf_counter()
+    _, hx, hinfo = refine_on_host(matrix, x, NROOTS)
+    host_s = time.perf_counter() - t0
+    hx = hx / np.linalg.norm(hx, axis=1, keepdims=True)
+    hax = hx @ matrix
+    host_res = float(np.max(np.linalg.norm(hax - np.sum(hx * hax, axis=1)[:, None] * hx,
+                                           axis=1)))
+    rec = {
+        "phase": "refine_precise_1e8", "solve_iterations": solve_iters,
+        "floor_before": out.history[0], "history": out.history, "passes": out.passes,
+        "cg_iterations": refiner.cg_iterations, "converged": out.converged,
+        "f64_max_residual": float(out.residual_norms.max()), "f64_residual_limit": REFINE_TOL,
+        "rq_max_abs_err": rq_err, "rq_limit": REFINE_RQ_LIMIT, "seconds": wall,
+        "refine_on_host_iterations": hinfo.iterations,
+        "refine_on_host_f64_residual": host_res, "refine_on_host_seconds": host_s,
+        "launches": launches, "expected_launches": expected, "action_kernel": "symm_split",
+    }
+    emit(rec)
+    failures = []
+    if not out.converged or not out.residual_norms.max() <= REFINE_TOL:
+        failures.append(f"not refined to {REFINE_TOL}: history {out.history}")
+    if not rq_err <= REFINE_RQ_LIMIT:
+        failures.append(f"eigenvalues off by {rq_err:.3e} > {REFINE_RQ_LIMIT}")
+    if launches != expected or launches["action"] == 0:
+        failures.append(f"launches {launches} != expected {expected}")
+    if failures:
+        raise AssertionError("refine_precise_1e8: " + "; ".join(failures))
+    return rec
+
+
+def shifted_bsr_problem(bsr, shift: float = LINEAR_SHIFT):
+    """A ``Problem`` whose action is K6's wrapper on ``bsr`` plus ``shift``
+    times the identity, and whose diagonal is shifted the same way."""
+    import iterative_solver_torch as its
+    from iterative_solver_torch.ops.kernels import spmv
+
+    class ShiftedBSRProblem(its.Problem):
+        def action(self, parameters):
+            return spmv.bsr_matmat_kernel(parameters, bsr) + shift * parameters
+
+        def diagonals(self):
+            return bsr.diagonal + shift
+
+    return ShiftedBSRProblem()
+
+
+def parity_linear_solve(bsr, device, problem=None, **kw):
+    """create_linear_equations(8192, 4, "Davidson", "convergence_threshold=
+    1e-5") on the shifted sparse operator (``problem``, by default
+    ``shifted_bsr_problem(bsr)``) with 4 right-hand sides from
+    default_rng(3). Returns (solver, converged, rhs, seconds)."""
+    import torch
+
+    import iterative_solver_torch as its
+
+    rhs = np.random.default_rng(PARITY_LINEAR_RHS_SEED).standard_normal(
+        (PARITY_ROOTS, SPARSE_N))
+    solver = its.create_linear_equations(SPARSE_N, PARITY_ROOTS, "Davidson",
+                                         "convergence_threshold=1e-5", device=device, **kw)
+    solver.verbosity = its.Verbosity.NONE
+    solver.add_equations(rhs)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    converged, _, _ = solver.solve(np.zeros((PARITY_ROOTS, SPARSE_N)),
+                                   problem=problem or shifted_bsr_problem(bsr),
+                                   generate_initial_guess=True)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return solver, converged, rhs, time.perf_counter() - t0
+
+
+def parity_linear_residual(solver, dense, rhs) -> float:
+    import torch
+
+    x = solver.solution_params(list(range(PARITY_ROOTS))).to("cpu", torch.float64).numpy()
+    ax = x @ dense + LINEAR_SHIFT * x
+    return float(np.max(np.linalg.norm(ax - rhs, axis=1) / np.linalg.norm(rhs, axis=1)))
+
+
+def solve_parity_linear(bsr, dense, device) -> dict:
+    """The package's linear-equations entry point with a K6 Problem; one K6
+    launch per iteration; the iteration count and stats of the port's CPU
+    run."""
+    reset_launches()
+    solver, converged, rhs, wall = parity_linear_solve(bsr, device)
+    launches = solve_launches("bsr")
+    iters = solver.stats.iterations
+    stats = str(solver.stats)  # before solution_params adds its own gemm counts
+    expected = {"action": iters, "chain": 0, "gram": 0}
+    res = parity_linear_residual(solver, dense, rhs)
+    rec = {
+        "phase": "solve_parity_create_linear_equations", "n": SPARSE_N,
+        "nrhs": PARITY_ROOTS, "shift": LINEAR_SHIFT, "options": "convergence_threshold=1e-5",
+        "converged": bool(converged), "iterations": iters, "cpu_iterations":
+        PARITY_LINEAR_ITERATIONS, "stats": stats, "cpu_stats": PARITY_LINEAR_STATS,
+        "max_error": float(max(solver.errors)), "seconds": wall,
+        "seconds_per_iteration": wall / max(iters, 1), "f64_relative_residual": res,
+        "f64_residual_limit": PARITY_LINEAR_RES_LIMIT, "launches": launches,
+        "expected_launches": expected, "action_kernel": "bsr",
+    }
+    emit(rec)
+    failures = []
+    if not converged:
+        failures.append(f"not converged: errors {solver.errors}")
+    if not res <= PARITY_LINEAR_RES_LIMIT:
+        failures.append(f"f64 relative residual {res:.3e} > {PARITY_LINEAR_RES_LIMIT}")
+    if iters != PARITY_LINEAR_ITERATIONS or stats != PARITY_LINEAR_STATS:
+        failures.append(f"{iters} iterations, stats {stats}: the CPU run has "
+                        f"{PARITY_LINEAR_ITERATIONS}, {PARITY_LINEAR_STATS}")
+    if launches != expected or launches["action"] == 0:
+        failures.append(f"launches {launches} != expected {expected}")
+    if failures:
+        raise AssertionError("solve_parity_create_linear_equations: " + "; ".join(failures))
+    return rec
+
+
 def sass_counts(library) -> dict:
     """Instructions of interest in a built library's SASS, from cuobjdump
     (the toolkit's, beside nvcc): tensor-core products (HMMA float, IMMA
@@ -1409,6 +1961,20 @@ def main() -> int:
                                   phase="solve_ppcg_flagship_full_rr")
     del flagship
     emit(profile_headline(matrix, device))
+
+    pspace = solve_pspace(matrix, device)
+    checkpoint = solve_checkpointed(matrix, device)
+    solve_batched(device)
+    shifted = matrix + LINEAR_SHIFT * np.eye(N)
+    b = linear_rhs(N)
+    t0 = time.perf_counter()
+    x_ref = np.linalg.solve(shifted, b.T).T
+    emit({"phase": "linear_reference", "seconds": time.perf_counter() - t0})
+    linear = {tier: solve_linear(shifted, b, x_ref, device, tier) for tier in LINEAR_TOLS}
+    emit(profile_linear(shifted, b, device))
+    del shifted, x_ref
+    kernels.append(check_chain_raw(N, device))
+    refine = refine_precise(matrix, device)
     del matrix
 
     bench_bsr, sparse_dense, bsr_setup_s = make_bench_bsr(device)
@@ -1418,21 +1984,29 @@ def main() -> int:
     kernels += sparse_kernels
     sparse = solve_sparse_fused(bench_bsr, sparse_dense, bsr_setup_s, device)
     parity = solve_parity(bench_bsr, sparse_dense, device)
+    parity_linear = solve_parity_linear(bench_bsr, sparse_dense, device)
     del bench_bsr, sparse_dense
     phenol_rec = solve_phenol(phenol, phenol_diag, phenol_gen_s, device)
     del phenol
 
-    davidson = (fast, precise, exact, int8, int8_precise, sparse, phenol_rec)
-    solves = davidson + (ppcg, ppcg_rr, parity)
+    resumable = list(checkpoint["launches"].values())
+    davidson = (fast, precise, exact, int8, int8_precise, sparse, phenol_rec, pspace)
+    linear_recs = tuple(linear.values())
+    solves = davidson + linear_recs + (ppcg, ppcg_rr, parity, parity_linear, refine)
+
+    def action(*recs):
+        return sum(r["launches"]["action"] for r in recs)
+
     launches = {
-        "K1-bf16": fast["launches"]["action"],
-        "K1-f32": exact["launches"]["action"],
-        "K3": precise["launches"]["action"],
-        "K2": sum(p["launches"]["chain"] for p in davidson),
-        "K4": sum(p["launches"]["action"] for p in (int8, ppcg, ppcg_rr)),
-        "K5": int8_precise["launches"]["action"],
-        "K6": sum(p["launches"]["action"] for p in (sparse, parity, phenol_rec)),
-        "K7": sum(p["launches"]["gram"] for p in solves),
+        "K1-bf16": action(fast, linear["fast"]) + sum(r["action"] for r in resumable),
+        "K1-f32": action(exact, linear["exact"]),
+        "K3": action(precise, pspace, linear["precise"], refine),
+        "K2": sum(p["launches"]["chain"] for p in davidson + linear_recs)
+        + sum(r["chain"] for r in resumable),
+        "K4": action(int8, ppcg, ppcg_rr, linear["int8"]),
+        "K5": action(int8_precise, linear["int8_precise"]),
+        "K6": action(sparse, parity, phenol_rec, parity_linear),
+        "K7": sum(p["launches"]["gram"] for p in solves) + sum(r["gram"] for r in resumable),
     }
     off_path = {"K7"}   # no solver calls it, in either package
     if any(launches[k] for k in off_path):

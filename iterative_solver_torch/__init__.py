@@ -33,9 +33,12 @@ from .factory import (
 )
 from .problem import Problem
 from .solvers.core import IterativeSolverTemplate, Verbosity
-from .solvers.fused_davidson import FusedDavidson
+from .solvers.fused_cg import FusedBlockCG
+from .solvers.fused_davidson import FusedDavidson, make_batched_davidson_solve
+from .solvers.fused_linear import FusedLinearEquations
 from .solvers.fused_ppcg import FusedPPCG
 from .solvers.linear_eigensystem import LinearEigensystemDavidson, LinearEigensystemRSPT
+from .solvers.linear_equations import LinearEquationsDavidson
 
 __version__ = "0.1.0"
 
@@ -45,8 +48,12 @@ __all__ = [
     "IterativeSolverTemplate",
     "LinearEigensystemDavidson",
     "LinearEigensystemRSPT",
+    "LinearEquationsDavidson",
     "FusedDavidson",
+    "make_batched_davidson_solve",
+    "FusedLinearEquations",
     "FusedPPCG",
+    "FusedBlockCG",
     "create_linear_eigensystem",
     "create_linear_equations",
     "create_nonlinear_equations",

@@ -26,7 +26,7 @@ from . import vector_ops as vops
 
 Tensor = torch.Tensor
 
-_SHARDING = "sharding is not ported yet (ROADMAP.md Queue 1, item 15)"
+_SHARDING = "sharding is not ported yet (ROADMAP.md Queue 1, item 6)"
 
 
 def _host(t: Tensor) -> np.ndarray:

@@ -13,7 +13,7 @@ of plain functions over ``(m, N)`` row-blocks of tensors:
 float32 matmuls run in full float32 (``config`` pins TF32 off), the
 counterpart of the JAX package's ``Precision.HIGHEST``. Sharding helpers
 (``adapt_sharding``) wait for the port of the distributed layer (ROADMAP.md
-Queue 1, item 15).
+Queue 1, item 6).
 """
 
 from __future__ import annotations

@@ -25,7 +25,9 @@ from . import config
 from .ops.kernels.spmv import BSRMatrix, BSRMatrixInt8
 from .ops.kernels.symm import SymmetricBlocked, SymmetricBlockedSplit
 from .ops.kernels.symm_int8 import SymmetricBlockedInt8, SymmetricBlockedInt8Split
+from .solvers.fused_cg import CGState
 from .solvers.fused_davidson import DavidsonState
+from .solvers.fused_linear import LinearState
 from .solvers.fused_ppcg import PPCGState
 
 
@@ -149,3 +151,20 @@ def davidson_state(v, w, mask, k, evals, x, r, errors, c: Optional[np.ndarray] =
 
     return DavidsonState(t(v), t(w), t(mask), int(np.asarray(k)), t(evals), t(x),
                          t(r), t(errors), t(c), t(cm))
+
+
+def linear_state(v, w, mask, k, x, r, errors, device=None) -> LinearState:
+    """The port's LinearState from the JAX one's fields (``k`` becomes a
+    host int)."""
+    def t(a):
+        return tensor_from_numpy(a, device)
+
+    return LinearState(t(v), t(w), t(mask), int(np.asarray(k)), t(x), t(r), t(errors))
+
+
+def cg_state(x, r, p, rz, errors, device=None) -> CGState:
+    """The port's CGState from the JAX one's fields."""
+    def t(a):
+        return tensor_from_numpy(a, device)
+
+    return CGState(t(x), t(r), t(p), t(rz), t(errors))

@@ -6,7 +6,7 @@ mirrors create_LinearEigensystem<R,Q,P>(method, options). Keyword arguments
 go to the solver: ``device="cpu"`` runs it on the host (the default is the
 CUDA device), ``dtype=`` sets its working dtype.
 
-The other families' factories wait for their solvers and raise
+The optimisers' and DIIS factories wait for their solvers and raise
 ``NotImplementedError`` naming their ROADMAP.md item.
 """
 
@@ -15,9 +15,9 @@ from __future__ import annotations
 from . import options as opt
 from .solvers.core import IterativeSolverTemplate
 from .solvers.linear_eigensystem import LinearEigensystemDavidson, LinearEigensystemRSPT
+from .solvers.linear_equations import LinearEquationsDavidson
 
-_LINEAR_EQUATIONS = "linear equations are not ported yet (ROADMAP.md Queue 1, item 11)"
-_NONLINEAR = ("the optimisers and DIIS are not ported yet (ROADMAP.md Queue 1, item 12)")
+_NONLINEAR = "the optimisers and DIIS are not ported yet (ROADMAP.md Queue 1, item 4)"
 
 
 def _apply_common(solver: IterativeSolverTemplate, o: opt.Options) -> None:
@@ -70,8 +70,30 @@ def create_linear_eigensystem(
     raise ValueError(f"Unknown LinearEigensystem method: {method}")
 
 
-def create_linear_equations(*args, **kwargs):
-    raise NotImplementedError(_LINEAR_EQUATIONS)
+def create_linear_equations(
+    n: int, nroots: int = 1, method: str = "Davidson", options: str = "", **kwargs
+):
+    method = (method or "Davidson").strip()
+    if method.lower() not in ("davidson", ""):
+        raise ValueError(f"Unknown LinearEquations method: {method}")
+    o = opt.LinearEquationsDavidsonOptions.from_string(options)
+    solver = LinearEquationsDavidson(n, nroots, **kwargs)
+    _apply_common(solver, o)
+    if o.reset_D is not None:
+        solver.set_reset_D(o.reset_D)
+    if o.reset_D_max_Q_size is not None:
+        solver.set_reset_D_maxQ_size(o.reset_D_max_Q_size)
+    if o.max_size_qspace is not None:
+        solver.set_max_size_qspace(o.max_size_qspace)
+    if o.norm_thresh is not None:
+        solver.propose_rspace_norm_thresh = o.norm_thresh
+    if o.svd_thresh is not None:
+        solver.propose_rspace_svd_thresh = o.svd_thresh
+    if o.hermiticity is not None:
+        solver.set_hermiticity(o.hermiticity)
+    if o.augmented_hessian is not None:
+        solver.set_augmented_hessian(o.augmented_hessian)
+    return solver
 
 
 def create_nonlinear_equations(*args, **kwargs):

@@ -12,7 +12,7 @@ iterative_solver_tpu/models/matrix_problem.py):
 The optimisation and nonlinear problems of the JAX module
 (``QuadraticOptimizeProblem``, ``TrigNonlinearProblem``,
 ``RayleighQuotientProblem``) wait for their solvers (ROADMAP.md Queue 1,
-item 12).
+item 4).
 """
 
 from __future__ import annotations
@@ -27,7 +27,7 @@ from ..problem import Problem
 
 Tensor = torch.Tensor
 
-_SHARDING = "sharding is not ported yet (ROADMAP.md Queue 1, item 15)"
+_SHARDING = "sharding is not ported yet (ROADMAP.md Queue 1, item 6)"
 
 
 def load_hamiltonian(path: str) -> np.ndarray:

@@ -14,7 +14,7 @@ return ``(m, N)`` row-blocks instead of mutating VecRef views.
 ``device="cpu"`` for the host (the tests do). ``dtype=None`` is float32 on
 CUDA and float64 on the CPU. ``sharding=`` and ``offload=`` raise
 ``NotImplementedError``: the distributed layer and the host/disk spill
-store wait for ROADMAP.md Queue 1, item 15.
+store wait for ROADMAP.md Queue 1, item 6.
 """
 
 from __future__ import annotations
@@ -33,8 +33,8 @@ from ..utils import Logger, Profiler, Statistics, null_profiler
 
 Tensor = torch.Tensor
 
-_SHARDING = "sharding is not ported yet (ROADMAP.md Queue 1, item 15)"
-_OFFLOAD = "the offload store is not ported yet (ROADMAP.md Queue 1, item 15)"
+_SHARDING = "sharding is not ported yet (ROADMAP.md Queue 1, item 6)"
+_OFFLOAD = "the offload store is not ported yet (ROADMAP.md Queue 1, item 6)"
 
 
 def _rows(x) -> Tensor:

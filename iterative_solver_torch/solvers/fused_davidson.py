@@ -27,9 +27,11 @@ Differences from the JAX package, each kept to the same semantics:
   its failures NaN-filled gives the same contract without a host sync.
 - An append past the stack's capacity raises instead of clamping
   (``dynamic_update_slice`` clamps; ``_validate_rr`` guards both).
+- The batched solve runs the same step under ``torch.func.vmap``, so the
+  stacks are built without writing a batched block into an unbatched one.
 
-P-space, sharding, checkpointing and the batched solve are not ported yet
-and raise ``NotImplementedError`` naming their ROADMAP item.
+Sharding is not ported yet and raises ``NotImplementedError`` naming its
+ROADMAP item.
 """
 
 from __future__ import annotations
@@ -52,10 +54,7 @@ from ._finite import check_finite
 
 Tensor = torch.Tensor
 
-_PSPACE = "P-space is not ported yet (ROADMAP.md Queue 1, item 5)"
-_SHARDING = "sharding is not ported yet (ROADMAP.md Queue 1, item 15)"
-_CHECKPOINT = "checkpointing is not ported yet (ROADMAP.md Queue 1, item 5)"
-_BATCHED = "the batched solve is not ported yet (ROADMAP.md Queue 1, item 5)"
+_SHARDING = "sharding is not ported yet (ROADMAP.md Queue 1, item 6)"
 
 
 class DavidsonState(NamedTuple):
@@ -71,12 +70,93 @@ class DavidsonState(NamedTuple):
     cm: Optional[Tensor] = None  # (m_max, nroots) momentum block (rr="window3")
 
 
+def densify_p_space(p_space, n: int) -> np.ndarray:
+    """(n_p, n) f64 dense rows from sparse P vectors (fused_davidson.py:51-85).
+
+    Accepts the parity tier's representation (a sequence of ``{index:
+    value}`` dicts, reference Pvector = std::map<size_t, double>,
+    IterativeSolver.h:131-151), ``(indices, values)`` pairs, or an
+    already-dense (n_p, <=n) array (right-padded with zeros — the
+    from_dense_symmetric tile padding case)."""
+    if hasattr(p_space, "shape") or (
+            len(p_space) and hasattr(p_space[0], "shape")
+            and np.asarray(p_space[0]).ndim >= 1
+            and not isinstance(p_space[0], (tuple, list))):
+        arr = np.atleast_2d(np.asarray(p_space, dtype=np.float64))
+        if arr.ndim != 2 or arr.shape[1] > n:
+            raise ValueError(
+                f"dense p_space must be (n_p, <=n), got {arr.shape}")
+        rows = np.zeros((arr.shape[0], n))
+        rows[:, : arr.shape[1]] = arr
+    else:
+        rows = np.zeros((len(p_space), n))
+        for i, p in enumerate(p_space):
+            if isinstance(p, dict):
+                for j, val in p.items():
+                    rows[i, int(j)] = float(val)
+            else:
+                idx, vals = p
+                rows[i, np.asarray(idx, dtype=np.int64)] = np.asarray(
+                    vals, dtype=np.float64)
+    # an all-zero P row would Cholesky-whiten the singular P Gram into a
+    # garbage basis row that stays live forever: refuse it in both forms
+    if not rows.size or not np.all(np.any(rows != 0.0, axis=1)):
+        raise ValueError("every P vector must be nonzero")
+    return rows
+
+
+def validate_p_inputs(p_space, p_actions, n: int):
+    """Constructor-side P-space handling shared by FusedDavidson and
+    FusedLinearEquations (fused_davidson.py:88-108): densify, validate the
+    action rows (shape and rank), right-pad. Returns ``(p_dense, n_p,
+    p_action_rows)``."""
+    if p_space is None:
+        if p_actions is not None:
+            raise ValueError("p_actions requires p_space")
+        return None, 0, None
+    p_dense = densify_p_space(p_space, n)
+    n_p = p_dense.shape[0]
+    p_action_rows = None
+    if p_actions is not None:
+        pa = np.atleast_2d(np.asarray(p_actions, dtype=np.float64))
+        if pa.ndim != 2 or pa.shape[0] != n_p or pa.shape[1] > n:
+            raise ValueError(
+                f"p_actions must be (n_p, <=n) action rows, got "
+                f"{np.asarray(p_actions).shape} for n_p={n_p}, n={n}")
+        p_action_rows = np.zeros((n_p, n))
+        p_action_rows[:, :pa.shape[1]] = pa
+    return p_dense, n_p, p_action_rows
+
+
 def _dots(a: Tensor, b: Tensor) -> Tensor:
     return torch.einsum("in,in->i", a, b)
 
 
 def _eye(n: int, like: Tensor) -> Tensor:
     return torch.eye(n, dtype=like.dtype, device=like.device)
+
+
+def _stack_rows(blocks, rows: int) -> Tensor:
+    """``blocks`` one under the other, zero rows below up to ``rows``: the
+    fixed-capacity layout of a stack, built without writing a block into a
+    zero tensor (which ``torch.func.vmap`` refuses for a batched block)."""
+    head = torch.cat(blocks, dim=0)
+    pad = head.new_zeros((rows - head.shape[0],) + tuple(head.shape[1:]))
+    return torch.cat([head, pad], dim=0)
+
+
+def _zero_rows(c: Tensor, n_p: int) -> Tensor:
+    """``c`` with its first ``n_p`` rows zeroed (the projection against the
+    P slots, which are unit coordinates)."""
+    return torch.cat([c.new_zeros((n_p,) + tuple(c.shape[1:])), c[n_p:]], dim=0)
+
+
+def _p_project(x: Tensor, pv: Tensor) -> Tensor:
+    """Two classical Gram-Schmidt passes of the rows of ``x`` against the
+    orthonormal rows ``pv``."""
+    for _ in range(2):
+        x = x - torch.matmul(torch.matmul(x, pv.T), pv)
+    return x
 
 
 def _masked_eigh(v, w, mask):
@@ -109,21 +189,34 @@ def _eigh_whiten_cols(p, thresh: float = 1e-8):
     return torch.matmul(p, gu * scale[None, :]), keep
 
 
-def _window_rr(v, w, mask, k: int, c_prev, nroots: int, m_max: int, c_mom=None):
+def _window_rr(v, w, mask, k: int, c_prev, nroots: int, m_max: int, c_mom=None,
+               n_p: int = 0):
     """Locally-optimal window Rayleigh-Ritz (fused_davidson.py:149-244):
     diagonalise H over span[c_prev | newest appended block] (2r) — plus an
     eigh-whitened momentum group (3r) when ``c_mom`` is given — instead of
     the full m-dim basis. The newest block's slots are orthonormal to
     everything older, so the window basis is orthonormal by construction.
+
+    ``n_p > 0`` prepends the frozen P slots [0, n_p) as an exact one-hot
+    group, so every window spans the whole P space (an (n_p + 2r) eigh);
+    the carried block is projected against P (its first n_p rows zeroed)
+    and eigh-whitened, since Ritz vectors can grow dominant P components.
     Returns ``(evals[:nroots], c_new, evals_all padded to (m_max,))``."""
     dtype, dev = v.dtype, v.device
     h = torch.matmul(v, w.T)
     h = 0.5 * (h + h.T)
     h = h * (mask[:, None] * mask[None, :])
 
-    cp, keep_c = c_prev, torch.ones((nroots,), dtype=torch.bool, device=dev)
+    groups, keeps = [], []
+    if n_p:
+        groups.append(_stack_rows([_eye(n_p, h)], m_max))
+        keeps.append(torch.ones((n_p,), dtype=torch.bool, device=dev))
+        cp, keep_c = _eigh_whiten_cols(_zero_rows(c_prev, n_p))
+    else:
+        cp, keep_c = c_prev, torch.ones((nroots,), dtype=torch.bool, device=dev)
     # one-hot columns for the newest block's slots [k-r, k), masked by slot
-    # validity (appends dropped as null keep mask 0 and must not enter W)
+    # validity (appends dropped as null keep mask 0 and must not enter W);
+    # with n_p > 0 these slots lie at or above n_p, orthogonal to the P group
     slot = torch.arange(m_max, device=dev)
     col = torch.arange(nroots, device=dev)
     e = (slot[:, None] == (k - nroots) + col[None, :]).to(dtype) * mask[:, None]
@@ -134,12 +227,14 @@ def _window_rr(v, w, mask, k: int, c_prev, nroots: int, m_max: int, c_mom=None):
     keep = n2 > 0.5  # columns are one-hots: either ~1 or projected to ~0
     e = e * torch.where(keep, 1.0 / torch.sqrt(torch.where(keep, n2, torch.ones_like(n2))),
                         torch.zeros_like(n2))[None, :]
-    groups, keeps = [cp, e], [keep_c, keep]
+    groups += [cp, e]
+    keeps += [keep_c, keep]
 
     if c_mom is not None:
         # momentum group: previous-step Ritz block, projected against the
         # earlier groups then eigh-whitened
-        p = c_mom - torch.matmul(cp, torch.matmul(cp.T, c_mom))
+        p = _zero_rows(c_mom, n_p) if n_p else c_mom
+        p = p - torch.matmul(cp, torch.matmul(cp.T, p))
         p = p - torch.matmul(e, torch.matmul(e.T, p))
         p, keep_p = _eigh_whiten_cols(p)
         groups.append(p)
@@ -163,8 +258,7 @@ def _window_rr(v, w, mask, k: int, c_prev, nroots: int, m_max: int, c_mom=None):
     n_active = torch.sum(colmask.to(torch.int64))
     idx = torch.arange(nw, device=dev)
     clean = torch.where(idx < n_active, evals_all, torch.full_like(evals_all, -float("inf")))
-    padded = torch.full((m_max,), -float("inf"), dtype=dtype, device=dev)
-    padded[:nw] = clean
+    padded = torch.cat([clean, clean.new_full((m_max - nw,), -float("inf"))])
     return evals_all[:nroots], c_new, padded
 
 
@@ -173,16 +267,12 @@ def _validate_rr(rr: str, nroots: int, m_max: int, n_p: int = 0) -> None:
     if width is None:
         raise ValueError(f"unknown rr mode {rr!r}: use 'full', 'window', "
                          "'window3' or 'anchored'")
-    # every mode needs room for the carried block PLUS one full append
+    # every mode needs room for the carried block PLUS one full append PLUS
+    # the frozen P slots
     if max(2, width) * nroots + n_p > m_max:
         raise ValueError(
             f"rr={rr!r} needs m_max >= {max(2, width)}*nroots + n_p "
             f"({max(2, width) * nroots + n_p}), got {m_max}")
-
-
-def _no_p_space(n_p: int) -> None:
-    if n_p:
-        raise NotImplementedError(_PSPACE)
 
 
 def _step_body(
@@ -210,9 +300,13 @@ def _step_body(
     fourth argument ``it``; a bare call with it=0 anchors).
 
     ``fuse_chain`` runs precondition + Gram-Schmidt + norms + Gram as one
-    kernel call (ops/kernels/chain.py)."""
+    kernel call (ops/kernels/chain.py).
+
+    ``n_p > 0`` marks the leading n_p stack slots as a frozen, densified P
+    space (IterativeSolver.h:131-151): appends (at k >= n_p + nroots) and
+    restarts never touch them, the RR sees them through the mask, and the
+    window RR carries them as an exact group."""
     _validate_rr(rr, nroots, m_max, n_p)
-    _no_p_space(n_p)
 
     def step(state: DavidsonState, operand, diag: Tensor, it: int = 0) -> DavidsonState:
         v, w, mask, k = state.v, state.w, state.mask, state.k
@@ -223,7 +317,7 @@ def _step_body(
             else:
                 evals, c_new, evals_all = _window_rr(
                     v, w, mask, k, state.c, nroots, m_max,
-                    c_mom=state.cm if rr == "window3" else None)
+                    c_mom=state.cm if rr == "window3" else None, n_p=n_p)
             coeff = c_new.T
         else:
             evals_all, c = _masked_eigh(v, w, mask)
@@ -265,9 +359,9 @@ def _step_body(
             n2 = _dots(t, t)
             t, keep = whiten_after_chain(t, n0_2, n2, nroots, null_thresh)
 
-        # append at slot k, in place
-        if k + nroots > m_max:
-            raise ValueError(f"append at slot {k} overflows m_max={m_max}")
+        # append at slot k, in place; never over the frozen P slots
+        if k + nroots > m_max or k < n_p:
+            raise ValueError(f"append at slot {k} outside [{n_p}, {m_max}]")
         v[k:k + nroots] = t.to(v.dtype)
         w[k:k + nroots] = matvec(t, operand).to(w.dtype)
         mask_new = mask.clone()
@@ -313,25 +407,46 @@ def make_davidson_sweep(matvec, nroots: int, m_max: int, steps: int,
 def _restart_body(matvec: Callable[..., Tensor], nroots: int, m_max: int,
                   n_p: int = 0):
     """Collapse the basis onto the current Ritz vectors (DSpaceResetter
-    analogue, fused_davidson.py:433-491)."""
-    _no_p_space(n_p)
+    analogue, fused_davidson.py:433-491). With ``n_p > 0`` the frozen P
+    slots survive untouched (basis and action rows: no operator
+    application) and the Ritz block is orthogonalised against them; a Ritz
+    vector that has converged into the P span projects to (near) zero and
+    its slot restarts dead (eigh-whitening with null-drop)."""
+
+    def restart_p(state: DavidsonState, operand) -> DavidsonState:
+        pv, pw = state.v[:n_p], state.w[:n_p]
+        pc = torch.matmul(state.x, pv.T)  # (r, n_p) P coordinates
+        x = _p_project(state.x, pv)
+        xo_t, keep = _eigh_whiten_cols(x.T, thresh=1e-10)
+        xo = xo_t.T
+        live = keep.to(state.mask.dtype)
+        v = _stack_rows([pv, xo.to(pv.dtype)], m_max)
+        w = _stack_rows([pw, (matvec(xo, operand) * live[:, None]).to(pw.dtype)], m_max)
+        mask = _stack_rows([live.new_ones((n_p,)), live], m_max)
+        c0 = None
+        if state.c is not None:
+            # exact coordinates of the outgoing Ritz block in the fresh
+            # basis: P components, then whitened-complement components
+            c0 = _stack_rows([pc.T, torch.matmul(xo, x.T)], m_max)
+        cm0 = None if state.cm is None else torch.zeros_like(state.cm)
+        return DavidsonState(v, w, mask, n_p + nroots, state.evals, state.x, state.r,
+                             state.errors, c0, cm0)
+
+    if n_p:
+        return restart_p
 
     def restart(state: DavidsonState, operand) -> DavidsonState:
         x = state.x
         g = torch.matmul(x, x.T)
         l = _cholesky_nan(g + 1e-30 * _eye(nroots, g))
         xo = lower_solve(l, x)
-        v = torch.zeros_like(state.v)
-        v[:nroots] = xo
-        w = torch.zeros_like(state.w)
-        w[:nroots] = matvec(xo, operand).to(w.dtype)
-        mask = torch.zeros_like(state.mask)
-        mask[:nroots] = 1.0
+        v = _stack_rows([xo.to(state.v.dtype)], m_max)
+        w = _stack_rows([matvec(xo, operand).to(state.w.dtype)], m_max)
+        mask = _stack_rows([torch.ones_like(state.mask[:nroots])], m_max)
         c0 = None
         if state.c is not None:
             # the carried Ritz block collapses onto the fresh basis slots
-            c0 = torch.zeros_like(state.c)
-            c0[:nroots, :nroots] = _eye(nroots, c0)
+            c0 = _stack_rows([_eye(nroots, state.c)], m_max)
         cm0 = None if state.cm is None else torch.zeros_like(state.cm)
         return DavidsonState(v, w, mask, nroots, state.evals, state.x, state.r,
                              state.errors, c0, cm0)
@@ -346,29 +461,62 @@ def make_restart(matvec: Callable[..., Tensor], nroots: int, m_max: int,
 
 def _init_body(matvec: Callable[..., Tensor], nroots: int, m_max: int,
                n_p: int = 0, p_actions: bool = False):
-    """Whole state initialisation (fused_davidson.py:570-593): orthonormalise
-    the guess block, run its action, and lay out the fixed-capacity stacks."""
-    _no_p_space(n_p)
+    """Whole state initialisation (fused_davidson.py:502-593): orthonormalise
+    the guess block, run its action, and lay out the fixed-capacity stacks.
+
+    ``n_p > 0``: the init takes two more arguments, ``p`` (n_p, N)
+    densified P rows and ``wp`` their action rows. The P block is
+    Cholesky-whitened and frozen into slots [0, n_p); the guess block is
+    Gram-Schmidted against it. With ``p_actions=True`` ``wp`` holds the
+    caller's exact action rows, mapped through the same whitening
+    (``lower_solve``: L⁻¹ as one matmul); otherwise the operator computes
+    them and ``wp`` is ignored."""
+
+    def init_p(v0: Tensor, operand, p: Tensor, wp: Tensor) -> DavidsonState:
+        gp = torch.matmul(p, p.T)
+        lp = _cholesky_nan(gp + 1e-30 * _eye(n_p, gp))
+        pw = lower_solve(lp, p)
+        wpw = lower_solve(lp, wp) if p_actions else matvec(pw, operand)
+        v0 = _p_project(v0, pw)
+        # guesses fully inside the P span project to zero: eigh-whitening
+        # drops them as dead slots instead of NaN-ing a Cholesky
+        v0o_t, keep = _eigh_whiten_cols(v0.T, thresh=1e-10)
+        v0o = v0o_t.T
+        live = keep.to(v0.dtype)
+        w0 = matvec(v0o, operand) * live[:, None]
+        v = _stack_rows([pw.to(v0.dtype), v0o], m_max)
+        w = _stack_rows([wpw.to(v0.dtype), w0.to(v0.dtype)], m_max)
+        mask = _stack_rows([live.new_ones((n_p,)), live], m_max)
+        xx = _dots(v0o, v0o)
+        rho = _dots(v0o, w0) / torch.where(xx > 0, xx, torch.ones_like(xx))
+        r0 = w0 - rho[:, None] * v0o
+        errors = torch.sqrt(torch.abs(_dots(r0, r0)))
+        # a guess swallowed by the P span has a ZERO seed residual: that is
+        # "untested", not "converged" (the solve would exit before its first
+        # RR). Dead slots seed at inf; the first step replaces them.
+        errors = torch.where(live > 0, errors, torch.full_like(errors, float("inf")))
+        c0 = _stack_rows([torch.zeros((n_p, nroots), dtype=v0.dtype, device=v0.device),
+                          _eye(nroots, v0) * live[:, None]], m_max)
+        cm0 = torch.zeros_like(c0)
+        return DavidsonState(v, w, mask, n_p + nroots, rho, v0o, r0, errors, c0, cm0)
+
+    if n_p:
+        return init_p
 
     def init(v0: Tensor, operand) -> DavidsonState:
-        _, n = v0.shape
         g = torch.matmul(v0, v0.T)
         l = _cholesky_nan(g + 1e-30 * _eye(nroots, g))
         v0o = lower_solve(l, v0)
         w0 = matvec(v0o, operand)
-        v = torch.zeros((m_max, n), dtype=v0.dtype, device=v0.device)
-        v[:nroots] = v0o
-        w = torch.zeros_like(v)
-        w[:nroots] = w0.to(w.dtype)
-        mask = torch.zeros((m_max,), dtype=v0.dtype, device=v0.device)
-        mask[:nroots] = 1.0
+        v = _stack_rows([v0o], m_max)
+        w = _stack_rows([w0.to(v0.dtype)], m_max)
+        mask = _stack_rows([torch.ones_like(v0o[:, 0])], m_max)
         # seed evals/x/r/errors with the guess block's honest Rayleigh data
         xx = _dots(v0o, v0o)
         rho = _dots(v0o, w0) / torch.where(xx > 0, xx, torch.ones_like(xx))
         r0 = w0 - rho[:, None] * v0o
         errors = torch.sqrt(torch.abs(_dots(r0, r0)))
-        c0 = torch.zeros((m_max, nroots), dtype=v0.dtype, device=v0.device)
-        c0[:nroots, :nroots] = _eye(nroots, c0)
+        c0 = _stack_rows([_eye(nroots, v0)], m_max)
         # momentum starts at zero: the whitening drops null columns until a
         # real previous Ritz block exists
         cm0 = torch.zeros_like(c0)
@@ -474,9 +622,151 @@ def make_davidson_solve_chunked(
     return solve
 
 
-def make_batched_davidson_solve(*args, **kwargs):
-    """Many independent eigenproblems in one solve — not ported yet."""
-    raise NotImplementedError(_BATCHED)
+_TENSOR_FIELDS = ("v", "w", "mask", "evals", "x", "r", "errors", "c", "cm")
+
+
+def _batched(fn, k: int):
+    """``fn(state, *args) -> state`` over a leading batch axis of every
+    tensor field and argument, through ``torch.func.vmap``; every element
+    shares the host slot count ``k``. Returns the batched tensor fields."""
+    def inner(fields, *args):
+        out = fn(DavidsonState(k=k, **dict(zip(_TENSOR_FIELDS, fields))), *args)
+        return tuple(getattr(out, f) for f in _TENSOR_FIELDS)
+
+    return torch.func.vmap(inner)
+
+
+def make_batched_davidson_solve(
+    matvec,
+    nroots: int,
+    m_max: int,
+    null_thresh: float = 1e-10,
+    expand: Optional[Callable] = None,
+    rr: str = "full",
+    anchor_every: int = 4,
+):
+    """Many independent eigenproblems over a leading batch axis
+    (fused_davidson.py:737-777): a parameter scan of B small systems runs
+    each operation once for the batch instead of B times. Returns
+    ``(batched_init, batched_solve)``:
+
+        states = batched_init(v0_batch, operand_batch)   # (B, r, N), (B, ...)
+        final, iters = batched_solve(states, operand_batch, diag_batch, tol, max_iter)
+
+    The step, restart and init are the single solve's, run under
+    ``torch.func.vmap``: every tensor is batched (batched matmuls and
+    eighs), never a Python loop over the B systems. Like the chunked solve
+    each trip runs one basis-fill sweep, so each element's iteration count
+    is quantised to the sweep length; the trip runs on the elements still
+    active (not converged, under ``max_iter``), which share their slot
+    count and iteration counter, and converged elements hold their state.
+    ``final`` carries the batch axis on every tensor field and ``k`` as a
+    tuple of host ints; ``iters`` is a (B,) int64 tensor.
+
+    The matvec must be vmap-compatible: a dense product such as
+    ``torch.matmul(x, op.T)`` on a (B, N, N) operand. The packed kernel
+    wrappers are not (as the Pallas kernels are not under ``jax.vmap``)."""
+    _validate_rr(rr, nroots, m_max)
+    step = _step_body(matvec, nroots, m_max, null_thresh, expand, rr,
+                      anchor_every=anchor_every)
+    restart = _restart_body(matvec, nroots, m_max)
+    init = _init_body(matvec, nroots, m_max)
+    fill_steps = max(1, (m_max - nroots) // nroots)
+
+    def batched_init(v0: Tensor, operand) -> DavidsonState:
+        def inner(v0_, op_):
+            out = init(v0_, op_)
+            return tuple(getattr(out, f) for f in _TENSOR_FIELDS)
+
+        fields = torch.func.vmap(inner)(v0, operand)
+        return DavidsonState(k=(nroots,) * v0.shape[0], **dict(zip(_TENSOR_FIELDS, fields)))
+
+    def batched_solve(state: DavidsonState, operand, diag: Tensor, tol_, max_iter_):
+        # own copies: the trips write the active elements back into them
+        fields = [getattr(state, f).clone() for f in _TENSOR_FIELDS]
+        nb = fields[0].shape[0]
+        ks, its = list(state.k), [0] * nb
+        while True:
+            # one host sync per trip: which elements go on
+            errs = torch.amax(fields[6], dim=1).cpu().numpy()
+            active = [b for b in range(nb) if its[b] < max_iter_ and errs[b] > tol_]
+            if not active:
+                break
+            k, it = ks[active[0]], its[active[0]]
+            idx = torch.as_tensor(active, device=fields[0].device)
+            sub = [f.index_select(0, idx) for f in fields]
+            op = operand.index_select(0, idx)
+            dg = diag.index_select(0, idx)
+            if k + fill_steps * nroots > m_max:
+                sub = _batched(restart, k)(sub, op)
+                k = nroots
+            for i in range(fill_steps):
+                sub = _batched(lambda s_, o_, d_: step(s_, o_, d_, it + i), k)(sub, op, dg)
+                k += nroots
+            for f, new in zip(fields, sub):
+                f.index_copy_(0, idx, new)
+            for b in active:
+                ks[b], its[b] = k, it + fill_steps
+        final = DavidsonState(k=tuple(ks), **dict(zip(_TENSOR_FIELDS, fields)))
+        return final, torch.as_tensor(its, dtype=torch.int64)
+
+    return batched_init, batched_solve
+
+
+TIERS = ("fast", "precise", "exact", "int8", "int8_precise")
+
+
+def _check_tier(tier: Optional[str], device, dtype) -> str:
+    """The tier, "precise" on CUDA and "exact" on the CPU by default; the
+    CUDA packed kernels take float32 only."""
+    on_cuda = device.type == "cuda"
+    if tier is None:
+        tier = "precise" if on_cuda else "exact"
+    if tier not in TIERS:
+        raise ValueError(
+            f"unknown tier {tier!r}: use 'fast', 'precise', 'exact', "
+            "'int8' or 'int8_precise'")
+    dtype = dtype or config.default_dtype(device)
+    if on_cuda and dtype != torch.float32:
+        raise ValueError(f"the CUDA packed kernels run in float32, got dtype={dtype}")
+    return tier
+
+
+def packed_symmetric_action(matrix: np.ndarray, tier: str, b: int, device):
+    """``(matvec, operand, sym)`` of the packed-triangle symmetric action of
+    ``matrix`` in ``tier``'s storage at tile size ``b``, shared by
+    FusedDavidson and FusedLinearEquations: "fast" bf16 tiles (K1),
+    "precise" split bf16 planes (K3), "exact" tiles in the working dtype
+    (K1 f32 on CUDA), "int8"/"int8_precise" one or two int8 planes (K4,
+    K5). "fast" stores bf16 tiles on every device, so CPU tests see the
+    operator accuracy the card has."""
+    from ..ops.kernels.symm import (
+        SymmetricBlocked,
+        SymmetricBlockedSplit,
+        symm_matmat_kernel,
+        symm_matmat_split_kernel,
+    )
+    from ..ops.kernels.symm_int8 import make_int8_matvec
+
+    if tier in ("int8", "int8_precise"):
+        return make_int8_matvec(matrix, b=b, two_plane=(tier == "int8_precise"),
+                                device=device)
+    if tier == "precise":
+        sym = SymmetricBlockedSplit.from_dense(matrix, b=b, device=device)
+
+        def matvec(x, op):
+            s = dataclasses.replace(sym, hi=op[0], lo=op[1], ii=op[2], jj=op[3])
+            return symm_matmat_split_kernel(x, s)
+
+        return matvec, (sym.hi, sym.lo, sym.ii, sym.jj), sym
+    tile_dtype = torch.bfloat16 if tier == "fast" else config.default_dtype(device)
+    sym = SymmetricBlocked.from_dense(matrix, b=b, dtype=tile_dtype, device=device)
+
+    def matvec(x, op):
+        s = dataclasses.replace(sym, values=op[0], ii=op[1], jj=op[2])
+        return symm_matmat_kernel(x, s)
+
+    return matvec, (sym.values, sym.ii, sym.jj), sym
 
 
 class FusedDavidson:
@@ -511,14 +801,15 @@ class FusedDavidson:
     ):
         if sharding is not None:
             raise NotImplementedError(_SHARDING)
-        if p_space is not None or p_actions is not None:
-            raise NotImplementedError(_PSPACE)
         self.device = config.resolve_device(device)
         if dtype is None:
             dtype = config.default_dtype(self.device)
-        self.n_p = 0
-        eff_m_max = m_max if m_max is not None else max(4 * nroots, min(n, 24))
-        _validate_rr(rr, nroots, eff_m_max)
+        self.p_dense, self.n_p, self.p_action_rows = validate_p_inputs(
+            p_space, p_actions, n)
+        self._p_dev = None
+        eff_m_max = m_max if m_max is not None else max(
+            4 * nroots + self.n_p, min(n, 24))
+        _validate_rr(rr, nroots, eff_m_max, self.n_p)
         self.matvec = matvec
         self.n = n
         self.nroots = nroots
@@ -538,10 +829,12 @@ class FusedDavidson:
         self.fuse_chain = fuse_chain
         self.anchor_every = max(1, int(anchor_every))
         self.step = make_davidson_step(matvec, nroots, self.m_max, expand=expand, rr=rr,
-                                       fuse_chain=fuse_chain,
+                                       fuse_chain=fuse_chain, n_p=self.n_p,
                                        anchor_every=self.anchor_every)
-        self.restart = make_restart(matvec, nroots, self.m_max)
-        self._init = make_davidson_init(matvec, nroots, self.m_max)
+        self.restart = make_restart(matvec, nroots, self.m_max, n_p=self.n_p)
+        self._init = make_davidson_init(
+            matvec, nroots, self.m_max, n_p=self.n_p,
+            p_actions=self.n_p > 0 and self.p_action_rows is not None)
         self.iterations = 0
         self.check_symmetric = check_symmetric
         self._symmetry_checked = False
@@ -576,27 +869,10 @@ class FusedDavidson:
         multiple; returned Ritz vectors carry the padded width — slice with
         ``solver.unpad(x)``.
         """
-        from ..ops.kernels.symm import (
-            SymmetricBlocked,
-            SymmetricBlockedSplit,
-            symm_matmat_kernel,
-            symm_matmat_split_kernel,
-        )
-        from ..ops.kernels.symm_int8 import make_int8_matvec
-
         device = config.resolve_device(device)
         matrix = np.asarray(matrix, dtype=np.float64)
         n = matrix.shape[0]
-        on_cuda = device.type == "cuda"
-        if tier is None:
-            tier = "precise" if on_cuda else "exact"
-        if tier not in ("fast", "precise", "exact", "int8", "int8_precise"):
-            raise ValueError(
-                f"unknown tier {tier!r}: use 'fast', 'precise', 'exact', "
-                "'int8' or 'int8_precise'")
-        dtype = kwargs.get("dtype") or config.default_dtype(device)
-        if on_cuda and dtype != torch.float32:
-            raise ValueError(f"the CUDA packed kernels run in float32, got dtype={dtype}")
+        tier = _check_tier(tier, device, kwargs.get("dtype"))
         if b is None:
             # the JAX package's tile rule: b=1024 for the fast and int8
             # tiers only when it adds no zero padding over b=512
@@ -604,28 +880,7 @@ class FusedDavidson:
             if (tier in ("fast", "int8", "int8_precise")
                     and -(-n // 1024) * 1024 == -(-n // 512) * 512):
                 b = 1024
-
-        if tier in ("int8", "int8_precise"):
-            matvec, operand, sym = make_int8_matvec(
-                matrix, b=b, two_plane=(tier == "int8_precise"), device=device)
-        elif tier == "precise":
-            sym = SymmetricBlockedSplit.from_dense(matrix, b=b, device=device)
-            operand = (sym.hi, sym.lo, sym.ii, sym.jj)
-
-            def matvec(x, op):
-                s = dataclasses.replace(sym, hi=op[0], lo=op[1], ii=op[2], jj=op[3])
-                return symm_matmat_split_kernel(x, s)
-        else:
-            # "fast" stores bf16 tiles on every device so CPU tests see the
-            # same operator accuracy the card has
-            tile_dtype = torch.bfloat16 if tier == "fast" else config.default_dtype(device)
-            sym = SymmetricBlocked.from_dense(matrix, b=b, dtype=tile_dtype, device=device)
-            operand = (sym.values, sym.ii, sym.jj)
-
-            def matvec(x, op):
-                s = dataclasses.replace(sym, values=op[0], ii=op[1], jj=op[2])
-                return symm_matmat_kernel(x, s)
-
+        matvec, operand, sym = packed_symmetric_action(matrix, tier, b, device)
         n_pad = sym.shape[0]
         # padded diagonal entries sit far above the spectrum so
         # diagonal-based guesses never pick the dead coordinates
@@ -660,7 +915,15 @@ class FusedDavidson:
                 device=self.device,
             )
             self._symmetry_checked = True
-        state = self._init(v0, self.operand)
+        if self.n_p:
+            if self._p_dev is None:
+                p = torch.as_tensor(self.p_dense, dtype=self.dtype, device=self.device)
+                wp = (torch.as_tensor(self.p_action_rows, dtype=self.dtype, device=self.device)
+                      if self.p_action_rows is not None else torch.zeros_like(p))
+                self._p_dev = (p, wp)
+            state = self._init(v0, self.operand, *self._p_dev)
+        else:
+            state = self._init(v0, self.operand)
         self.matvecs += self.nroots
         return state
 
@@ -687,7 +950,7 @@ class FusedDavidson:
         convergence only at restart boundaries; the iteration count is then
         quantised up to the basis-fill length."""
         kw = dict(expand=self.expand, rr=self.rr, fuse_chain=self.fuse_chain,
-                  anchor_every=self.anchor_every)
+                  n_p=self.n_p, anchor_every=self.anchor_every)
         if chunked:
             solve = make_davidson_solve_chunked(self.matvec, self.nroots, self.m_max, **kw)
         else:
@@ -701,26 +964,74 @@ class FusedDavidson:
 
     def run_fast(self, v0, checkpoint_path=None, checkpoint_every: int = 1):
         """Sweep-based driver: fills the basis to capacity per sweep and
-        checks convergence only at restart boundaries."""
-        if checkpoint_path is not None:
-            raise NotImplementedError(_CHECKPOINT)
+        checks convergence only at restart boundaries.
+
+        ``checkpoint_path`` persists the DavidsonState every
+        ``checkpoint_every`` sweeps (utils/checkpoint.py; ``.npz``, or HDF5
+        for ``.h5``/``.hdf5``); continue an interrupted run with
+        :meth:`resume_fast`."""
         state = self.init_state(v0)
-        steps = max(1, (self.m_max - self.nroots) // self.nroots)
+        return self._drive_sweeps(state, checkpoint_path, checkpoint_every)
+
+    def resume_fast(self, checkpoint_path: str, keep_checkpointing=True,
+                    checkpoint_every: int = 1):
+        """Continue a run_fast interrupted after a checkpoint
+        (fused_davidson.py:1095-1138): restores the iteration and matvec
+        counters and, by default, keeps checkpointing to the same path.
+        A checkpoint written by the JAX package loads here, and the other
+        way round."""
+        from ..utils.checkpoint import load_fused_state
+
+        state, meta = load_fused_state(checkpoint_path, dtype=self.dtype,
+                                       device=self.device)
+        if tuple(state.v.shape) != (self.m_max, self.n):
+            raise ValueError(
+                f"checkpoint stacks are {tuple(state.v.shape)} but this "
+                f"solver is configured (m_max={self.m_max}, n={self.n})")
+        # equal shapes can still mean another solver: an nroots mismatch
+        # breaks the carried blocks, and an n_p mismatch would silently
+        # reinterpret frozen P slots as ordinary basis rows
+        for field, mine in (("nroots", self.nroots), ("n_p", self.n_p),
+                            ("rr", self.rr)):
+            if field in meta and meta[field] != mine:
+                raise ValueError(
+                    f"checkpoint was written with {field}={meta[field]!r} "
+                    f"but this solver has {field}={mine!r}")
+        self.iterations = int(meta.get("iterations", self.iterations))
+        self.matvecs = int(meta.get("matvecs", self.matvecs))
+        # checkpoints are saved after a sweep, with the basis at capacity:
+        # restart before the next sweep as run_fast's own loop does (an
+        # append past capacity would otherwise raise here, and clamp onto
+        # live rows in the JAX package). Skip the sweep entirely when the
+        # checkpoint is already converged or out of budget.
+        errors = state.errors.cpu().numpy()
+        if np.all(errors <= self.tol) or self.iterations >= self.max_iter:
+            return self._finish(state)
+        if state.k + self.nroots > self.m_max:
+            state = self.restart(state, self.operand)
+        return self._drive_sweeps(
+            state, checkpoint_path if keep_checkpointing else None,
+            checkpoint_every)
+
+    def _drive_sweeps(self, state, checkpoint_path, checkpoint_every):
+        steps = max(1, (self.m_max - self.n_p - self.nroots) // self.nroots)
         sweep = make_davidson_sweep(self.matvec, self.nroots, self.m_max, steps,
                                     expand=self.expand, rr=self.rr,
-                                    fuse_chain=self.fuse_chain,
+                                    fuse_chain=self.fuse_chain, n_p=self.n_p,
                                     anchor_every=self.anchor_every)
         max_sweeps = max(1, self.max_iter // steps + 1)
-        for sweeps_done in range(max_sweeps):
-            state = sweep(state, self.operand, self.diag, sweeps_done * steps)
+        for sweeps_done in range(1, max_sweeps + 1):
+            state = sweep(state, self.operand, self.diag, (sweeps_done - 1) * steps)
             self.iterations += steps
             self.matvecs += steps * self.nroots * self.matvecs_per_direction
             errors = state.errors.cpu().numpy()
+            if checkpoint_path is not None and sweeps_done % max(1, checkpoint_every) == 0:
+                from ..utils.checkpoint import save_fused_state
+
+                save_fused_state(state, checkpoint_path, iterations=self.iterations,
+                                 matvecs=self.matvecs, tol=float(self.tol),
+                                 nroots=self.nroots, n_p=self.n_p, rr=self.rr)
             if np.all(errors <= self.tol) or self.iterations >= self.max_iter:
                 break
             state = self.restart(state, self.operand)
         return self._finish(state)
-
-    def resume_fast(self, checkpoint_path: str, keep_checkpointing=True,
-                    checkpoint_every: int = 1):
-        raise NotImplementedError(_CHECKPOINT)

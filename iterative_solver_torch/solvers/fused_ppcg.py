@@ -43,7 +43,7 @@ from ._finite import check_finite
 
 Tensor = torch.Tensor
 
-_SHARDING = "sharding is not ported yet (ROADMAP.md Queue 1, item 15)"
+_SHARDING = "sharding is not ported yet (ROADMAP.md Queue 1, item 6)"
 
 
 class PPCGState(NamedTuple):

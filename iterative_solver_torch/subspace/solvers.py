@@ -5,7 +5,7 @@ Each takes the tiny host-side H/S/rhs matrices from the XSpace and produces
 a ``solutions`` matrix whose row i holds the subspace coefficients of
 solution i, plus eigenvalues and error slots. ``SubspaceSolverLinEig`` and
 ``SubspaceSolverRSPT`` are here; the DIIS and unit solvers wait for the
-nonlinear solvers and optimisers (ROADMAP.md Queue 1, item 12).
+nonlinear solvers and optimisers (ROADMAP.md Queue 1, item 4).
 """
 
 from __future__ import annotations

@@ -65,7 +65,7 @@ class XSpace:
         self.logger = logger or Logger()
         self.stats = stats or Statistics()
         # the JAX package's store_factory (its host/disk spill tier,
-        # offload_store.py) waits for ROADMAP.md Queue 1, item 15
+        # offload_store.py) waits for ROADMAP.md Queue 1, item 6
         self.store_v = BasisStore(capacity, n, dtype, sharding, name="params",
                                   device=self.device)
         self.store_a = BasisStore(capacity, n, dtype, sharding, name="actions",

@@ -254,21 +254,31 @@ def test_default_device_raises_without_cuda(mat):
 
 @pytest.mark.parametrize("case", ["p_space", "p_actions", "sharding", "checkpoint",
                                   "resume", "batched"])
-def test_unported_inputs_raise(mat, case):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if case in ("p_space", "p_actions", "sharding"):
-            arg = {"p_space": {"p_space": [{0: 1.0}]},
-                   "p_actions": {"p_space": [{0: 1.0}], "p_actions": np.ones((1, N))},
-                   "sharding": {"sharding": object()}}[case]
-            T.FusedDavidson.from_dense_symmetric(mat, 2, device="cpu", **arg)
-        elif case == "batched":
-            T.make_batched_davidson_solve(None, 2, 8)
+def test_unported_inputs_raise(mat, case, tmp_path):
+    """Only sharding is still unported (ROADMAP item 6) and raises; the
+    inputs that raised before P-space, checkpointing and the batched solve
+    were ported are now accepted."""
+    if case == "sharding":
+        with pytest.raises(NotImplementedError, match=r"ROADMAP.md Queue 1, item 6\)"):
+            T.FusedDavidson.from_dense_symmetric(mat, 2, device="cpu", sharding=object())
+    elif case in ("p_space", "p_actions"):
+        arg = {"p_space": [{0: 1.0}]}
+        if case == "p_actions":
+            arg["p_actions"] = mat[:1]
+        ts = T.FusedDavidson.from_dense_symmetric(mat, 2, device="cpu", **arg)
+        assert ts.n_p == 1 and (ts.p_action_rows is not None) == (case == "p_actions")
+    elif case == "batched":
+        binit, bsolve = T.make_batched_davidson_solve(lambda x, op: x @ op.T, 2, 8)
+        assert callable(binit) and callable(bsolve)
+    else:
+        ts = T.FusedDavidson.from_dense_symmetric(mat, 2, device="cpu")
+        path = str(tmp_path / "x.npz")
+        if case == "checkpoint":
+            ts.run_fast(_guess(mat, 2), checkpoint_path=path)
+            assert (tmp_path / "x.npz").exists()
         else:
-            ts = T.FusedDavidson.from_dense_symmetric(mat, 2, device="cpu")
-            if case == "checkpoint":
-                ts.run_fast(_guess(mat, 2), checkpoint_path="x.npz")
-            else:
-                ts.resume_fast("x.npz")
+            with pytest.raises(FileNotFoundError):
+                ts.resume_fast(path)
 
 
 def test_bad_arguments_raise(mat):

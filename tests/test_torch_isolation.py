@@ -30,7 +30,9 @@ def test_port_files_found():
     names = {p.name for p in PORT_FILES}
     assert {"fused_davidson.py", "symm.py", "chain.py", "chip_smoke.py", "symm_int8.py",
             "fused_ppcg.py", "synthetic_fci.py", "spmv.py", "gram.py", "core.py",
-            "factory.py", "calibrate_sparse_cpu.py", "compare_kernels.py"} <= names
+            "factory.py", "calibrate_sparse_cpu.py", "compare_kernels.py",
+            "fused_linear.py", "fused_cg.py", "refine.py", "precise.py",
+            "linear_equations.py", "checkpoint.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -79,6 +81,12 @@ import iterative_solver_torch.solvers._symmetry
 import iterative_solver_torch.solvers.core
 import iterative_solver_torch.solvers.fused_davidson
 import iterative_solver_torch.solvers.fused_ppcg
+import iterative_solver_torch.solvers.fused_linear
+import iterative_solver_torch.solvers.fused_cg
+import iterative_solver_torch.solvers.refine
+import iterative_solver_torch.solvers.linear_equations
+import iterative_solver_torch.ops.precise
+import iterative_solver_torch.utils.checkpoint
 import iterative_solver_torch.solvers.linear_eigensystem
 import iterative_solver_torch.solvers.propose_rspace
 import iterative_solver_torch.utils.logger

@@ -749,3 +749,186 @@ def test_lower_solve_on_card_matches_the_direct_solve(cuda, r, n):
     assert np.max(np.abs(got - ref)) <= 1e-3 * np.max(np.abs(ref))
     # the rows come out orthonormal
     np.testing.assert_allclose(got @ got.T, np.eye(r), atol=1e-3)
+
+
+# -- the paths of the linear systems, P space, checkpoints and batches ---------
+
+LINEAR_TIERS = {"fast": (2e-3, symm.LAUNCHES, "symm_bf16"),
+                "precise": (1e-5, symm.LAUNCHES, "symm_split"),
+                "exact": (1e-5, symm.LAUNCHES, "symm_f32"),
+                "int8": (5e-3, symm_int8.LAUNCHES, "symm_int8"),
+                "int8_precise": (1e-5, symm_int8.LAUNCHES, "symm_int8_split")}
+
+
+def _refuse_plain(monkeypatch):
+    """Every plain version a packed action or the chain could fall back to
+    raises: a CUDA tensor must launch the kernel."""
+    def refuse(*a, **k):
+        raise AssertionError("a CUDA launch reached the plain version")
+
+    for mod, names in ((chain, ("expand_chain", "expand_chain_emulated")),
+                       (symm, ("_symm_matmat_plain", "square_walk")),
+                       (symm_int8, ("_symm_matmat_int8_plain", "int8_square_walk"))):
+        for name in names:
+            monkeypatch.setattr(mod, name, refuse)
+
+
+@pytest.mark.parametrize("tier", sorted(LINEAR_TIERS))
+def test_linear_tiers_on_card_match_cpu(cuda, tier, monkeypatch):
+    """FusedLinearEquations at n=1024 (bench spectrum + 3 I, 4 right-hand
+    sides): the card takes the CPU run's iteration count (within 2 for
+    "precise" and the int8 tiers, whose f32 sums round in another order),
+    launches its action kernel and K2 (raw mode) every iteration, and
+    never the plain versions."""
+    from iterative_solver_torch import FusedLinearEquations
+
+    tol, counters, key = LINEAR_TIERS[tier]
+    mat, _ = _bench_spectrum(1024, 21)
+    mat = mat + 3.0 * np.eye(1024)
+    b = np.random.default_rng(22).standard_normal((4, 1024))
+    kw = dict(tier=tier, b=256, m_max=16, convergence_threshold=tol, fuse_chain=True)
+    _, cpu_err, cpu_iters = FusedLinearEquations.from_dense_symmetric(
+        mat, 4, device="cpu", dtype=torch.float32, **kw).solve(b)
+    solver = FusedLinearEquations.from_dense_symmetric(mat, 4, **kw)
+    _refuse_plain(monkeypatch)
+    before, chain_before = counters[key], chain.LAUNCHES["chain"]
+    x, errors, iters = solver.solve(b)
+    assert x.device.type == "cuda" and np.max(errors) <= tol
+    assert abs(iters - cpu_iters) <= (0 if tier in ("fast", "exact") else 2)
+    assert chain.LAUNCHES["chain"] - chain_before == iters
+    assert counters[key] - before >= 1 + 2 + iters
+    xs = x.double().cpu().numpy()
+    res = np.linalg.norm(xs @ mat - b, axis=1) / np.linalg.norm(b, axis=1)
+    assert res.max() <= 10 * tol
+
+
+def test_pspace_davidson_on_card(cuda, monkeypatch):
+    from iterative_solver_torch import FusedDavidson
+
+    mat, d = _bench_spectrum(1024, 23)
+    order = np.argsort(d)
+    kw = dict(tier="precise", b=256, m_max=32, rr="full", convergence_threshold=1e-5,
+              p_space=[{int(i): 1.0} for i in order[:8]], p_actions=mat[order[:8]])
+    v0 = np.zeros((4, 1024))
+    v0[np.arange(4), order[8:12]] = 1.0
+    cpu = FusedDavidson.from_dense_symmetric(mat, 4, device="cpu", dtype=torch.float32,
+                                             fuse_chain=True, **kw).run_on_device(v0)
+    solver = FusedDavidson.from_dense_symmetric(mat, 4, **kw)
+    assert solver.n_p == 8 and solver.fuse_chain
+    _refuse_plain(monkeypatch)
+    before, chain_before = symm.LAUNCHES["symm_split"], chain.LAUNCHES["chain"]
+    evals, x, errors, iters = solver.run_on_device(v0)
+    assert np.max(errors) <= 1e-5 and abs(iters - cpu[3]) <= 2
+    # init + probe + iterations (+ restarts); none for P, whose actions are given
+    assert symm.LAUNCHES["symm_split"] - before >= 1 + 2 + iters
+    assert chain.LAUNCHES["chain"] - chain_before == iters
+    xs = x.double().cpu().numpy()
+    xs /= np.linalg.norm(xs, axis=1, keepdims=True)
+    rq = np.sort(np.sum(xs * (xs @ mat), axis=1))
+    np.testing.assert_allclose(rq, np.linalg.eigvalsh(mat)[:4], atol=1e-8)
+
+
+def test_checkpoint_resume_on_card(cuda, tmp_path):
+    from iterative_solver_torch import FusedDavidson
+
+    mat, d = _bench_spectrum(1024, 24)
+
+    def solver(max_iter=60):
+        return FusedDavidson.from_dense_symmetric(mat, 4, tier="fast", b=256, m_max=12,
+                                                  rr="window", convergence_threshold=2e-4,
+                                                  max_iter=max_iter)
+
+    v0 = _one_hot(d, 4)
+    full = solver().run_fast(v0)
+    path = str(tmp_path / "ck.npz")
+    first = solver(max_iter=2).run_fast(v0, checkpoint_path=path)
+    assert first[3] < full[3]
+    before = symm.LAUNCHES["symm_bf16"]
+    evals, x, errors, iters = solver().resume_fast(path)
+    assert symm.LAUNCHES["symm_bf16"] > before and x.device.type == "cuda"
+    assert iters == full[3] and np.max(errors) <= 2e-4
+    np.testing.assert_allclose(np.sort(evals), np.sort(full[0]), atol=1e-6)
+
+
+def test_batched_davidson_on_card(cuda):
+    from iterative_solver_torch import make_batched_davidson_solve
+
+    n, nb, nroots = 256, 4, 3
+    rng = np.random.default_rng(25)
+    base = rng.standard_normal((n, n)) * (0.1 / np.sqrt(n))
+    base = base + base.T
+    mats = np.stack([lam * base + np.diag(np.linspace(0.0, 12.0, n))
+                     for lam in np.linspace(0.2, 1.2, nb)])
+    diags = np.stack([np.diag(m) for m in mats])
+    v0 = np.stack([_one_hot(dg, nroots) for dg in diags])
+    f32 = dict(dtype=torch.float32)
+
+    def matvec(x, op):
+        return torch.matmul(x, op.T)
+
+    binit, bsolve = make_batched_davidson_solve(matvec, nroots, 18)
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        tm = torch.as_tensor(mats, device=dev, **f32)
+        outs[dev] = bsolve(binit(torch.as_tensor(v0, device=dev, **f32), tm), tm,
+                           torch.as_tensor(diags, device=dev, **f32), 1e-5, 400)
+    final, iters = outs["cuda"]
+    assert final.v.device.type == "cuda"
+    assert np.all(np.abs(iters.numpy() - outs["cpu"][1].numpy()) <= 5)
+    for p in range(nb):
+        assert float(final.errors[p].max()) <= 1e-5
+        np.testing.assert_allclose(np.sort(final.evals[p].double().cpu().numpy()),
+                                   np.linalg.eigvalsh(mats[p])[:nroots], atol=1e-5)
+
+
+def test_refiner_on_card(cuda):
+    """EigenpairRefiner's deflated CG on the K3 matvec, from a precise solve
+    on the card to an f64 residual of 1e-8."""
+    from iterative_solver_torch import FusedDavidson
+    from iterative_solver_torch.solvers.refine import EigenpairRefiner
+
+    mat, d = _bench_spectrum(1024, 26)
+    solver = FusedDavidson.from_dense_symmetric(mat, 4, tier="precise", b=256, m_max=16,
+                                                rr="full", convergence_threshold=1e-5)
+    _, x, _, _ = solver.run_on_device(_one_hot(d, 4))
+    refiner = EigenpairRefiner(lambda xs: xs @ mat, solver.matvec, solver.operand, d, 1024, 4)
+    before = symm.LAUNCHES["symm_split"]
+    out = refiner.refine(x.double().cpu().numpy(), tol=1e-8)
+    assert out.converged and out.residual_norms.max() <= 1e-8
+    assert symm.LAUNCHES["symm_split"] - before == sum(1 + i for i in refiner.cg_iterations)
+    np.testing.assert_allclose(np.sort(out.eigenvalues), np.linalg.eigvalsh(mat)[:4],
+                               atol=1e-10)
+
+
+def test_parity_linear_equations_on_card(cuda):
+    """create_linear_equations on a K6 Problem (a block-sparse operator plus
+    3 I): one K6 launch per iteration, the CPU run's iteration count."""
+    import iterative_solver_torch as its
+
+    a = _block_sparse(512, 64, 64, 27)
+    dense = 0.02 * (a + a.T) + np.diag(np.linspace(1.0, 8.0, 512))
+    rhs = np.random.default_rng(28).standard_normal((2, 512))
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        bsr = spmv.BSRMatrix.from_dense(dense, 64, 64, dtype=torch.float32, device=dev)
+
+        class P(its.Problem):
+            def action(self, parameters):
+                return spmv.bsr_matmat_kernel(parameters, bsr) + 3.0 * parameters
+
+            def diagonals(self):
+                return bsr.diagonal + 3.0
+
+        solver = its.create_linear_equations(512, 2, "Davidson", "convergence_threshold=1e-5",
+                                             device=dev, dtype=torch.float32)
+        solver.verbosity = its.Verbosity.NONE
+        solver.add_equations(rhs)
+        before = spmv.LAUNCHES["bsr"]
+        conv, *_ = solver.solve(np.zeros((2, 512)), problem=P(), generate_initial_guess=True)
+        assert conv
+        runs[dev] = (solver.stats.iterations, spmv.LAUNCHES["bsr"] - before, solver)
+    assert runs["cuda"][0] == runs["cpu"][0]
+    assert runs["cuda"][1] == runs["cuda"][0] and runs["cpu"][1] == 0
+    x = runs["cuda"][2].solution_params([0, 1]).double().cpu().numpy()
+    res = np.linalg.norm(x @ (dense + 3.0 * np.eye(512)) - rhs, axis=1)
+    assert res.max() <= 1e-4 * np.linalg.norm(rhs, axis=1).max()

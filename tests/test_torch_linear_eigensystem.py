@@ -212,15 +212,16 @@ def test_unknown_method_raises_as_jax():
 
 
 def test_unported_entry_points_name_their_item():
-    with pytest.raises(NotImplementedError, match="item 11"):
-        T.create_linear_equations(8, 1, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12"):
+    # linear equations (ROADMAP item 3) are ported; their sharding is not
+    with pytest.raises(NotImplementedError, match=r"item 6\)"):
+        T.create_linear_equations(8, 1, sharding=object(), device="cpu")
+    with pytest.raises(NotImplementedError, match=r"item 4\)"):
         T.create_optimize(8, "BFGS")
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(NotImplementedError, match=r"item 4\)"):
         T.create_nonlinear_equations(8)
-    with pytest.raises(NotImplementedError, match="item 15"):
+    with pytest.raises(NotImplementedError, match=r"item 6\)"):
         T.create_linear_eigensystem(8, 1, sharding=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 15"):
+    with pytest.raises(NotImplementedError, match=r"item 6\)"):
         T.create_linear_eigensystem(8, 1, offload=True, device="cpu")
 
 
