@@ -121,6 +121,40 @@ Phases, one JSON line each:
        default_rng(3): the f64 relative residual <= 1e-5, the iteration
        count and stats of the port's CPU run, one K6 launch per iteration.
 
+17. after the linear profile (16d), the nonlinear families and the
+    gradients, with K1-f32 (the "exact" tier, b = 512) in every matvec:
+    a. ``solve_lbfgs``: FusedLBFGS minimising 1/2 xᵀ(A+3I)x − bᵀx (A the
+       bench matrix, b the first of the linear right-hand sides), history
+       10, gradient norm <= 3e-2, the gradient from torch.autograd through
+       ``make_differentiable_symm_action``: K1 once forward and once as its
+       own adjoint per evaluation (launches counted: two per evaluation);
+       the f64 relative error against np.linalg.solve, the iteration count
+       of the port's CPU float32 run within 2; a profile of one more solve;
+    b. ``solve_fused_diis``: FusedDIIS on (A+3I)x + 0.05 x∘x − b, Jacobi on
+       diag(A+3I), history 10, err <= 1e-4: the f64 relative residual
+       recomputed on the host, the CPU iteration count within 2, one K1
+       launch per residual;
+    c. ``solve_parity_nonlinear``: create_optimize(8192, "BFGS",
+       "max_size_qspace=6") and create_optimize(8192, "SD") on
+       QuadraticOptimizeProblem(A+3I, np.linalg.solve(A+3I, b)), and
+       create_nonlinear_equations(8192, "DIIS", "max_size_qspace=8") on
+       TrigNonlinearProblem(8192), in float64 with dense torch.matmul: the
+       CPU run's iterations and stats exactly, the quadratic solutions within
+       1e-8 of np.linalg.solve;
+    d. ``implicit_diff``: make_differentiable_eigenvalues on the bench
+       matrix through the differentiable action (4 roots, m_max 24, tol
+       1e-5): d(sum w lambda)/ds at s = 1 against sum w lambda, the tile
+       gradient against the f64 outer-product tiles of the solver's own x;
+       make_differentiable_eigenpairs for <x_0|M|x_0> (M diagonal,
+       default_rng(7)): the response solve converged, the tile gradient
+       against the same function with the plain action in float64 on the
+       card.
+    The K1-f32 check of phase 3 also holds the differentiable action's y,
+    xbar and vbar at 16, 4 and 1 x 8192 (the rows the new phases launch K1
+    at) against plain autograd through symm_matmat (1e-5) and times the
+    adjoint launch at 1 x 8192 ("K1-f32-adjoint"). The limits and
+    iteration counts come from ``calibrate_nonlinear_cpu.py``.
+
 Each Davidson solve reports iterations, convergence, time per iteration,
 the f64 residual ||A x - rho x|| of each normalised Ritz vector against the
 dense f64 matrix, the 4 lowest Rayleigh quotients against
@@ -145,7 +179,8 @@ that last line. It also exits non-zero where CUDA is absent, and where the
 package beside it is missing. The limits of the sparse phases come from
 ``calibrate_sparse_cpu.py``, those of the int8 phases from
 ``calibrate_int8_cpu.py``, those of the P-space and linear phases from
-``calibrate_linear_cpu.py``.
+``calibrate_linear_cpu.py``, those of the nonlinear and gradient phases from
+``calibrate_nonlinear_cpu.py``.
 """
 
 from __future__ import annotations
@@ -242,6 +277,63 @@ PARITY_LINEAR_ITERATIONS = 4
 PARITY_LINEAR_STATS = ("iterations = 4, R vectors created = 16, Q vectors created = 32, "
                        "gemm_inner_ops = 16, gemm_outer_ops = 8")
 PARITY_LINEAR_RES_LIMIT = 1e-5
+# the nonlinear families and the gradients, on the bench matrix + 3 I (L-BFGS,
+# DIIS, parity) and the bench matrix (the differentiable eigensolves), in the
+# "exact" tier (K1-f32). Iteration counts and limits from
+# calibrate_nonlinear_cpu.py (the port's plain path in float32 and float64
+# on the CPU; PERF.md gives the margins)
+NONLINEAR_B = 512
+LBFGS_HISTORY = 10
+LBFGS_TOL = 3e-2          # gradient norm; |b| = 90.4
+LBFGS_MAX_ITER = 200
+LBFGS_ITERATIONS = 25     # float32 and float64 alike (32 evaluations)
+# the stopping rule's bound: ||x - x*|| <= ||g|| / lambda_min(A+3I) = 0.03 /
+# 0.9999, over ||x*|| = 4.795 (the CPU run: 1.37e-3)
+LBFGS_ERR_LIMIT = 6.3e-3
+DIIS_EPS = 0.05
+DIIS_M = 10
+DIIS_TOL = 1e-4           # err = ||r||; |b| = 90.4
+DIIS_MAX_ITER = 100
+DIIS_ITERATIONS = 4       # float32 and float64 alike
+# err <= 1e-4 over |b| = 90.4, plus f32 rounding of the residual (the CPU
+# run: 6.8e-7)
+DIIS_RES_LIMIT = 2e-6
+# method -> (options, iterations, stats) of the port's CPU float64 run
+PARITY_NONLINEAR = {
+    "BFGS": ("max_size_qspace=6", 6, "iterations = 6, R vectors created = 6, Q vectors "
+             "created = 12, Q vectors deleted = 1, gemm_inner_ops = 24, gemm_outer_ops = 18"),
+    "SD": ("", 5, "iterations = 5, R vectors created = 6, Q vectors created = 12, "
+           "gemm_inner_ops = 24, gemm_outer_ops = 18"),
+    "DIIS": ("max_size_qspace=8", 26, "iterations = 26, R vectors created = 27, Q vectors "
+             "created = 54, Q vectors deleted = 19, gemm_inner_ops = 108, "
+             "gemm_outer_ops = 81"),
+}
+PARITY_NONLINEAR_X_LIMIT = 1e-8   # the CPU run: 3.4e-11 (BFGS), 2.1e-10 (SD)
+# the trigonometric residual of the returned (interpolated) solution: the
+# CPU run 9.8e-9, the solver's own threshold 1e-8 on its last iterate
+PARITY_TRIG_RES_LIMIT = 2e-8
+IMPLICIT_ROOTS = 4
+IMPLICIT_M_MAX = 24
+IMPLICIT_TOL = 1e-5
+IMPLICIT_MAX_ITER = 60
+IMPLICIT_WEIGHTS = (1.0, -0.5, 2.0, 0.25)
+IMPLICIT_ITERATIONS = 3
+IMPLICIT_DS_LIMIT = 1e-4      # the CPU run: 1.14e-5
+IMPLICIT_VBAR_LIMIT = 1e-6    # the CPU run: 3.7e-8
+# the float32 Rayleigh quotients against REFERENCE_EIGENVALUES (the CPU run:
+# 2.1e-6, the card 1.54e-6; an f32 dot of 8192 terms near |lambda| = 2)
+IMPLICIT_RQ_LIMIT = 1e-5
+EIGENPAIR_M_SEED = 7
+EIGENPAIR_RESPONSE_TOL = 1e-4   # the float32 floor is about 2e-6
+EIGENPAIR_RESPONSE_MAX_ITER = 200
+# against the plain float64 run (tol 1e-9, response 1e-8); the CPU run:
+# 6.0e-5 (response 5 iterations, 3.8e-5)
+EIGENPAIR_LIMIT = 5e-4
+# rows of x at which check_symm_adjoint holds the differentiable action to
+# plain autograd: the kernel checks' 16, the differentiable eigensolve's 4
+# and one (L-BFGS and DIIS; a partial row block in K1's grid), the last
+# also the shape it times
+ADJOINT_ROWS = (NROOTS, IMPLICIT_ROOTS, 1)
 
 # H100 SXM data-sheet peaks (dense): memory 3.35 TB/s; bf16 tensor cores
 # 989 TFLOP/s; int8 tensor cores 1979 TOP/s; float32 outside the tensor
@@ -1883,6 +1975,506 @@ def solve_parity_linear(bsr, dense, device) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# the nonlinear families and the gradients: K1-f32 forward in every matvec,
+# value and gradient, and again as its own adjoint in the backward of
+# make_differentiable_symm_action
+
+
+def packed_exact(matrix, device, dtype=None):
+    """The "exact" tier's packed operator (K1-f32 on the card) of ``matrix``."""
+    from iterative_solver_torch.ops.kernels import symm
+
+    return symm.SymmetricBlocked.from_dense(matrix, b=NONLINEAR_B, dtype=dtype, device=device)
+
+
+def sync(device) -> None:
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def lbfgs_solver(shifted, b, device, dtype=None):
+    """FusedLBFGS minimising f(x) = 1/2 xᵀ(A+3I)x − bᵀx, with g from
+    torch.autograd.grad through make_differentiable_symm_action: each
+    evaluation launches K1 once forward and once as its own adjoint.
+    Returns (solver, evaluations), ``evaluations[0]`` counting the calls."""
+    import torch
+
+    from iterative_solver_torch import FusedLBFGS
+    from iterative_solver_torch.ops.kernels import symm
+
+    sym = packed_exact(shifted, device, dtype)
+    action = symm.make_differentiable_symm_action(sym)
+    bt = torch.as_tensor(b, dtype=sym.values.dtype, device=sym.values.device)
+    evaluations = [0]
+
+    def value_and_grad(x, values):
+        evaluations[0] += 1
+        x = x.detach().requires_grad_(True)
+        with torch.enable_grad():
+            f = 0.5 * torch.dot(x, action(x[None, :], values)[0]) - torch.dot(bt, x)
+            (g,) = torch.autograd.grad(f, x)
+        return f.detach(), g
+
+    solver = FusedLBFGS(value_and_grad, shifted.shape[0], history=LBFGS_HISTORY,
+                        dtype=sym.values.dtype, convergence_threshold=LBFGS_TOL,
+                        max_iter=LBFGS_MAX_ITER, operand=sym.values, device=device)
+    return solver, evaluations
+
+
+def relative_error(x, x_ref) -> float:
+    x = np.asarray(x, dtype=np.float64)
+    return float(np.linalg.norm(x - x_ref) / np.linalg.norm(x_ref))
+
+
+def solve_lbfgs(shifted, b, x_ref, device) -> dict:
+    """FusedLBFGS on the bench matrix + 3 I (``lbfgs_solver``), history 10,
+    from x = 0: gnorm <= LBFGS_TOL, the f64 relative error against
+    np.linalg.solve, the iteration count of the port's CPU float32 run
+    within 2, and K1-f32 launches two per evaluation (forward and adjoint);
+    then a profile of one more solve."""
+    n = shifted.shape[0]
+    t0 = time.perf_counter()
+    solver, evaluations = lbfgs_solver(shifted, b, device)
+    setup_s = time.perf_counter() - t0
+    reset_launches()
+    sync(device)
+    t0 = time.perf_counter()
+    x, f, gnorm, iters = solver.run(np.zeros(n))
+    sync(device)
+    wall = time.perf_counter() - t0
+    launches = solve_launches("symm_f32")
+    evals = evaluations[0]
+    err = relative_error(x.cpu().numpy(), x_ref)
+    sync(device)
+    t0 = time.perf_counter()
+    iters2 = solver.run(np.zeros(n))[3]
+    sync(device)
+    wall2 = time.perf_counter() - t0
+    expected = {"action": 2 * evals, "chain": 0, "gram": 0}
+    rec = {
+        "phase": "solve_lbfgs", "n": n, "history": LBFGS_HISTORY, "tol": LBFGS_TOL,
+        "iterations": iters, "cpu_iterations": LBFGS_ITERATIONS, "evaluations": evals,
+        "adjoint_launches": evals, "gnorm": gnorm, "f": f, "f64_solution_error": err,
+        "f64_solution_error_limit": LBFGS_ERR_LIMIT, "seconds": wall,
+        "seconds_per_iteration": wall / max(iters, 1), "steady_seconds": wall2,
+        "steady_seconds_per_iteration": wall2 / max(iters2, 1), "setup_seconds": setup_s,
+        "launches": launches, "expected_launches": expected, "action_kernel": "symm_f32",
+    }
+    emit(rec)
+    failures = []
+    if not gnorm <= LBFGS_TOL:
+        failures.append(f"gradient norm {gnorm:.3e} > {LBFGS_TOL}")
+    if not err <= LBFGS_ERR_LIMIT:
+        failures.append(f"f64 solution error {err:.3e} > {LBFGS_ERR_LIMIT}")
+    if abs(iters - LBFGS_ITERATIONS) > 2:
+        failures.append(f"{iters} iterations, the port's CPU float32 run takes "
+                        f"{LBFGS_ITERATIONS}")
+    if launches != expected or launches["action"] == 0:
+        failures.append(f"launches {launches} != expected {expected}")
+    if failures:
+        raise AssertionError("solve_lbfgs: " + "; ".join(failures))
+    emit(profile_solve(solver, None, device, "profile_lbfgs",
+                       run=lambda: solver.run(np.zeros(n))[3]))
+    return rec
+
+
+def diis_solver(shifted, b, device, dtype=None):
+    """FusedDIIS on r(x) = (A+3I)x + DIIS_EPS x∘x − b (the form of
+    tests/test_fused_diis.py's quadratic), the action K1-f32's wrapper,
+    Jacobi on diag(A+3I), a history of DIIS_M."""
+    import dataclasses
+
+    import torch
+
+    from iterative_solver_torch import FusedDIIS
+    from iterative_solver_torch.ops.kernels import symm
+
+    sym = packed_exact(shifted, device, dtype)
+    bt = torch.as_tensor(b, dtype=sym.values.dtype, device=sym.values.device)
+
+    def residual(x, values):
+        s = dataclasses.replace(sym, values=values)
+        return symm.symm_matmat_kernel(x[None, :], s)[0] + DIIS_EPS * x * x - bt
+
+    return FusedDIIS(residual, shifted.shape[0], max_size_qspace=DIIS_M,
+                     dtype=sym.values.dtype, convergence_threshold=DIIS_TOL,
+                     max_iter=DIIS_MAX_ITER, operand=sym.values,
+                     diagonals=np.diagonal(shifted), device=device)
+
+
+def diis_residual_f64(x, shifted, b) -> float:
+    """||(A+3I)x + eps x∘x − b|| / ||b|| in float64 on the host."""
+    x = np.asarray(x, dtype=np.float64)
+    return float(np.linalg.norm(shifted @ x + DIIS_EPS * x * x - b) / np.linalg.norm(b))
+
+
+def solve_fused_diis(shifted, b, device) -> dict:
+    """FusedDIIS (``diis_solver``) from x = 0: err <= DIIS_TOL, the f64
+    relative residual recomputed on the host, the iteration count of the
+    port's CPU float32 run within 2, one K1-f32 launch per residual."""
+    n = shifted.shape[0]
+    solver = diis_solver(shifted, b, device)
+    reset_launches()
+    sync(device)
+    t0 = time.perf_counter()
+    x, err, iters = solver.run(np.zeros(n))
+    sync(device)
+    wall = time.perf_counter() - t0
+    launches = solve_launches("symm_f32")
+    res = diis_residual_f64(x.cpu().numpy(), shifted, b)
+    sync(device)
+    t0 = time.perf_counter()
+    iters2 = solver.run(np.zeros(n))[2]
+    sync(device)
+    wall2 = time.perf_counter() - t0
+    expected = {"action": 1 + iters, "chain": 0, "gram": 0}
+    rec = {
+        "phase": "solve_fused_diis", "n": n, "m": DIIS_M, "eps": DIIS_EPS, "tol": DIIS_TOL,
+        "iterations": iters, "cpu_iterations": DIIS_ITERATIONS, "err": err,
+        "f64_relative_residual": res, "f64_residual_limit": DIIS_RES_LIMIT, "seconds": wall,
+        "seconds_per_iteration": wall / max(iters, 1), "steady_seconds": wall2,
+        "steady_seconds_per_iteration": wall2 / max(iters2, 1), "launches": launches,
+        "expected_launches": expected, "action_kernel": "symm_f32",
+    }
+    emit(rec)
+    failures = []
+    if not err <= DIIS_TOL:
+        failures.append(f"err {err:.3e} > {DIIS_TOL}")
+    if not res <= DIIS_RES_LIMIT:
+        failures.append(f"f64 relative residual {res:.3e} > {DIIS_RES_LIMIT}")
+    if abs(iters - DIIS_ITERATIONS) > 2:
+        failures.append(f"{iters} iterations, the port's CPU float32 run takes "
+                        f"{DIIS_ITERATIONS}")
+    if launches != expected:
+        failures.append(f"launches {launches} != expected {expected}")
+    if failures:
+        raise AssertionError("solve_fused_diis: " + "; ".join(failures))
+    return rec
+
+
+def parity_nonlinear_solves(shifted, x_ref, device):
+    """The parity entry points in float64 with dense torch.matmul (as JAX's
+    jnp.matmul): create_optimize(n, "BFGS", "max_size_qspace=6") and
+    create_optimize(n, "SD") on QuadraticOptimizeProblem(A+3I, x_ref), whose
+    minimiser is x_ref = np.linalg.solve(A+3I, b) (its value differs from
+    the L-BFGS objective by a constant), and create_nonlinear_equations(n,
+    "DIIS", "max_size_qspace=8") on TrigNonlinearProblem(n). Yields (method,
+    solver, converged, x as f64 numpy, seconds)."""
+    import torch
+
+    import iterative_solver_torch as its
+
+    n = shifted.shape[0]
+    f64 = dict(dtype=torch.float64, device=device)
+    quadratic = its.models.QuadraticOptimizeProblem(shifted, x_ref, **f64)
+    cases = (("BFGS", its.create_optimize, quadratic),
+             ("SD", its.create_optimize, quadratic),
+             ("DIIS", its.create_nonlinear_equations, its.models.TrigNonlinearProblem(n, **f64)))
+    for method, factory, problem in cases:
+        solver = factory(n, method, PARITY_NONLINEAR[method][0], **f64)
+        solver.verbosity = its.Verbosity.NONE
+        sync(device)
+        t0 = time.perf_counter()
+        converged, x, _ = solver.solve(np.zeros((1, n)), problem=problem)
+        sync(device)
+        yield (method, solver, converged, x[0].to("cpu", torch.float64).numpy(),
+               time.perf_counter() - t0)
+
+
+def trig_residual_f64(x) -> float:
+    """||x + a sin x − b|| of TrigNonlinearProblem's a, b (default_rng(42))."""
+    rng = np.random.default_rng(42)
+    a = 0.3 + 0.2 * rng.random(x.shape[0])
+    b = rng.standard_normal(x.shape[0])
+    return float(np.linalg.norm(x + a * np.sin(x) - b))
+
+
+def solve_parity_nonlinear(shifted, x_ref, device) -> dict:
+    """``parity_nonlinear_solves`` on the card: each converged, with the
+    iteration count and stats (line searches included) of the port's CPU
+    run; the quadratic solutions within PARITY_NONLINEAR_X_LIMIT of
+    np.linalg.solve, the trigonometric residual within PARITY_TRIG_RES_LIMIT
+    in f64."""
+    reset_launches()
+    runs, failures = {}, []
+    for method, solver, converged, x, wall in parity_nonlinear_solves(shifted, x_ref, device):
+        _, cpu_iters, cpu_stats = PARITY_NONLINEAR[method]
+        stats = str(solver.stats)
+        check = (float(np.max(np.abs(x - x_ref))) if method != "DIIS"
+                 else trig_residual_f64(x))
+        limit = PARITY_NONLINEAR_X_LIMIT if method != "DIIS" else PARITY_TRIG_RES_LIMIT
+        runs[method] = {
+            "options": PARITY_NONLINEAR[method][0], "converged": bool(converged),
+            "iterations": solver.stats.iterations, "cpu_iterations": cpu_iters,
+            "line_searches": solver.stats.line_searches, "stats": stats,
+            "cpu_stats": cpu_stats, "seconds": wall,
+            "seconds_per_iteration": wall / max(solver.stats.iterations, 1),
+            ("max_abs_error" if method != "DIIS" else "f64_residual"): check, "limit": limit,
+        }
+        if not converged:
+            failures.append(f"{method} not converged: errors {solver.errors}")
+        if not check <= limit:
+            failures.append(f"{method}: {check:.3e} > {limit}")
+        if solver.stats.iterations != cpu_iters or stats != cpu_stats:
+            failures.append(f"{method}: {solver.stats.iterations} iterations, stats {stats}: "
+                            f"the CPU run has {cpu_iters}, {cpu_stats}")
+    launches = {k: read_launches(k) for k in ("symm_f32", "symm_bf16", "symm_split", "bsr")}
+    rec = {"phase": "solve_parity_nonlinear", "n": shifted.shape[0], "dtype": "float64",
+           "runs": runs, "launches": launches}
+    emit(rec)
+    if any(launches.values()):
+        failures.append(f"a packed or sparse kernel ran on the dense path: {launches}")
+    if failures:
+        raise AssertionError("solve_parity_nonlinear: " + "; ".join(failures))
+    return rec
+
+
+def implicit_inputs(matrix, device, dtype=None, plain=False):
+    """(sym, matvec, v0, diag) of the differentiable solves: the bench
+    matrix packed in the exact tier; the matvec the differentiable action
+    (K1-f32 on the card), or with ``plain`` the plain symm_matmat (autograd
+    through its einsums); the one-hot guess on the IMPLICIT_ROOTS lowest
+    diagonal entries."""
+    import dataclasses
+
+    import torch
+
+    from iterative_solver_torch.ops.kernels import symm
+
+    sym = packed_exact(matrix, device, dtype)
+    like = dict(dtype=sym.values.dtype, device=sym.values.device)
+    if plain:
+        def matvec(x, values):
+            return symm.symm_matmat(x, dataclasses.replace(sym, values=values))
+    else:
+        matvec = symm.make_differentiable_symm_action(sym)
+    diag = np.diagonal(matrix)
+    return (sym, matvec, torch.as_tensor(guess(diag, IMPLICIT_ROOTS), **like),
+            torch.as_tensor(diag, **like))
+
+
+def implicit_eigenvalues(matrix, device, dtype=None) -> dict:
+    """make_differentiable_eigenvalues (IMPLICIT_ROOTS roots, m_max
+    IMPLICIT_M_MAX, tol IMPLICIT_TOL) on operand values * s, diagonal * s,
+    at s = 1; the gradient of sum_i w_i lambda_i with respect to s and to
+    the tiles. Returns the numbers the checks read."""
+    import torch
+
+    from iterative_solver_torch import make_differentiable_eigenvalues
+
+    sym, matvec, v0, diag = implicit_inputs(matrix, device, dtype)
+    fn = make_differentiable_eigenvalues(matvec, IMPLICIT_ROOTS, IMPLICIT_M_MAX,
+                                         tol=IMPLICIT_TOL, max_iter=IMPLICIT_MAX_ITER)
+    values = sym.values.detach().clone().requires_grad_(True)
+    s = torch.ones((), dtype=values.dtype, device=values.device, requires_grad=True)
+    w = torch.as_tensor(IMPLICIT_WEIGHTS, dtype=values.dtype, device=values.device)
+    lam = fn(v0, values * s, diag * s)
+    x = lam.grad_fn.saved_tensors[0].to("cpu", torch.float64).numpy()  # the solver's own x
+    (w * lam).sum().backward()
+    lam = lam.detach().to("cpu", torch.float64).numpy()
+    total = float(np.dot(IMPLICIT_WEIGHTS, lam))
+    # vbar against sum_i w_i x_i x_iᵀ on the tiles (twice off the diagonal:
+    # an off-diagonal tile feeds both A_ij and A_ji), formed in f64
+    b = sym.b
+    vbar = values.grad.to("cpu", torch.float64).numpy()
+    wx = np.asarray(IMPLICIT_WEIGHTS)[:, None] * x
+    worst = scale = 0.0
+    for t, (i, j) in enumerate(zip(sym.ii.tolist(), sym.jj.tolist())):
+        blk = wx[:, i * b:(i + 1) * b].T @ x[:, j * b:(j + 1) * b]
+        blk = blk if i == j else 2.0 * blk
+        worst = max(worst, float(np.max(np.abs(vbar[t] - blk))))
+        scale = max(scale, float(np.max(np.abs(blk))))
+    return {"iterations": fn.last_iterations, "eigenvalues": lam.tolist(),
+            "ds": float(s.grad), "weighted_sum": total,
+            "ds_relative_error": abs(float(s.grad) - total) / abs(total),
+            "vbar_relative_error": worst / scale}
+
+
+def implicit_eigenpairs(matrix, device, dtype=None, plain=False, tol=None,
+                        response_tol=None) -> tuple:
+    """make_differentiable_eigenpairs (IMPLICIT_ROOTS roots, m_max
+    IMPLICIT_M_MAX) and the tile gradient of <x_0|M|x_0>, M diagonal from
+    default_rng(EIGENPAIR_M_SEED): the lowest root's, as
+    tests/test_implicit_diff.py differentiates x[0]. (A cotangent on more
+    than one root does not converge: the block response solve shares one
+    basis across rows whose operators differ, in both packages; ROADMAP.md
+    Queue 3.) Returns (gradient as f64 numpy, info)."""
+    import torch
+
+    from iterative_solver_torch import make_differentiable_eigenpairs
+
+    sym, matvec, v0, diag = implicit_inputs(matrix, device, dtype, plain=plain)
+    fn = make_differentiable_eigenpairs(
+        matvec, IMPLICIT_ROOTS, IMPLICIT_M_MAX, tol=tol or IMPLICIT_TOL,
+        max_iter=IMPLICIT_MAX_ITER, response_tol=response_tol or EIGENPAIR_RESPONSE_TOL,
+        response_max_iter=EIGENPAIR_RESPONSE_MAX_ITER)
+    values = sym.values.detach().clone().requires_grad_(True)
+    m_diag = torch.as_tensor(np.random.default_rng(EIGENPAIR_M_SEED).standard_normal(
+        matrix.shape[0]), dtype=values.dtype, device=values.device)
+    _, x = fn(v0, values, diag)
+    (x[0] * x[0] * m_diag).sum().backward()
+    r_iters, r_errors = fn.last_response
+    grad = values.grad.to("cpu", torch.float64).numpy()
+    return grad, {"iterations": fn.last_iterations, "response_iterations": r_iters,
+                  "response_max_error": float(r_errors.max())}
+
+
+def solve_implicit_diff(matrix, device) -> dict:
+    """The differentiable eigenvalues through K1-f32 (forward in the solve,
+    the tile cotangent in the backward): d(sum w lambda)/ds at s = 1 equals
+    sum w lambda, and vbar equals the f64 outer-product tiles of the
+    solver's own x, within their calibrated limits; the eigenvalues within
+    IMPLICIT_RQ_LIMIT of REFERENCE_EIGENVALUES. Then make_differentiable_eigenpairs for
+    <x_0|M|x_0>: its response solve converges, and its tile gradient matches the same
+    function with the plain action in float64 on the card within
+    EIGENPAIR_LIMIT. K1-f32 launches: the solve's (init, iterations,
+    restarts), one for the Rayleigh quotients and one for the backward's
+    forward call; for the eigenpairs also the response solve's."""
+    import torch
+
+    reset_launches()
+    sync(device)
+    t0 = time.perf_counter()
+    eig = implicit_eigenvalues(matrix, device)
+    sync(device)
+    wall = time.perf_counter() - t0
+    launches = solve_launches("symm_f32")
+    iters = eig["iterations"]
+    restarts = expected_restarts(iters, IMPLICIT_ROOTS, IMPLICIT_M_MAX)
+    expected = {"action": 1 + iters + restarts + 2, "chain": 0, "gram": 0}
+    rq_err = float(np.max(np.abs(np.sort(eig["eigenvalues"]) - REFERENCE_EIGENVALUES)))
+
+    reset_launches()
+    sync(device)
+    t0 = time.perf_counter()
+    grad, pair = implicit_eigenpairs(matrix, device)
+    sync(device)
+    pair_wall = time.perf_counter() - t0
+    pair_launches = solve_launches("symm_f32")
+    grad64, pair64 = implicit_eigenpairs(matrix, device, torch.float64, plain=True,
+                                         tol=1e-9, response_tol=1e-8)
+    pair_err = float(np.max(np.abs(grad - grad64)) / np.max(np.abs(grad64)))
+    del grad, grad64
+    rec = {
+        "phase": "implicit_diff", "n": matrix.shape[0], "nroots": IMPLICIT_ROOTS,
+        "m_max": IMPLICIT_M_MAX, "tol": IMPLICIT_TOL, **eig, "restarts": restarts,
+        "rq_max_abs_err": rq_err, "rq_limit": IMPLICIT_RQ_LIMIT, "ds_limit": IMPLICIT_DS_LIMIT,
+        "vbar_limit": IMPLICIT_VBAR_LIMIT, "seconds": wall, "launches": launches,
+        "expected_launches": expected, "action_kernel": "symm_f32",
+        "eigenpairs": {**pair, "response_tol": EIGENPAIR_RESPONSE_TOL, "seconds": pair_wall,
+                       "float64_plain": pair64, "gradient_relative_error": pair_err,
+                       "limit": EIGENPAIR_LIMIT, "launches": pair_launches},
+        "cpu_iterations": IMPLICIT_ITERATIONS,
+    }
+    emit(rec)
+    failures = []
+    if not eig["ds_relative_error"] <= IMPLICIT_DS_LIMIT:
+        failures.append(f"d lambda/ds off lambda by {eig['ds_relative_error']:.3e} > "
+                        f"{IMPLICIT_DS_LIMIT}")
+    if not eig["vbar_relative_error"] <= IMPLICIT_VBAR_LIMIT:
+        failures.append(f"vbar off the outer-product tiles by "
+                        f"{eig['vbar_relative_error']:.3e} > {IMPLICIT_VBAR_LIMIT}")
+    if not rq_err <= IMPLICIT_RQ_LIMIT:
+        failures.append(f"eigenvalues off by {rq_err:.3e} > {IMPLICIT_RQ_LIMIT}")
+    if abs(iters - IMPLICIT_ITERATIONS) > 2:
+        failures.append(f"{iters} iterations, the port's CPU float32 run takes "
+                        f"{IMPLICIT_ITERATIONS}")
+    if launches != expected:
+        failures.append(f"launches {launches} != expected {expected}")
+    if not pair["response_max_error"] <= EIGENPAIR_RESPONSE_TOL:
+        failures.append(f"the response solve did not converge: {pair}")
+    if not pair_err <= EIGENPAIR_LIMIT:
+        failures.append(f"eigenpair gradient off the float64 plain run by {pair_err:.3e} > "
+                        f"{EIGENPAIR_LIMIT}")
+    if pair_launches["action"] == 0 or pair_launches["gram"] or pair_launches["chain"]:
+        failures.append(f"eigenpair launches {pair_launches}")
+    if failures:
+        raise AssertionError("implicit_diff: " + "; ".join(failures))
+    return rec
+
+
+def check_symm_adjoint(matrix, device) -> dict:
+    """K1-f32 as its own adjoint on the bench operator: y, xbar and vbar
+    from make_differentiable_symm_action against plain autograd through
+    symm_matmat (1e-5 of the plain result's max magnitude) at each of
+    ADJOINT_ROWS rows of x; at one row, the main path's shape, the adjoint
+    launch (K1 on the cotangent) timed against its plain version and the
+    dense f32 matmul, and the whole backward against the plain version's
+    backward."""
+    import dataclasses
+
+    import torch
+
+    from iterative_solver_torch.ops.kernels import symm
+
+    sym = packed_exact(matrix, device, torch.float32)
+    action = symm.make_differentiable_symm_action(sym)
+    rng = np.random.default_rng(11)
+    n = matrix.shape[0]
+
+    def plain(x, values):
+        return symm.symm_matmat(x, dataclasses.replace(sym, values=values))
+
+    def graph(fn, x0):
+        x = x0.clone().requires_grad_(True)
+        values = sym.values.clone().requires_grad_(True)
+        return fn(x, values), x, values
+
+    errors = {}
+    for m in ADJOINT_ROWS:
+        x0 = torch.as_tensor(rng.standard_normal((m, n)), dtype=torch.float32, device=device)
+        ybar = torch.as_tensor(rng.standard_normal((m, n)), dtype=torch.float32, device=device)
+        out = {}
+        for name, fn in (("kernel", action), ("plain", plain)):
+            y, x, values = graph(fn, x0)
+            out[name] = (y.detach(), *torch.autograd.grad(y, (x, values), ybar))
+        sync(device)
+        errors[m] = {part: rel_err(k, p) for part, k, p in
+                     zip(("y", "xbar", "vbar"), out["kernel"], out["plain"])}
+        del out
+        worst = max(rel for _, rel in errors[m].values())
+        if not worst <= KERNEL_TOL:
+            raise AssertionError(f"K1 adjoint at {m} x {n}: relative errors {errors[m]} > "
+                                 f"{KERNEL_TOL}")
+    # x0 and ybar are the last rows': one, the shape L-BFGS and DIIS launch.
+    # The adjoint launch is K1 on the cotangent; its plain version symm_matmat
+    kernel_ms, plain_ms = in_turns(lambda: symm.symm_matmat(ybar, sym),
+                                   lambda: symm.symm_matmat_kernel(ybar, sym), device)
+    kernel_device_ms = device_ms(lambda: symm.symm_matmat_kernel(ybar, sym), device,
+                                 "symm_packed", 1)[0]
+    library, library_note = symm_library(sym, ybar)
+    library_ms = time_ms(library, device)
+    del library
+    y_k, xk, vk = graph(action, x0)
+    y_p, xp, vp = graph(plain, x0)
+    backward_ms, plain_backward_ms = in_turns(
+        lambda: torch.autograd.grad(y_p, (xp, vp), ybar, retain_graph=True),
+        lambda: torch.autograd.grad(y_k, (xk, vk), ybar, retain_graph=True), device)
+    del y_k, y_p
+    torch.cuda.empty_cache()
+    m = ADJOINT_ROWS[-1]
+    nbytes = sym.values.numel() * 4 + 8 * sym.n_pairs + 2 * 4 * m * n
+    bound_ms, bound_by = bound(nbytes, symm_flops(sym, m, 1), "f32")
+    return {
+        "name": "K1-f32-adjoint", "route": "cuda",
+        "source": "iterative_solver_torch/ops/kernels/csrc/symm_packed.cu",
+        "replaces": K1_REPLACES + " (as its own adjoint, symm_pallas.py:396-444)",
+        "max_abs_err": max(a for e in errors.values() for a, _ in e.values()),
+        "rel_err_by_rows": {str(k): {part: rel for part, (_, rel) in e.items()}
+                            for k, e in errors.items()},
+        "tolerance": KERNEL_TOL, "ms": kernel_ms, "plain_ms": plain_ms,
+        "kernel_device_ms": kernel_device_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": library_ms, "library_note": library_note,
+        "backward_ms": backward_ms, "plain_backward_ms": plain_backward_ms,
+        "share_of_bound": bound_ms / kernel_device_ms,
+        "shapes": {"m": m, "n": n, "b": sym.b, "n_pairs": sym.n_pairs,
+                   "checked_rows": list(ADJOINT_ROWS)},
+    }
+
+
 def sass_counts(library) -> dict:
     """Instructions of interest in a built library's SASS, from cuobjdump
     (the toolkit's, beside nvcc): tensor-core products (HMMA float, IMMA
@@ -1941,6 +2533,7 @@ def main() -> int:
     kernels = check_kernels(matrix, device)
     flagship, flagship_diag, gen_s = make_flagship(device)
     kernels += check_int8_kernels(matrix, flagship, device)
+    kernels.append(check_symm_adjoint(matrix, device))
     emit({"phase": "kernel_checks", "kernels": kernels})
 
     fast = solve_phase(matrix, REFERENCE_EIGENVALUES, device, "fast", "window",
@@ -1972,6 +2565,10 @@ def main() -> int:
     emit({"phase": "linear_reference", "seconds": time.perf_counter() - t0})
     linear = {tier: solve_linear(shifted, b, x_ref, device, tier) for tier in LINEAR_TOLS}
     emit(profile_linear(shifted, b, device))
+    lbfgs = solve_lbfgs(shifted, b[0], x_ref[0], device)
+    diis = solve_fused_diis(shifted, b[0], device)
+    solve_parity_nonlinear(shifted, x_ref[0], device)
+    implicit = solve_implicit_diff(matrix, device)
     del shifted, x_ref
     kernels.append(check_chain_raw(N, device))
     refine = refine_precise(matrix, device)
@@ -1992,14 +2589,15 @@ def main() -> int:
     resumable = list(checkpoint["launches"].values())
     davidson = (fast, precise, exact, int8, int8_precise, sparse, phenol_rec, pspace)
     linear_recs = tuple(linear.values())
-    solves = davidson + linear_recs + (ppcg, ppcg_rr, parity, parity_linear, refine)
+    gradients = (lbfgs, diis, implicit, implicit["eigenpairs"])
+    solves = davidson + linear_recs + gradients + (ppcg, ppcg_rr, parity, parity_linear, refine)
 
     def action(*recs):
         return sum(r["launches"]["action"] for r in recs)
 
     launches = {
         "K1-bf16": action(fast, linear["fast"]) + sum(r["action"] for r in resumable),
-        "K1-f32": action(exact, linear["exact"]),
+        "K1-f32": action(exact, linear["exact"], *gradients),
         "K3": action(precise, pspace, linear["precise"], refine),
         "K2": sum(p["launches"]["chain"] for p in davidson + linear_recs)
         + sum(r["chain"] for r in resumable),

@@ -18,6 +18,10 @@ Quick start (on a CUDA card)::
     solver = FusedDavidson.from_dense_symmetric(matrix, nroots=4)
     evals, x, errors, iters = solver.run_on_device(guess)
 
+    opt = its.create_optimize(n, "BFGS", "max_size_qspace=6")
+    converged, x, g = opt.solve(np.zeros((1, n)),
+                                problem=its.models.QuadraticOptimizeProblem(hessian, b))
+
 Pass ``device="cpu"`` (to the problem, the factory and the fused solvers)
 to run the plain PyTorch versions on the host. Importing this package needs
 no card.
@@ -35,10 +39,16 @@ from .problem import Problem
 from .solvers.core import IterativeSolverTemplate, Verbosity
 from .solvers.fused_cg import FusedBlockCG
 from .solvers.fused_davidson import FusedDavidson, make_batched_davidson_solve
+from .solvers.fused_diis import FusedDIIS
+from .solvers.fused_lbfgs import FusedLBFGS
 from .solvers.fused_linear import FusedLinearEquations
 from .solvers.fused_ppcg import FusedPPCG
+from .solvers.implicit_diff import make_differentiable_eigenpairs, make_differentiable_eigenvalues
+from .solvers.interpolate import Interpolate, Point
 from .solvers.linear_eigensystem import LinearEigensystemDavidson, LinearEigensystemRSPT
 from .solvers.linear_equations import LinearEquationsDavidson
+from .solvers.nonlinear_diis import NonLinearEquationsDIIS
+from .solvers.optimize import OptimizeBFGS, OptimizeSD
 
 __version__ = "0.1.0"
 
@@ -49,9 +59,18 @@ __all__ = [
     "LinearEigensystemDavidson",
     "LinearEigensystemRSPT",
     "LinearEquationsDavidson",
+    "NonLinearEquationsDIIS",
+    "OptimizeBFGS",
+    "OptimizeSD",
     "FusedDavidson",
     "make_batched_davidson_solve",
+    "make_differentiable_eigenvalues",
+    "make_differentiable_eigenpairs",
     "FusedLinearEquations",
+    "FusedLBFGS",
+    "FusedDIIS",
+    "Interpolate",
+    "Point",
     "FusedPPCG",
     "FusedBlockCG",
     "create_linear_eigensystem",

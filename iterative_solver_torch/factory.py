@@ -4,10 +4,8 @@ reference: SolverFactory.h:106-184).
 ``create_linear_eigensystem(n, nroots, "Davidson", "max_size_qspace=6,...")``
 mirrors create_LinearEigensystem<R,Q,P>(method, options). Keyword arguments
 go to the solver: ``device="cpu"`` runs it on the host (the default is the
-CUDA device), ``dtype=`` sets its working dtype.
-
-The optimisers' and DIIS factories wait for their solvers and raise
-``NotImplementedError`` naming their ROADMAP.md item.
+CUDA device), ``dtype=`` sets its working dtype. ``create_optimize`` (BFGS,
+SD) and ``create_nonlinear_equations`` (DIIS) build the nonlinear families.
 """
 
 from __future__ import annotations
@@ -16,8 +14,8 @@ from . import options as opt
 from .solvers.core import IterativeSolverTemplate
 from .solvers.linear_eigensystem import LinearEigensystemDavidson, LinearEigensystemRSPT
 from .solvers.linear_equations import LinearEquationsDavidson
-
-_NONLINEAR = "the optimisers and DIIS are not ported yet (ROADMAP.md Queue 1, item 4)"
+from .solvers.nonlinear_diis import NonLinearEquationsDIIS
+from .solvers.optimize import OptimizeBFGS, OptimizeSD
 
 
 def _apply_common(solver: IterativeSolverTemplate, o: opt.Options) -> None:
@@ -96,9 +94,44 @@ def create_linear_equations(
     return solver
 
 
-def create_nonlinear_equations(*args, **kwargs):
-    raise NotImplementedError(_NONLINEAR)
+def create_nonlinear_equations(n: int, method: str = "DIIS", options: str = "", **kwargs):
+    method = (method or "DIIS").strip()
+    if method.upper() not in ("DIIS", ""):
+        raise ValueError(f"Unknown NonLinearEquations method: {method}")
+    o = opt.NonLinearEquationsDIISOptions.from_string(options)
+    solver = NonLinearEquationsDIIS(n, **kwargs)
+    _apply_common(solver, o)
+    if o.max_size_qspace is not None:
+        solver.max_size_qspace = o.max_size_qspace
+    if o.norm_thresh is not None:
+        solver.norm_thresh = o.norm_thresh
+    if o.svd_thresh is not None:
+        solver.svd_thresh = o.svd_thresh
+    return solver
 
 
-def create_optimize(*args, **kwargs):
-    raise NotImplementedError(_NONLINEAR)
+def create_optimize(n: int, method: str = "BFGS", options: str = "", **kwargs):
+    method = (method or "BFGS").strip()
+    if method.upper() in ("BFGS", ""):
+        o = opt.OptimizeBFGSOptions.from_string(options)
+        solver = OptimizeBFGS(n, **kwargs)
+        _apply_common(solver, o)
+        if o.max_size_qspace is not None:
+            solver.max_size_qspace = o.max_size_qspace
+        if o.strong_Wolfe is not None:
+            solver.strong_wolfe = o.strong_Wolfe
+        if o.Wolfe_1 is not None:
+            solver.wolfe_1 = o.Wolfe_1
+        if o.Wolfe_2 is not None:
+            solver.wolfe_2 = o.Wolfe_2
+        if o.linesearch_tolerance is not None:
+            solver.linesearch_tolerance = o.linesearch_tolerance
+        if o.linesearch_grow_factor is not None:
+            solver.linesearch_grow_factor = o.linesearch_grow_factor
+        return solver
+    if method.upper() == "SD":
+        o = opt.OptimizeSDOptions.from_string(options)
+        solver = OptimizeSD(n, **kwargs)
+        _apply_common(solver, o)
+        return solver
+    raise ValueError(f"Unknown Optimize method: {method}")

@@ -31,6 +31,10 @@ Each wrapper launches its kernel for a CUDA tensor (or raises) and counts
 the launch in ``LAUNCHES``; for a CPU tensor it runs the plain PyTorch
 version beside it (``symm_matmat``, ``symm_matmat_split``), which the CPU
 tests hold against JAX and ``chip_smoke.py`` holds the kernels against.
+
+``make_differentiable_symm_action`` (the twin of symm_pallas.py:396-444)
+gives K1 an autograd rule: the operator is symmetric, so its adjoint is K1
+again, run on the output's cotangent.
 """
 
 from __future__ import annotations
@@ -382,3 +386,54 @@ def symm_matmat_split_kernel(x: Tensor, sym: SymmetricBlockedSplit) -> Tensor:
     _build.check(lib, err, "symm_packed_split")
     LAUNCHES["symm_split"] += 1
     return y
+
+
+def make_differentiable_symm_action(sym: SymmetricBlocked):
+    """``action(x, values) -> y``, differentiable in both arguments (a
+    ``torch.autograd.Function``; symm_pallas.py:396-444). The forward is
+    ``symm_matmat_kernel`` on ``sym`` with ``values`` for its tiles: K1 for
+    CUDA tensors, the plain ``symm_matmat`` for CPU tensors. The backward:
+
+    - x-cotangent: the operator is symmetric, so the adjoint action is the
+      same forward applied to the output cotangent ybar (one more K1 launch
+      on the card, at the same half-traffic cost);
+    - values-cotangent, per tile t = (i, j):
+        vbar[t] = ybar_iᵀ x_j  +  [i != j] x_iᵀ ybar_j,
+      two batched einsums over the pair list, plain PyTorch (JAX computes
+      them in XLA, outside any Pallas kernel).
+
+    The pair topology (ii, jj) and the cached work list are closed over.
+    Where the kernel refuses an operand it raises; nothing falls back."""
+    b = sym.b
+    nb = sym.shape[0] // b
+    ii, jj = sym.ii.long(), sym.jj.long()
+    strict = sym.ii != sym.jj
+
+    def forward(x, values):
+        return symm_matmat_kernel(x, dataclasses.replace(sym, values=values))
+
+    class SymmAction(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, values):
+            ctx.save_for_backward(x, values)
+            return forward(x, values)
+
+        @staticmethod
+        def backward(ctx, ybar):
+            x, values = ctx.saved_tensors
+            # autograd may hand ybar over strided or in another dtype
+            ybar = ybar.to(x.dtype).contiguous()
+            xbar = vbar = None
+            if ctx.needs_input_grad[0]:
+                xbar = forward(ybar, values).to(x.dtype)
+            if ctx.needs_input_grad[1]:
+                m = x.shape[0]
+                xt = x.reshape(m, nb, b).transpose(0, 1)
+                yt = ybar.reshape(m, nb, b).transpose(0, 1)
+                vbar = torch.einsum("kmp,kmq->kpq", yt[ii], xt[jj])
+                vbar = vbar + strict.to(vbar.dtype)[:, None, None] * torch.einsum(
+                    "kmp,kmq->kpq", xt[ii], yt[jj])
+                vbar = vbar.to(values.dtype)
+            return xbar, vbar
+
+    return SymmAction.apply

@@ -12,8 +12,8 @@ python/iterative_solver/problem.py):
 
 Vector arguments are ``(m, N)`` row blocks: tensors on the solver's device
 in its working dtype. Methods return new tensors rather than mutating their
-arguments. ``residual`` (the nonlinear solvers) is declared for the
-interface; those solvers wait for ROADMAP.md Queue 1, item 4.
+arguments. The nonlinear solvers (``create_optimize``,
+``create_nonlinear_equations``) call ``residual`` instead of ``action``.
 """
 
 from __future__ import annotations

@@ -3,9 +3,9 @@ reference: subspace/ISubspaceSolver.h and its implementations).
 
 Each takes the tiny host-side H/S/rhs matrices from the XSpace and produces
 a ``solutions`` matrix whose row i holds the subspace coefficients of
-solution i, plus eigenvalues and error slots. ``SubspaceSolverLinEig`` and
-``SubspaceSolverRSPT`` are here; the DIIS and unit solvers wait for the
-nonlinear solvers and optimisers (ROADMAP.md Queue 1, item 4).
+solution i, plus eigenvalues and error slots: ``SubspaceSolverLinEig`` and
+``SubspaceSolverRSPT`` for the linear families, ``SubspaceSolverDIIS`` for
+``NonLinearEquationsDIIS`` and ``SubspaceSolverUnit`` for the optimisers.
 """
 
 from __future__ import annotations
@@ -76,3 +76,75 @@ class SubspaceSolverRSPT(SubspaceSolverLinEig):
         self.solutions = np.zeros_like(self.solutions)
         if self.solutions.size:
             self.solutions[0, 0] = 1.0
+
+
+class SubspaceSolverDIIS:
+    """DIIS extrapolation over residual overlaps (subspace/SubspaceSolverDIIS.h:27-66)."""
+
+    def __init__(self, logger: Optional[Logger] = None):
+        self.logger = logger or Logger()
+        self.solutions = np.zeros((0, 0))
+        self.errors: List[float] = []
+        self.converged = False
+
+    def solve(self, xspace: XSpace, nroots_max: int) -> None:
+        dim = xspace.h.shape[0]
+        self.solutions = np.zeros((1, dim))
+        if self.converged:
+            self.solutions[0, 0] = 1.0
+            return
+        coeffs = dense.solve_diis(xspace.h.T)
+        self.solutions[0, :] = coeffs
+        self.errors = [xspace.h[0, 0]]
+
+    @property
+    def eigenvalues(self):
+        raise RuntimeError("eigenvalues() not available in non-linear method")
+
+    @property
+    def size(self) -> int:
+        return self.solutions.shape[0]
+
+    def set_error(self, root: int, error: float) -> None:
+        while len(self.errors) <= root:
+            self.errors.append(np.inf)
+        self.errors[root] = error
+
+    def set_errors(self, roots, errors) -> None:
+        for r, e in zip(roots, errors):
+            self.set_error(r, e)
+
+
+class SubspaceSolverUnit:
+    """Trivial unit solution on the newest parameter — used by steepest descent
+    and BFGS whose step logic lives in the outer solver
+    (subspace/SubspaceSolverOptSD.h, SubspaceSolverOptBFGS.h:23-45)."""
+
+    def __init__(self, logger: Optional[Logger] = None):
+        self.logger = logger or Logger()
+        self.solutions = np.zeros((0, 0))
+        self.errors: List[float] = []
+
+    def solve(self, xspace: XSpace, nroots_max: int) -> None:
+        dim = xspace.h.shape[0]
+        self.solutions = np.zeros((1, dim))
+        if dim:
+            self.solutions[0, 0] = 1.0
+        self.errors = [xspace.h[0, 0] if dim else np.inf]
+
+    @property
+    def eigenvalues(self):
+        raise RuntimeError("eigenvalues() not available in non-linear method")
+
+    @property
+    def size(self) -> int:
+        return self.solutions.shape[0]
+
+    def set_error(self, root: int, error: float) -> None:
+        while len(self.errors) <= root:
+            self.errors.append(np.inf)
+        self.errors[root] = error
+
+    def set_errors(self, roots, errors) -> None:
+        for r, e in zip(roots, errors):
+            self.set_error(r, e)

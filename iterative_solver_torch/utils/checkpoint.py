@@ -153,17 +153,20 @@ def save_checkpoint(solver, path: str) -> None:
 
 def load_checkpoint(path: str, sharding=None, dtype=None, device=None):
     """Rebuild a parity solver from a checkpoint; returns the restored
-    solver, on ``device``. Checkpoints of a family the port does not have
-    yet (DIIS, the optimisers) raise ``ValueError``."""
+    solver, on ``device``. A checkpoint of a class that is not a parity
+    solver raises ``ValueError``."""
     from ..array import vector_ops as vops
     from ..solvers.linear_eigensystem import LinearEigensystemDavidson, LinearEigensystemRSPT
     from ..solvers.linear_equations import LinearEquationsDavidson
+    from ..solvers.nonlinear_diis import NonLinearEquationsDIIS
+    from ..solvers.optimize import OptimizeBFGS, OptimizeSD
 
     if sharding is not None:
         raise NotImplementedError(_SHARDING)
     registry = {
         cls.__name__: cls
-        for cls in (LinearEigensystemDavidson, LinearEigensystemRSPT, LinearEquationsDavidson)
+        for cls in (LinearEigensystemDavidson, LinearEigensystemRSPT, LinearEquationsDavidson,
+                    NonLinearEquationsDIIS, OptimizeBFGS, OptimizeSD)
     }
     if _is_hdf5_path(path):
         meta, arrays = _read_hdf5(path)
@@ -174,8 +177,8 @@ def load_checkpoint(path: str, sharding=None, dtype=None, device=None):
 
     cls = registry.get(meta["solver_class"])
     if cls is None:
-        raise ValueError(f"checkpoint of a {meta['solver_class']}, which this package "
-                         f"does not have yet (ROADMAP.md Queue 1, item 4)")
+        raise ValueError(f"checkpoint of a {meta['solver_class']}, which is not a "
+                         f"parity solver of this package")
     solver = cls(meta["n"], meta["nroots"], dtype=dtype, device=device)
     solver.convergence_threshold = meta["convergence_threshold"]
     solver.max_iter = meta["max_iter"]

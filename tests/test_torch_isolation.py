@@ -1,5 +1,6 @@
 """The port imports nothing of JAX: no module of iterative_solver_torch/,
-not chip_smoke.py and not calibrate_sparse_cpu.py imports ``jax``, ``jaxlib``
+not chip_smoke.py, calibrate_sparse_cpu.py or calibrate_nonlinear_cpu.py
+imports ``jax``, ``jaxlib``
 or ``iterative_solver_tpu`` (which would run iterative_solver_tpu/__init__.py
 and import JAX)."""
 
@@ -13,7 +14,8 @@ import pytest
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "iterative_solver_tpu"}
 PORT_FILES = sorted((ROOT / "iterative_solver_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "calibrate_sparse_cpu.py", ROOT / "compare_kernels.py"]
+    ROOT / "chip_smoke.py", ROOT / "calibrate_sparse_cpu.py", ROOT / "compare_kernels.py",
+    ROOT / "calibrate_nonlinear_cpu.py"]
 
 
 def _imported_roots(path):
@@ -32,7 +34,9 @@ def test_port_files_found():
             "fused_ppcg.py", "synthetic_fci.py", "spmv.py", "gram.py", "core.py",
             "factory.py", "calibrate_sparse_cpu.py", "compare_kernels.py",
             "fused_linear.py", "fused_cg.py", "refine.py", "precise.py",
-            "linear_equations.py", "checkpoint.py"} <= names
+            "linear_equations.py", "checkpoint.py", "fused_lbfgs.py", "fused_diis.py",
+            "optimize.py", "nonlinear_diis.py", "interpolate.py", "implicit_diff.py",
+            "calibrate_nonlinear_cpu.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -85,6 +89,12 @@ import iterative_solver_torch.solvers.fused_linear
 import iterative_solver_torch.solvers.fused_cg
 import iterative_solver_torch.solvers.refine
 import iterative_solver_torch.solvers.linear_equations
+import iterative_solver_torch.solvers.optimize
+import iterative_solver_torch.solvers.nonlinear_diis
+import iterative_solver_torch.solvers.interpolate
+import iterative_solver_torch.solvers.fused_lbfgs
+import iterative_solver_torch.solvers.fused_diis
+import iterative_solver_torch.solvers.implicit_diff
 import iterative_solver_torch.ops.precise
 import iterative_solver_torch.utils.checkpoint
 import iterative_solver_torch.solvers.linear_eigensystem
@@ -94,6 +104,7 @@ import iterative_solver_torch.utils.profiler
 import iterative_solver_torch.utils.statistics
 import chip_smoke
 import calibrate_sparse_cpu
+import calibrate_nonlinear_cpu
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in FORBIDDEN)
 assert not loaded, loaded
 print("ISOLATED")

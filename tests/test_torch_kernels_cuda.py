@@ -932,3 +932,117 @@ def test_parity_linear_equations_on_card(cuda):
     x = runs["cuda"][2].solution_params([0, 1]).double().cpu().numpy()
     res = np.linalg.norm(x @ (dense + 3.0 * np.eye(512)) - rhs, axis=1)
     assert res.max() <= 1e-4 * np.linalg.norm(rhs, axis=1).max()
+
+
+@pytest.mark.parametrize("n,b,m", [(512, 256, 16), (400, 200, 5), (8192, 512, 1),
+                                   (8192, 512, 4)])
+def test_symm_autograd_through_k1_matches_plain(cuda, n, b, m):
+    """make_differentiable_symm_action on the card: K1 forward, K1 again as
+    its own adjoint (xbar), the tile cotangent (vbar) by einsums; against
+    plain autograd through symm_matmat on the same inputs. n = 8192 with
+    one and four rows: the shapes of L-BFGS, DIIS and the differentiable
+    eigensolve (a partial row block in K1's grid)."""
+    import dataclasses
+
+    sym = symm.SymmetricBlocked.from_dense(_sym_matrix(n, 40), b=b, dtype=torch.float32,
+                                           device=cuda)
+    act = symm.make_differentiable_symm_action(sym)
+    rng = np.random.default_rng(41)
+    x0 = torch.as_tensor(rng.standard_normal((m, n)), dtype=torch.float32, device=cuda)
+    ybar = torch.as_tensor(rng.standard_normal((m, n)), dtype=torch.float32, device=cuda)
+    grads = {}
+    for name, fn in (("kernel", act), ("plain", lambda xx, vv: symm.symm_matmat(
+            xx, dataclasses.replace(sym, values=vv)))):
+        x = x0.clone().requires_grad_(True)
+        values = sym.values.clone().requires_grad_(True)
+        before = symm.LAUNCHES["symm_f32"]
+        fn(x, values).backward(ybar)
+        torch.cuda.synchronize()
+        grads[name] = (x.grad, values.grad, symm.LAUNCHES["symm_f32"] - before)
+    (xk, vk, launches), (xp, vp, plain_launches) = grads["kernel"], grads["plain"]
+    assert launches == 2 and plain_launches == 0  # forward, then the adjoint
+    assert _rel(xk, xp) <= TOL
+    assert _rel(vk, vp) <= TOL
+    assert vk.dtype == torch.float32 and xk.dtype == torch.float32
+
+
+def test_symm_autograd_x_only_launches_adjoint_once(cuda):
+    """A gradient w.r.t. x alone (the L-BFGS objective's) launches K1 once
+    forward and once as the adjoint, and forms no tile cotangent."""
+    sym = symm.SymmetricBlocked.from_dense(_sym_matrix(512, 42), b=256, dtype=torch.float32,
+                                           device=cuda)
+    act = symm.make_differentiable_symm_action(sym)
+    x = torch.ones(512, dtype=torch.float32, device=cuda, requires_grad=True)
+    before = symm.LAUNCHES["symm_f32"]
+    f = 0.5 * torch.dot(x, act(x[None, :], sym.values)[0])
+    (g,) = torch.autograd.grad(f, x)
+    torch.cuda.synchronize()
+    assert symm.LAUNCHES["symm_f32"] - before == 2
+    ref = symm.symm_matmat(x.detach()[None, :], sym)[0]
+    assert _rel(g, ref) <= TOL
+
+
+def test_fused_lbfgs_and_diis_on_card(cuda):
+    """FusedLBFGS (gradient by autograd through K1) and FusedDIIS (residual
+    through K1) at n = 512 on the card, against the same solves on the CPU
+    in float32: iterations within 2, solutions within 1e-4."""
+    import dataclasses
+
+    from iterative_solver_torch import FusedDIIS, FusedLBFGS
+
+    a = np.random.default_rng(43).standard_normal((512, 512)) * (0.1 / np.sqrt(512))
+    mat = a + a.T + np.diag(np.linspace(1.0, 10.0, 512))
+    rhs = np.random.default_rng(44).standard_normal(512)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        sym = symm.SymmetricBlocked.from_dense(mat, b=256, dtype=torch.float32, device=dev)
+        act = symm.make_differentiable_symm_action(sym)
+        b = torch.as_tensor(rhs, dtype=torch.float32, device=dev)
+
+        def vg(x, values):
+            x = x.detach().requires_grad_(True)
+            with torch.enable_grad():
+                f = 0.5 * torch.dot(x, act(x[None, :], values)[0]) - torch.dot(b, x)
+                (g,) = torch.autograd.grad(f, x)
+            return f.detach(), g
+
+        def residual(x, values):
+            s = dataclasses.replace(sym, values=values)
+            return symm.symm_matmat_kernel(x[None, :], s)[0] + 0.05 * x * x - b
+
+        lx, _, lg, lit = FusedLBFGS(vg, 512, operand=sym.values, dtype=torch.float32,
+                                    convergence_threshold=1e-3, device=dev).run(np.zeros(512))
+        dx, derr, dit = FusedDIIS(residual, 512, operand=sym.values, dtype=torch.float32,
+                                  diagonals=np.diagonal(mat), convergence_threshold=1e-4,
+                                  device=dev).run(np.zeros(512))
+        assert lg <= 1e-3 and derr <= 1e-4
+        out[dev] = (lx.cpu().numpy(), lit, dx.cpu().numpy(), dit)
+    assert abs(out["cuda"][1] - out["cpu"][1]) <= 2
+    assert abs(out["cuda"][3] - out["cpu"][3]) <= 2
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], atol=1e-4)
+    np.testing.assert_allclose(out["cuda"][2], out["cpu"][2], atol=1e-4)
+
+
+def test_differentiable_eigenvalues_on_card(cuda):
+    """Eigenvalue gradients w.r.t. the tiles through K1 on the card, at
+    n = 1024: d lambda(sA)/ds = lambda, and vbar against the outer-product
+    tiles formed in float64 from the solver's own x."""
+    from iterative_solver_torch import make_differentiable_eigenvalues
+
+    mat, d = _bench_spectrum(1024, 45)
+    sym = symm.SymmetricBlocked.from_dense(mat, b=256, dtype=torch.float32, device=cuda)
+    act = symm.make_differentiable_symm_action(sym)
+    fn = make_differentiable_eigenvalues(act, 4, 24, tol=1e-5, max_iter=60)
+    v0 = torch.as_tensor(_one_hot(d, 4), dtype=torch.float32, device=cuda)
+    values = sym.values.clone().requires_grad_(True)
+    s = torch.ones((), dtype=torch.float32, device=cuda, requires_grad=True)
+    lam = fn(v0, values * s, torch.as_tensor(d, dtype=torch.float32, device=cuda) * s)
+    x = lam.grad_fn.saved_tensors[0].double().cpu().numpy()  # the solver's own x
+    lam.sum().backward()
+    total = float(lam.detach().sum())
+    assert abs(float(s.grad) - total) <= 1e-4 * abs(total)
+    outer = x.T @ x
+    vbar = values.grad.double().cpu().numpy()
+    for t, (i, j) in enumerate(zip(sym.ii.tolist(), sym.jj.tolist())):
+        blk = outer[i * 256:(i + 1) * 256, j * 256:(j + 1) * 256]
+        np.testing.assert_allclose(vbar[t], blk if i == j else 2 * blk, atol=1e-5)

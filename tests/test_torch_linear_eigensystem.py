@@ -212,13 +212,14 @@ def test_unknown_method_raises_as_jax():
 
 
 def test_unported_entry_points_name_their_item():
-    # linear equations (ROADMAP item 3) are ported; their sharding is not
+    # linear equations (ROADMAP item 3) and the nonlinear families (item 4)
+    # are ported; their sharding is not
     with pytest.raises(NotImplementedError, match=r"item 6\)"):
         T.create_linear_equations(8, 1, sharding=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match=r"item 4\)"):
-        T.create_optimize(8, "BFGS")
-    with pytest.raises(NotImplementedError, match=r"item 4\)"):
-        T.create_nonlinear_equations(8)
+    with pytest.raises(NotImplementedError, match=r"item 6\)"):
+        T.create_optimize(8, "BFGS", sharding=object(), device="cpu")
+    with pytest.raises(NotImplementedError, match=r"item 6\)"):
+        T.create_nonlinear_equations(8, sharding=object(), device="cpu")
     with pytest.raises(NotImplementedError, match=r"item 6\)"):
         T.create_linear_eigensystem(8, 1, sharding=object(), device="cpu")
     with pytest.raises(NotImplementedError, match=r"item 6\)"):
