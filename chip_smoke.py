@@ -25,9 +25,10 @@ Phases, one JSON line each:
    x 16 x 8192 (K2 with a 64-row basis), and K1/K3 again at 16 x 32768 on
    operators generated on the card (``packed_on_card``: bf16 at b = 1024,
    f32 and split at b = 512), tolerance 1e-5 of the plain
-   result's max magnitude: K1 and K3 add partial sums with f32 atomics,
-   K2 in a fixed order of its own (so it is also held to 1e-5 of float64
-   and to the same bits on a second call). Library yardsticks: one ``torch.matmul``
+   result's max magnitude: K1, K3 and K2 add their partial sums in fixed
+   orders of their own, other than the plain version's, so each is also
+   held to the same bits on a second call (K1 and K3 at 16, 4 and 1 rows
+   of x; K2 also to 1e-5 of float64). Library yardsticks: one ``torch.matmul``
    on the dense matrix the tiles imply (bf16, or f32 with TF32 off), and
    for K3 one bf16 product of [xh xh xl] with [A_hi; A_lo; A_hi], the same
    three products in one call. K4 at 16 x 8192 and at 64 x 32768 (the
@@ -155,6 +156,38 @@ Phases, one JSON line each:
     adjoint launch at 1 x 8192 ("K1-f32-adjoint"). The limits and
     iteration counts come from ``calibrate_nonlinear_cpu.py``.
 
+18. after the refinement (16f), the non-hermitian slice on bench.py's
+    leg_nonsym operator (``nonsym_matrix``: n = 8192, couplings
+    0.05/sqrt(n) from default_rng(7), diagonal linspace(-2, 0, 32) and
+    linspace(2, 20, n - 32), the strict lower triangle scaled by 0.9), 16
+    roots, m_max 64, max_iter 60, the one-hot guess on the 16 lowest
+    diagonal entries, float32 (a dense f32 operator of 268 MB on the card):
+    a. ``FusedNonSymDavidson.from_dense(tier="precise", rr="device")`` at
+       tol 2e-4; b. the same with rr "host"; c. "int8_precise" (5e-4),
+       "fast" and "int8" with rr "device", then the dense int8 actions
+       (``torch._int_mm``, one and two planes) timed at 16 x 8192;
+       g. phase a in chunks of 4 iterations, stopped after 8 with a
+       checkpoint and resumed on a fresh solver: the same iteration count,
+       Ritz values within 1e-6; h. a torch.profiler breakdown of one more
+       phase-a solve; e. ``FusedNonSymLinearEquations.from_dense`` on the
+       operator + 3 I with 16 right-hand sides from default_rng(2),
+       "precise" and "int8_precise", each with rr "device" and "host": the
+       f64 relative residual and the error against np.linalg.solve;
+       f. ``make_batched_nonsym_lineq_solve`` with operand_axes=(None, 0)
+       over 4 shifts of that operator with 2 right-hand sides, and
+       ``make_batched_nonsym_solve`` over 8 systems at n = 1024
+       (TestBatchedNonSym's generator), then ``finalize_nonsym_batch``;
+       d. complex pairs at full width (``pair_matrix``: 6 roots, m_max 24,
+       rr "device"): it must escalate to two refinement passes and give
+       PAIR_REFERENCE_EIGENVALUES' pairs.
+    Each eigen phase: converged, the f64 residual of each row on the card
+    (a real root ||x Aᵀ − λ x||, a pair its 2 x 2 block on (x_p, x_q)), the
+    eigenvalues against NONSYM_REFERENCE_EIGENVALUES (the JAX package in
+    float64), the port's CPU float32 iteration count within 2 for the real
+    spectra, and no kernel of the port launched (the dense path runs
+    cuBLAS, cuSOLVER and ``torch._int_mm``). The limits come from
+    ``calibrate_nonsym_cpu.py``.
+
 Each Davidson solve reports iterations, convergence, time per iteration,
 the f64 residual ||A x - rho x|| of each normalised Ritz vector against the
 dense f64 matrix, the 4 lowest Rayleigh quotients against
@@ -180,7 +213,8 @@ package beside it is missing. The limits of the sparse phases come from
 ``calibrate_sparse_cpu.py``, those of the int8 phases from
 ``calibrate_int8_cpu.py``, those of the P-space and linear phases from
 ``calibrate_linear_cpu.py``, those of the nonlinear and gradient phases from
-``calibrate_nonlinear_cpu.py``.
+``calibrate_nonlinear_cpu.py``, those of the non-hermitian phases from
+``calibrate_nonsym_cpu.py``.
 """
 
 from __future__ import annotations
@@ -569,9 +603,12 @@ def symm_case(name, sym, x, device, replaces) -> dict:
     del y, y_ref
     if not rel <= KERNEL_TOL:
         raise AssertionError(f"{name}: max relative error {rel:.3e} > {KERNEL_TOL}")
+    same_bits = same_bits_rows(kernel, x, sym, (m, 4, 1))
+    if not all(same_bits.values()):
+        raise AssertionError(f"{name}: a second call gave other bits {same_bits}")
     kernel_ms, plain_ms = in_turns(lambda: plain(x, sym), lambda: kernel(x, sym), device)
     kernel_device_ms, call_device_ms, _ = device_ms(lambda: kernel(x, sym), device,
-                                                    "symm_packed", 1)
+                                                    "symm_packed", SYMM_KERNELS)
     library, library_note = symm_library(sym, x)
     library_ms = time_ms(library, device)
     # the yardstick's device time, read as the kernel's is
@@ -593,9 +630,27 @@ def symm_case(name, sym, x, device, replaces) -> dict:
         "kernel_device_ms": kernel_device_ms, "call_device_ms": call_device_ms,
         "library_device_ms": library_device_ms,
         "share_of_bound": bound_ms / kernel_device_ms,
+        "same_bits_by_rows": same_bits,
         "shapes": {"m": m, "n": n, "b": sym.b, "n_pairs": sym.n_pairs,
                    "work_items": int(symm.square_work(sym).shape[0])},
     }
+
+
+# kernels one K1 or K3 call launches: the square walk into the slots, then
+# the fixed-order sums
+SYMM_KERNELS = 2
+
+
+def same_bits_rows(kernel, x, sym, rows) -> dict:
+    """Whether two calls of K1 or K3 on the first ``r`` rows of x give the
+    same bits, for each r of ``rows``."""
+    import torch
+
+    out = {}
+    for r in rows:
+        xr = x[:r].contiguous()
+        out[str(r)] = bool(torch.equal(kernel(xr, sym), kernel(xr, sym)))
+    return out
 
 
 K1_REPLACES = "iterative_solver_tpu/ops/kernels/symm_pallas.py:148"
@@ -2053,6 +2108,10 @@ def solve_lbfgs(shifted, b, x_ref, device) -> dict:
     iters2 = solver.run(np.zeros(n))[3]
     sync(device)
     wall2 = time.perf_counter() - t0
+    # K1 adds in a fixed order, so the same input gives the same f and g
+    # bits, and the Armijo tests near the stop the same branches: equal
+    # evaluation counts over three calls (this, the steady and the profiled)
+    call_evaluations = [evals, evaluations[0] - evals]
     expected = {"action": 2 * evals, "chain": 0, "gram": 0}
     rec = {
         "phase": "solve_lbfgs", "n": n, "history": LBFGS_HISTORY, "tol": LBFGS_TOL,
@@ -2076,8 +2135,15 @@ def solve_lbfgs(shifted, b, x_ref, device) -> dict:
         failures.append(f"launches {launches} != expected {expected}")
     if failures:
         raise AssertionError("solve_lbfgs: " + "; ".join(failures))
+    before = evaluations[0]
     emit(profile_solve(solver, None, device, "profile_lbfgs",
                        run=lambda: solver.run(np.zeros(n))[3]))
+    call_evaluations.append(evaluations[0] - before)
+    rec["evaluations_by_call"] = call_evaluations
+    emit({"phase": "lbfgs_repeat", "evaluations_by_call": call_evaluations})
+    if len(set(call_evaluations)) != 1:
+        raise AssertionError(f"solve_lbfgs: evaluations differ over three calls on the same "
+                             f"input: {call_evaluations}")
     return rec
 
 
@@ -2428,10 +2494,12 @@ def check_symm_adjoint(matrix, device) -> dict:
         x0 = torch.as_tensor(rng.standard_normal((m, n)), dtype=torch.float32, device=device)
         ybar = torch.as_tensor(rng.standard_normal((m, n)), dtype=torch.float32, device=device)
         out = {}
-        for name, fn in (("kernel", action), ("plain", plain)):
+        for name, fn in (("kernel", action), ("kernel again", action), ("plain", plain)):
             y, x, values = graph(fn, x0)
             out[name] = (y.detach(), *torch.autograd.grad(y, (x, values), ybar))
         sync(device)
+        if not all(torch.equal(a, b) for a, b in zip(out["kernel"], out["kernel again"])):
+            raise AssertionError(f"K1 adjoint at {m} x {n}: a second call gave other bits")
         errors[m] = {part: rel_err(k, p) for part, k, p in
                      zip(("y", "xbar", "vbar"), out["kernel"], out["plain"])}
         del out
@@ -2444,7 +2512,7 @@ def check_symm_adjoint(matrix, device) -> dict:
     kernel_ms, plain_ms = in_turns(lambda: symm.symm_matmat(ybar, sym),
                                    lambda: symm.symm_matmat_kernel(ybar, sym), device)
     kernel_device_ms = device_ms(lambda: symm.symm_matmat_kernel(ybar, sym), device,
-                                 "symm_packed", 1)[0]
+                                 "symm_packed", SYMM_KERNELS)[0]
     library, library_note = symm_library(sym, ybar)
     library_ms = time_ms(library, device)
     del library
@@ -2469,10 +2537,604 @@ def check_symm_adjoint(matrix, device) -> dict:
         "kernel_device_ms": kernel_device_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": library_ms, "library_note": library_note,
         "backward_ms": backward_ms, "plain_backward_ms": plain_backward_ms,
-        "share_of_bound": bound_ms / kernel_device_ms,
+        "share_of_bound": bound_ms / kernel_device_ms, "same_bits": True,
         "shapes": {"m": m, "n": n, "b": sym.b, "n_pairs": sym.n_pairs,
                    "checked_rows": list(ADJOINT_ROWS)},
     }
+
+
+# ---------------------------------------------------------------------------
+# the non-hermitian family on dense operators (FusedNonSymDavidson,
+# FusedNonSymLinearEquations, the batched makers): no kernel of the port's
+# own; the int8 tiers' product is torch._int_mm
+
+NONSYM_N = 8192
+NONSYM_ROOTS = 16
+NONSYM_M_MAX = 64
+NONSYM_MAX_ITER = 60
+# the 16 lowest eigenvalues of nonsym_matrix() (all real), from the JAX
+# package in float64 on the CPU at tol 1e-10 (iterative_solver_tpu is not
+# imported here; this is the command that made them):
+#   JAX_PLATFORMS=cpu python3 -c "import jax; jax.config.update('jax_enable_x64',
+#   True); import numpy as np, chip_smoke as cs; from iterative_solver_tpu.solvers.
+#   fused_nonsym import FusedNonSymDavidson as F; m = cs.nonsym_matrix(); print(np.sort(
+#   F.from_dense(m, 16, m_max=64, convergence_threshold=1e-10, max_iter=200,
+#   rr='device').solve(cs.guess(np.diag(m), 16))[0].real).tolist())"
+NONSYM_REFERENCE_EIGENVALUES = [
+    -2.0004406610982146,
+    -1.9348673393689209,
+    -1.8706305249293471,
+    -1.806997349289577,
+    -1.7435177966899316,
+    -1.6774764447739834,
+    -1.6140605893701148,
+    -1.5495517960820235,
+    -1.4824988726174586,
+    -1.4194170020419967,
+    -1.3562063135425835,
+    -1.2903577930314512,
+    -1.2270795687902576,
+    -1.1616343362227177,
+    -1.0942895488987368,
+    -1.0309247670758168,
+]
+# tier: (tol, f64 residual limit, eigenvalue limit, the port's CPU float32
+# iterations with rr "device") -- calibrate_nonsym_cpu.py eigen
+NONSYM_TIERS = {"precise": (2e-4, 2e-4, 2e-4, 3), "int8_precise": (5e-4, 5e-4, 2e-4, 3),
+                "fast": (1e-3, 1e-2, 1e-2, 3), "int8": (1e-3, 3e-3, 2e-4, 3)}
+# the port's CPU float32 iterations of the precise tier with rr "host"
+NONSYM_HOST_ITERATIONS = 3
+# complex pairs at full width: tests/test_fused_nonsym.py's pair_heavy(n, 0,
+# 0.8, 0.1, 0.10): 6 pairs below the spectrum, 6 roots (3 pairs), m_max 24
+PAIR_ROOTS = 6
+PAIR_M_MAX = 24
+PAIR_MAX_ITER = 600
+PAIR_TOL, PAIR_RES_LIMIT, PAIR_EV_LIMIT = 2e-4, 1e-3, 2e-4
+# chunks of 8 iterations: the solve escalates at a chunk's end while the
+# errors exceed 30 tol (with 64-iteration chunks the CPU float32 run never
+# escalates and takes 492 iterations; with 8, 90)
+PAIR_CHUNK = 8
+# its 6 lowest eigenvalues (3 conjugate pairs), from the JAX package in
+# float64 on the CPU at tol 1e-10:
+#   JAX_PLATFORMS=cpu python3 -c "import jax; jax.config.update('jax_enable_x64',
+#   True); import numpy as np, chip_smoke as cs; from iterative_solver_tpu.solvers.
+#   fused_nonsym import FusedNonSymDavidson as F; m = cs.pair_matrix(); print(np.sort_complex(
+#   F.from_dense(m, 6, m_max=24, convergence_threshold=1e-10, max_iter=2000,
+#   rr='device').solve(cs.guess(np.diag(m), 6))[0]).tolist())"
+PAIR_REFERENCE_EIGENVALUES = [
+    complex(-1.9522977452508645, -0.7357865383365246),
+    complex(-1.9522977452508645, 0.7357865383365246),
+    complex(-1.7536964664917867, -0.7357390982278067),
+    complex(-1.7536964664917867, 0.7357390982278067),
+    complex(-1.5488736379338952, -0.73559176013413),
+    complex(-1.5488736379338952, 0.73559176013413),
+]
+# the linear twin on nonsym_matrix() + 3 I, 16 right-hand sides from
+# default_rng(2), m_max 64: tier: (tol, f64 relative residual limit, error
+# limit against np.linalg.solve, CPU float32 iterations with rr "device",
+# with rr "host") -- calibrate_nonsym_cpu.py linear
+NONSYM_LINEAR_TIERS = {"precise": (1e-5, 5e-6, 5e-6, 3, 3), "int8_precise": (1e-5, 2e-5, 2e-5, 3, 3)}
+# batched: TestBatchedNonSym._batch's generator at 8 x n = 1024, 3 roots,
+# m_max 12, float32 -- calibrate_nonsym_cpu.py batched
+NONSYM_BATCH = (8, 1024, 3, 12)
+# tol 2e-4: the device-RR iteration floors near 5e-5 in float32 in both
+# packages (at 1e-5 the port and JAX both run to max_iter: 201 iterations,
+# best 7.8e-5 and 5.5e-5)
+NONSYM_BATCH_TOL, NONSYM_BATCH_EV_LIMIT = 2e-4, 2e-4
+# four shifts of nonsym_matrix() + 3 I with 2 right-hand sides, one shared
+# operator (operand_axes=(None, 0)), m_max 12 -- calibrate_nonsym_cpu.py
+# shifted. The error limit is 5 tol (the shifted operators' condition is
+# at most 23): the CPU float32 run stops deeper (errors 4.9e-7, solution
+# errors up to 5.9e-7) than an H100 run (4.6e-6, 6.3e-6)
+NONSYM_SHIFTS = (0.0, 0.4, 0.9, 1.5)
+NONSYM_SHIFT_TOL, NONSYM_SHIFT_ERR_LIMIT = 1e-5, 5e-5
+# checkpoint and resume: chunks of one iteration (phase a takes 3), the
+# first solve stopped after 2
+NONSYM_CHUNK = 1
+NONSYM_STOP = 2
+
+
+def nonsym_matrix(n: int = NONSYM_N) -> np.ndarray:
+    """bench.py's leg_nonsym operator: couplings 0.05/sqrt(n) from
+    default_rng(7), diagonal linspace(-2, 0, 32) and linspace(2, 20, n - 32),
+    the strict lower triangle scaled by 0.9."""
+    rng = np.random.default_rng(7)
+    a = rng.standard_normal((n, n)) * (0.05 / np.sqrt(n))
+    m = a + a.T + np.diag(np.concatenate([np.linspace(-2.0, 0.0, 32),
+                                          np.linspace(2.0, 20.0, n - 32)]))
+    return np.where(np.tri(n, k=-1, dtype=bool), m * 0.9, m)
+
+
+def pair_matrix(n: int = NONSYM_N, npairs: int = 6) -> np.ndarray:
+    """tests/test_fused_nonsym.py::TestAutoEscalatingRR.pair_heavy(n, 0, 0.8,
+    0.1, 0.10): 6 rotation blocks (conjugate pairs) below a real spectrum."""
+    rng = np.random.default_rng(0)
+    a = rng.standard_normal((n, n)) * (0.1 / np.sqrt(n))
+    lows = np.arange(2 * npairs) * 0.10 - 2.0
+    m = a + a.T + np.diag(np.concatenate([lows, np.linspace(2.0, 20.0, n - 2 * npairs)]))
+    for k in range(0, 2 * npairs, 2):
+        m[k, k + 1] += 0.8
+        m[k + 1, k] -= 0.8
+    return np.where(np.tri(n, k=-1, dtype=bool), m * 0.85, m)
+
+
+def nonsym_solver(matrix, tier, rr, tol, device, dtype=None, nroots=NONSYM_ROOTS,
+                  m_max=NONSYM_M_MAX, max_iter=NONSYM_MAX_ITER, **kw):
+    from iterative_solver_torch import FusedNonSymDavidson
+
+    return FusedNonSymDavidson.from_dense(matrix, nroots, tier=tier, rr=rr, m_max=m_max,
+                                          convergence_threshold=tol, max_iter=max_iter,
+                                          device=device, dtype=dtype, **kw)
+
+
+def nonsym_quality(x, evals, a64) -> dict:
+    """f64 residuals of the returned rows against the operator ``a64`` (f64,
+    on its device): a real root's ||x Aᵀ − λ x|| / ||x||; a conjugate
+    pair's 2 x 2 block Λ on (x_p, x_q), from least squares, with
+    ||X Aᵀ − Λ X|| / ||X|| and how far eig(Λ) lies from the pair."""
+    import torch
+
+    X = x.to(a64.device, torch.float64)
+    AX = X @ a64.T
+    real, pairs, pair_ev = [], [], []
+    i = 0
+    while i < len(evals):
+        if evals[i].imag == 0:
+            real.append(float((AX[i] - evals[i].real * X[i]).norm() / X[i].norm()))
+            i += 1
+            continue
+        X2, AX2 = X[i:i + 2], AX[i:i + 2]
+        lam2 = torch.linalg.lstsq(X2.T, AX2.T).solution.T
+        pairs.append(float((AX2 - lam2 @ X2).norm() / X2.norm()))
+        w2 = np.sort_complex(np.linalg.eigvals(lam2.cpu().numpy()))
+        pair_ev.append(float(np.max(np.abs(w2 - np.sort_complex(np.asarray(evals[i:i + 2]))))))
+        i += 2
+    worst = max(real + pairs) if real + pairs else float("nan")
+    return {"f64_max_residual": worst, "f64_real_residuals_max": max(real, default=0.0),
+            "f64_pair_residuals": pairs, "pair_block_eigenvalue_errors": pair_ev}
+
+
+def eigenvalue_error(evals, ref) -> float:
+    """Max |λ − ref| with both sorted (complex: by real part, then
+    imaginary)."""
+    got = np.sort_complex(np.asarray(evals, dtype=np.complex128))
+    want = np.sort_complex(np.asarray(ref, dtype=np.complex128))[:len(got)]
+    return float(np.max(np.abs(got - want)))
+
+
+def kernel_launches() -> dict:
+    """Every kernel wrapper's counts: the dense non-hermitian path launches
+    none of the port's kernels."""
+    return {k: v for d in launch_counters() for k, v in d.items()}
+
+
+def timed_solves(solve, device) -> tuple:
+    """(result, seconds, steady seconds, steady iterations): ``solve()``
+    twice, the second the steady one."""
+    sync(device)
+    t0 = time.perf_counter()
+    out = solve()
+    sync(device)
+    wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out2 = solve()
+    sync(device)
+    return out, wall, time.perf_counter() - t0, out2
+
+
+def solve_nonsym(matrix, a64, device, tier, rr, phase=None) -> dict:
+    """One FusedNonSymDavidson solve at bench.py's leg_nonsym settings: 16
+    roots, m_max 64, max_iter 60, the one-hot guess on the 16 lowest
+    diagonal entries; converged, the f64 residuals of the rows, the
+    eigenvalues against NONSYM_REFERENCE_EIGENVALUES, the iteration count
+    of the port's CPU float32 run within 2, no kernel of the port
+    launched."""
+    tol, res_limit, ev_limit, cpu_iters = NONSYM_TIERS[tier]
+    if rr == "host":
+        cpu_iters = NONSYM_HOST_ITERATIONS
+    phase = phase or f"solve_nonsym_{tier}_{rr}"
+    t0 = time.perf_counter()
+    solver = nonsym_solver(matrix, tier, rr, tol, device)
+    setup_s = time.perf_counter() - t0
+    v0 = guess(np.diag(matrix), NONSYM_ROOTS)
+    reset_launches()
+
+    def run():
+        solver.iterations = 0
+        return solver.solve(v0)
+
+    (evals, x, errors, iters), wall, steady, again = timed_solves(run, device)
+    launches = kernel_launches()
+    rec = {"phase": phase, "tier": tier, "rr": rr, "n": matrix.shape[0],
+           "nroots": NONSYM_ROOTS, "m_max": NONSYM_M_MAX, "tol": tol, "iterations": iters,
+           "cpu_float32_iterations": cpu_iters, "roots_returned": len(evals),
+           "max_error": float(np.max(errors)), "converged": bool(np.max(errors) <= tol),
+           "seconds": wall, "seconds_per_iteration": wall / max(iters, 1),
+           "steady_seconds": steady, "steady_seconds_per_iteration": steady / max(again[3], 1),
+           "setup_seconds": setup_s, "rr_steps_active": solver.rr_steps_active,
+           **nonsym_quality(x, evals, a64), "f64_residual_limit": res_limit,
+           "eigenvalue_max_abs_err": eigenvalue_error(evals, NONSYM_REFERENCE_EIGENVALUES),
+           "eigenvalue_limit": ev_limit, "imaginary_max": float(np.max(np.abs(evals.imag))),
+           "kernel_launches": launches}
+    emit(rec)
+    failures = []
+    if not rec["converged"]:
+        failures.append(f"not converged: {rec['max_error']:.3e} > {tol}")
+    if len(evals) != NONSYM_ROOTS or rec["imaginary_max"] != 0.0:
+        failures.append(f"{len(evals)} roots, imaginary parts up to {rec['imaginary_max']}")
+    if not rec["f64_max_residual"] <= res_limit:
+        failures.append(f"f64 residual {rec['f64_max_residual']:.3e} > {res_limit}")
+    if not rec["eigenvalue_max_abs_err"] <= ev_limit:
+        failures.append(f"eigenvalues {rec['eigenvalue_max_abs_err']:.3e} > {ev_limit}")
+    if abs(iters - cpu_iters) > 2 or again[3] != iters:
+        failures.append(f"{iters} (then {again[3]}) iterations, the CPU float32 run "
+                        f"takes {cpu_iters}")
+    if any(launches.values()):
+        failures.append(f"the dense path launched a kernel: {launches}")
+    if failures:
+        raise AssertionError(f"{phase}: " + "; ".join(failures))
+    return rec
+
+
+def solve_nonsym_pairs(device) -> dict:
+    """Complex pairs at full width: pair_matrix(), 6 roots, m_max 24, rr
+    "device", chunks of PAIR_CHUNK iterations: the solve must escalate to two refinement passes, converge,
+    and give the pairs of PAIR_REFERENCE_EIGENVALUES."""
+    import torch
+
+    t0 = time.perf_counter()
+    matrix = pair_matrix()
+    a64 = torch.as_tensor(matrix, dtype=torch.float64, device=device)
+    solver = nonsym_solver(matrix, "precise", "device", PAIR_TOL, device, nroots=PAIR_ROOTS,
+                           m_max=PAIR_M_MAX, max_iter=PAIR_MAX_ITER, chunk_iters=PAIR_CHUNK)
+    setup_s = time.perf_counter() - t0
+    v0 = guess(np.diag(matrix), PAIR_ROOTS)
+
+    def run():
+        solver.iterations = 0
+        return solver.solve(v0)
+
+    (evals, x, errors, iters), wall, steady, again = timed_solves(run, device)
+    rec = {"phase": "solve_nonsym_pairs", "n": matrix.shape[0], "nroots": PAIR_ROOTS,
+           "m_max": PAIR_M_MAX, "tol": PAIR_TOL, "iterations": iters,
+           "max_error": float(np.max(errors)), "converged": bool(np.max(errors) <= PAIR_TOL),
+           "rr_steps_active": solver.rr_steps_active,
+           "eigenvalues": [[float(e.real), float(e.imag)] for e in evals],
+           "eigenvalue_max_abs_err": eigenvalue_error(evals, PAIR_REFERENCE_EIGENVALUES),
+           "eigenvalue_limit": PAIR_EV_LIMIT, **nonsym_quality(x, evals, a64),
+           "f64_residual_limit": PAIR_RES_LIMIT, "seconds": wall,
+           "seconds_per_iteration": wall / max(iters, 1), "steady_seconds": steady,
+           "steady_seconds_per_iteration": steady / max(again[3], 1),
+           "setup_seconds": setup_s}
+    emit(rec)
+    del a64
+    failures = []
+    if solver.rr_steps_active != 2:
+        failures.append("did not escalate to two refinement passes")
+    if not rec["converged"]:
+        failures.append(f"not converged: {rec['max_error']:.3e} > {PAIR_TOL}")
+    if not np.all(np.abs(np.asarray(evals).imag) > 0.1):
+        failures.append(f"eigenvalues {evals} are not three conjugate pairs")
+    if not rec["eigenvalue_max_abs_err"] <= PAIR_EV_LIMIT:
+        failures.append(f"eigenvalues {rec['eigenvalue_max_abs_err']:.3e} > {PAIR_EV_LIMIT}")
+    if not rec["f64_max_residual"] <= PAIR_RES_LIMIT:
+        failures.append(f"f64 residual {rec['f64_max_residual']:.3e} > {PAIR_RES_LIMIT}")
+    if failures:
+        raise AssertionError("solve_nonsym_pairs: " + "; ".join(failures))
+    return rec
+
+
+def nonsym_linear_solver(shifted, tier, rr, device, dtype=None):
+    from iterative_solver_torch import FusedNonSymLinearEquations
+
+    return FusedNonSymLinearEquations.from_dense(
+        shifted, NONSYM_ROOTS, tier=tier, rr=rr, m_max=NONSYM_M_MAX,
+        convergence_threshold=NONSYM_LINEAR_TIERS[tier][0], max_iter=NONSYM_MAX_ITER,
+        device=device, dtype=dtype)
+
+
+def nonsym_linear_quality(x, a64, b, x_ref) -> dict:
+    import torch
+
+    X = x.to(a64.device, torch.float64)
+    bt = torch.as_tensor(b, dtype=torch.float64, device=a64.device)
+    res = (X @ a64.T - bt).norm(dim=1) / bt.norm(dim=1)
+    err = relative_error(X.cpu().numpy(), x_ref)
+    return {"f64_relative_residual": float(res.max()), "f64_solution_error": err}
+
+
+def solve_nonsym_linear(shifted, a64, b, x_ref, device, tier, rr) -> dict:
+    """FusedNonSymLinearEquations on nonsym_matrix() + 3 I with 16
+    right-hand sides: converged, the f64 relative residual and the error
+    against np.linalg.solve within their limits, the CPU float32
+    iterations within 2."""
+    tol, res_limit, err_limit, it_device, it_host = NONSYM_LINEAR_TIERS[tier]
+    cpu_iters = it_device if rr == "device" else it_host
+    t0 = time.perf_counter()
+    solver = nonsym_linear_solver(shifted, tier, rr, device)
+    setup_s = time.perf_counter() - t0
+    reset_launches()
+
+    def run():
+        solver.iterations = 0
+        return solver.solve(b)
+
+    (x, errors, iters), wall, steady, again = timed_solves(run, device)
+    launches = kernel_launches()
+    rec = {"phase": f"solve_nonsym_linear_{tier}_{rr}", "tier": tier, "rr": rr,
+           "n": shifted.shape[0], "nrhs": b.shape[0], "m_max": NONSYM_M_MAX, "tol": tol,
+           "iterations": iters, "cpu_float32_iterations": cpu_iters,
+           "max_error": float(np.max(errors)), "converged": bool(np.max(errors) <= tol),
+           **nonsym_linear_quality(x, a64, b, x_ref), "f64_residual_limit": res_limit,
+           "solution_error_limit": err_limit, "seconds": wall,
+           "seconds_per_iteration": wall / max(iters, 1), "steady_seconds": steady,
+           "steady_seconds_per_iteration": steady / max(again[2], 1),
+           "setup_seconds": setup_s, "kernel_launches": launches}
+    emit(rec)
+    failures = []
+    if not rec["converged"]:
+        failures.append(f"not converged: {rec['max_error']:.3e} > {tol}")
+    if not rec["f64_relative_residual"] <= res_limit:
+        failures.append(f"f64 residual {rec['f64_relative_residual']:.3e} > {res_limit}")
+    if not rec["f64_solution_error"] <= err_limit:
+        failures.append(f"solution error {rec['f64_solution_error']:.3e} > {err_limit}")
+    if abs(iters - cpu_iters) > 2:
+        failures.append(f"{iters} iterations, the CPU float32 run takes {cpu_iters}")
+    if any(launches.values()):
+        failures.append(f"the dense path launched a kernel: {launches}")
+    if failures:
+        raise AssertionError(f"{rec['phase']}: " + "; ".join(failures))
+    return rec
+
+
+def nonsym_batch_inputs():
+    """tests/test_fused_nonsym.py::TestBatchedNonSym._batch at NONSYM_BATCH:
+    couplings 0.04/sqrt(n) from default_rng(0), diagonal linspace(1 + 0.2 b,
+    20, n), the strict lower triangle scaled by 0.9."""
+    nb, n, r, _ = NONSYM_BATCH
+    rng = np.random.default_rng(0)
+    ops = []
+    for b in range(nb):
+        a = rng.standard_normal((n, n)) * (0.04 / np.sqrt(n))
+        m = a + a.T + np.diag(np.linspace(1.0 + 0.2 * b, 20.0, n))
+        m[np.tril_indices(n, -1)] *= 0.9
+        ops.append(m)
+    ops = np.stack(ops)
+    diags = np.stack([np.diag(m) for m in ops])
+    return ops, diags, np.stack([guess(d, r) for d in diags])
+
+
+def dense_matvec(x, op):
+    import torch
+
+    return torch.matmul(x, op.T)
+
+
+def solve_nonsym_batched(device, dtype=None) -> dict:
+    """make_batched_nonsym_solve over NONSYM_BATCH, then
+    finalize_nonsym_batch: every element's rotated errors and the f64
+    residuals of its rotated rows within 2 tol, its eigenvalues within
+    NONSYM_BATCH_EV_LIMIT of scipy's dense eig."""
+    import scipy.linalg
+    import torch
+
+    from iterative_solver_torch import finalize_nonsym_batch, make_batched_nonsym_solve
+
+    dtype = dtype or torch.float32
+    nb, n, r, m_max = NONSYM_BATCH
+    ops, diags, v0 = nonsym_batch_inputs()
+    f = dict(dtype=dtype, device=device)
+    ops_t, diags_t, v0_t = (torch.as_tensor(a, **f) for a in (ops, diags, v0))
+    binit, bsolve = make_batched_nonsym_solve(dense_matvec, r, m_max)
+
+    def run():
+        out = bsolve(*binit(v0_t, ops_t), ops_t, diags_t, NONSYM_BATCH_TOL, 200)
+        return out, finalize_nonsym_batch(out[3], out[4], out[5])
+
+    ((out, (evals, x_rot, errors)), wall, steady, _) = timed_solves(run, device)
+    iters = out[6].tolist()
+    ev_err, res = [], []
+    for b in range(nb):
+        ref = scipy.linalg.eigvals(ops[b])
+        ref = ref[np.argsort(ref.real)][:r]
+        ev_err.append(eigenvalue_error(evals[b], ref))
+        a64 = torch.as_tensor(ops[b], dtype=torch.float64, device=device)
+        res.append(nonsym_quality(x_rot[b], evals[b], a64)["f64_max_residual"])
+    rec = {"phase": "solve_nonsym_batched", "batch": nb, "n": n, "nroots": r, "m_max": m_max,
+           "tol": NONSYM_BATCH_TOL, "iterations": iters,
+           "max_error": float(max(np.max(e) for e in errors)),
+           "eigenvalue_max_abs_err": max(ev_err), "eigenvalue_limit": NONSYM_BATCH_EV_LIMIT,
+           "f64_max_residual": max(res), "seconds": wall, "steady_seconds": steady,
+           "steady_seconds_per_iteration": steady / max(max(iters), 1)}
+    emit(rec)
+    failures = []
+    if not rec["max_error"] <= 2 * NONSYM_BATCH_TOL:
+        failures.append(f"rotated errors {rec['max_error']:.3e} > 2 x {NONSYM_BATCH_TOL}")
+    if not max(ev_err) <= NONSYM_BATCH_EV_LIMIT:
+        failures.append(f"eigenvalues {max(ev_err):.3e} > {NONSYM_BATCH_EV_LIMIT}")
+    if not max(res) <= 2 * NONSYM_BATCH_TOL:
+        failures.append(f"f64 residual {max(res):.3e} > 2 x {NONSYM_BATCH_TOL}")
+    if failures:
+        raise AssertionError("solve_nonsym_batched: " + "; ".join(failures))
+    return rec
+
+
+def shifted_matvec(x, op):
+    import torch
+
+    return torch.matmul(x, op[0].T) + op[1] * x
+
+
+def solve_nonsym_shifted(shifted, b, device, dtype=None) -> dict:
+    """make_batched_nonsym_lineq_solve with operand_axes=(None, 0): the
+    systems (A + 3 I + sigma I) x = b for NONSYM_SHIFTS and the first two
+    right-hand sides, one operator on the card; each converged and within
+    NONSYM_SHIFT_ERR_LIMIT of np.linalg.solve."""
+    import torch
+
+    from iterative_solver_torch import make_batched_nonsym_lineq_solve
+
+    dtype = dtype or torch.float32
+    f = dict(dtype=dtype, device=device)
+    nrhs, nb, n = 2, len(NONSYM_SHIFTS), shifted.shape[0]
+    rhs = b[:nrhs]
+    sig = np.asarray(NONSYM_SHIFTS)
+    d = np.diag(shifted)
+    diag_b = np.stack([d + s for s in sig])
+    b_b = np.broadcast_to(rhs, (nb, nrhs, n))
+    b_norm = np.broadcast_to(np.linalg.norm(rhs, axis=1), (nb, nrhs))
+    x0 = np.stack([rhs / (d[None, :] + s) for s in sig])
+    op = (torch.as_tensor(shifted, **f), torch.as_tensor(sig, **f))
+    args = [torch.as_tensor(np.ascontiguousarray(a), **f) for a in (x0, diag_b, b_b, b_norm)]
+    binit, bsolve = make_batched_nonsym_lineq_solve(shifted_matvec, nrhs, 12,
+                                                    operand_axes=(None, 0))
+
+    def run():
+        return bsolve(*binit(args[0], op, args[2]), op, args[1], args[2], args[3],
+                      NONSYM_SHIFT_TOL, 200)
+
+    out, wall, steady, _ = timed_solves(run, device)
+    errs = []
+    for k, s in enumerate(sig):
+        ref = np.linalg.solve(shifted + s * np.eye(n), rhs.T).T
+        errs.append(relative_error(out[3][k].cpu().numpy(), ref))
+    rec = {"phase": "solve_nonsym_shifted", "shifts": list(NONSYM_SHIFTS), "n": n,
+           "nrhs": nrhs, "m_max": 12, "tol": NONSYM_SHIFT_TOL,
+           "iterations": out[5].tolist(), "max_error": float(out[4].max()),
+           "f64_solution_errors": errs, "solution_error_limit": NONSYM_SHIFT_ERR_LIMIT,
+           "seconds": wall, "steady_seconds": steady,
+           "steady_seconds_per_iteration": steady / max(int(out[5].max()), 1)}
+    emit(rec)
+    if not (rec["max_error"] <= NONSYM_SHIFT_TOL and max(errs) <= NONSYM_SHIFT_ERR_LIMIT):
+        raise AssertionError(f"solve_nonsym_shifted: errors {rec['max_error']:.3e} "
+                             f"(tol {NONSYM_SHIFT_TOL}), solution errors {errs}")
+    return rec
+
+
+def solve_nonsym_checkpointed(matrix, device, dtype=None) -> dict:
+    """Phase a's solve in chunks of NONSYM_CHUNK iteration(s), uninterrupted;
+    the same stopped after NONSYM_STOP iterations with a checkpoint in a
+    temporary directory and resumed on a fresh solver: the same iteration
+    count, Ritz values within 1e-6. A solver with other m_max refuses the
+    file."""
+    import tempfile
+
+    tol = NONSYM_TIERS["precise"][0]
+    v0 = guess(np.diag(matrix), NONSYM_ROOTS)
+    kw = dict(chunk_iters=NONSYM_CHUNK)
+    ev0, _, _, it0 = nonsym_solver(matrix, "precise", "device", tol, device, dtype,
+                                   **kw).solve(v0)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/nonsym.npz"
+        _, _, err1, it1 = nonsym_solver(matrix, "precise", "device", tol, device, dtype,
+                                        max_iter=NONSYM_STOP, **kw).solve(
+                                            v0, checkpoint_path=path)
+        t0 = time.perf_counter()
+        ev2, _, err2, it2 = nonsym_solver(matrix, "precise", "device", tol, device, dtype,
+                                          **kw).resume(path, keep_checkpointing=False)
+        resume_s = time.perf_counter() - t0
+        try:
+            nonsym_solver(matrix, "precise", "device", tol, device, dtype,
+                          m_max=NONSYM_M_MAX - 2, **kw).resume(path)
+            refused = False
+        except ValueError:
+            refused = True
+    diff = eigenvalue_error(ev2, ev0)
+    rec = {"phase": "solve_nonsym_checkpoint", "chunk_iters": NONSYM_CHUNK,
+           "stopped_at": it1, "stopped_max_error": float(np.max(err1)),
+           "uninterrupted_iterations": it0, "resumed_iterations": it2,
+           "resumed_max_error": float(np.max(err2)), "ritz_max_abs_diff": diff,
+           "resume_seconds": resume_s, "other_m_max_refused": refused}
+    emit(rec)
+    if not (it1 == NONSYM_STOP and np.max(err1) > tol and it2 == it0 and diff <= 1e-6
+            and np.max(err2) <= tol and refused):
+        raise AssertionError(f"solve_nonsym_checkpoint: {rec}")
+    return rec
+
+
+def dense_int8_actions(matrix, device) -> list:
+    """The dense int8 tiers' action at 16 x 8192 (16 rows padded to 32 for
+    ``torch._int_mm``): one and two planes, in CUDA-event ms and profiler
+    device ms (the whole action, and its int8 products alone), against the
+    plain f64 product and the byte bound of the planes."""
+    import torch
+
+    from iterative_solver_torch.ops.kernels import dense_int8
+
+    x = torch.as_tensor(np.random.default_rng(1).standard_normal((NONSYM_ROOTS, N)),
+                        dtype=torch.float32, device=device)
+    a64 = torch.as_tensor(matrix, dtype=torch.float64, device=device)
+    ref = (x.double() @ a64.T)
+    del a64
+    out = []
+    for name, cls, fn, planes in (
+            ("dense_int8", dense_int8.DenseInt8, dense_int8.dense_int8_matvec, 1),
+            ("dense_int8_split", dense_int8.DenseInt8Split,
+             dense_int8.dense_int8_matvec_split, 2)):
+        tree = cls.from_dense(matrix, device=device).tree()
+        y = fn(x, tree)
+        qx = dense_int8.quantize_rows(x * tree[-2][None, :])[0]   # tree[-2]: gc
+        products = [(qx, p) for p in tree[:planes]] + ([(qx, tree[0])] if planes == 2 else [])
+        prod = lambda: [dense_int8._int8_dot(a, q) for a, q in products]  # noqa: E731
+        # the planes, x read and y written, gr, gc and d
+        nbytes = planes * matrix.size + 4 * 2 * NONSYM_ROOTS * N + 4 * 3 * N
+        flops = 2.0 * len(products) * NONSYM_ROOTS * matrix.size
+        bound_ms, bound_by = bound(nbytes, flops, "int8")
+        out.append({"name": name, "route": "torch._int_mm (library)",
+                    "replaces": "iterative_solver_tpu/ops/kernels/dense_int8.py:167",
+                    "rel_err_vs_f64": rel_err(y, ref)[1], "ms": time_ms(lambda: fn(x, tree), device),
+                    "call_device_ms": device_ms(lambda: fn(x, tree), device, "", None)[1],
+                    "int_mm_ms": time_ms(prod, device),
+                    "int_mm_device_ms": device_ms(prod, device, "", None)[1],
+                    "int_mm_calls": len(products), "rows_padded_to": dense_int8.INT_MM_ROWS,
+                    "bound_ms": bound_ms, "bound_by": bound_by, "bound_bytes": nbytes})
+        del tree, y
+    emit({"phase": "dense_int8_actions", "actions": out})
+    return out
+
+
+def solve_nonsym_family(device) -> dict:
+    """The non-hermitian slice: phases a-h (chip_smoke's head note)."""
+    import torch
+
+    t0 = time.perf_counter()
+    matrix = nonsym_matrix()
+    a64 = torch.as_tensor(matrix, dtype=torch.float64, device=device)
+    emit({"phase": "nonsym_operator", "n": NONSYM_N, "seconds": time.perf_counter() - t0})
+    recs = {}
+    # a, b: precise with device and host RR; c: the other tiers
+    for tier, rr in (("precise", "device"), ("precise", "host"), ("int8_precise", "device"),
+                     ("fast", "device"), ("int8", "device")):
+        recs[f"{tier}_{rr}"] = solve_nonsym(matrix, a64, device, tier, rr)
+    dense_int8_actions(matrix, device)
+    solve_nonsym_checkpointed(matrix, device)          # g
+    # h: a profile of one more phase-a solve on a warm solver
+    headline = nonsym_solver(matrix, "precise", "device", NONSYM_TIERS["precise"][0], device)
+    v0 = guess(np.diag(matrix), NONSYM_ROOTS)
+    headline.solve(v0)
+    emit(profile_solve(headline, v0, device, "profile_nonsym",
+                       run=lambda: headline.solve(v0)[3]))
+    del headline
+    # e: the linear twin on the same operator + 3 I
+    shifted = matrix + LINEAR_SHIFT * np.eye(NONSYM_N)
+    del matrix
+    a64 += LINEAR_SHIFT * torch.eye(NONSYM_N, dtype=torch.float64, device=device)
+    b = linear_rhs(NONSYM_N)
+    t0 = time.perf_counter()
+    x_ref = np.linalg.solve(shifted, b.T).T
+    emit({"phase": "nonsym_linear_reference", "seconds": time.perf_counter() - t0})
+    for tier in NONSYM_LINEAR_TIERS:
+        for rr in ("device", "host"):
+            recs[f"linear_{tier}_{rr}"] = solve_nonsym_linear(shifted, a64, b, x_ref, device,
+                                                              tier, rr)
+    del a64, x_ref
+    torch.cuda.empty_cache()
+    recs["shifted"] = solve_nonsym_shifted(shifted, b, device)      # f
+    del shifted
+    recs["batched"] = solve_nonsym_batched(device)                  # f
+    recs["pairs"] = solve_nonsym_pairs(device)                      # d
+    torch.cuda.empty_cache()
+    return recs
 
 
 def sass_counts(library) -> dict:
@@ -2573,6 +3235,7 @@ def main() -> int:
     kernels.append(check_chain_raw(N, device))
     refine = refine_precise(matrix, device)
     del matrix
+    solve_nonsym_family(device)
 
     bench_bsr, sparse_dense, bsr_setup_s = make_bench_bsr(device)
     phenol, phenol_diag, phenol_gen_s = phenol_operator(device)

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Time the expand chain (K2), the int8 actions (K4, K5), the block-sparse
-action (K6) and the masked Gram (K7) of one source tree on a CUDA card, so
-that two trees can be compared in one run.
+"""Time the packed actions (K1, K3), the expand chain (K2), the int8
+actions (K4, K5), the block-sparse action (K6) and the masked Gram (K7) of
+one source tree on a CUDA card, so that two trees can be compared in one
+run.
 
-    python3 compare_kernels.py <tree> <tag> [k2] [k4] [k5] [k6] [k7]
+    python3 compare_kernels.py <tree> <tag> [k1] [k2] [k4] [k5] [k6] [k7]
 
 ``<tree>`` is the root of a checkout (this one, or another commit unpacked
 with ``git archive`` into a directory under ``build/``); its
@@ -12,7 +13,10 @@ kernels are built into its own ``build/torch_kernels/``. Run two trees in
 turns in one session (parent, change, change, parent): times of one card
 spread by several percent between processes.
 
-Shapes are ``chip_smoke.py``'s: K2 with 16 rows and a 64-row basis (48
+Shapes are ``chip_smoke.py``'s: K1 (bf16 tiles of 1024, f32 tiles of 512)
+and K3 (split, tiles of 512) at 16 x 8192 and 1 x 8192 on the bench matrix
+and at 16 x 32768 on ``packed_on_card`` operators (``k1`` selects all three
+kernels); K2 with 16 rows and a 64-row basis (48
 active) at n = 8192 and n = 2^20 (a diagonal of linspace(-2, 50, n), Ritz
 values just below its lowest entries); K4 and K5 at 16 x 8192 on the bench
 matrix in tiles of 1024; K6 on bench.py's sparse operator (n = 8192, block
@@ -38,7 +42,7 @@ import time
 
 def main() -> int:
     root, tag = sys.argv[1], sys.argv[2]
-    which = set(sys.argv[3:]) or {"k2", "k4", "k5", "k6", "k7"}
+    which = set(sys.argv[3:]) or {"k1", "k2", "k4", "k5", "k6", "k7"}
     sys.path.insert(0, os.path.abspath(root))
     import numpy as np
     import torch
@@ -47,7 +51,7 @@ def main() -> int:
         print("compare_kernels: CUDA is not available", file=sys.stderr)
         return 1
     import chip_smoke as cs
-    from iterative_solver_torch.ops.kernels import _build, chain, gram, spmv, symm_int8
+    from iterative_solver_torch.ops.kernels import _build, chain, gram, spmv, symm, symm_int8
 
     if not cs.__file__.startswith(os.path.abspath(root)):
         raise RuntimeError(f"imported {cs.__file__}, not the tree {root}")
@@ -55,7 +59,7 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True).stdout
     t0 = time.perf_counter()
-    sources = {"k2": "chain", "k4": "symm_int8", "k5": "symm_int8", "k6": "spmv", "k7": "gram"}
+    sources = {"k1": "symm_packed", "k2": "chain", "k4": "symm_int8", "k5": "symm_int8", "k6": "spmv", "k7": "gram"}
     logs = _build.build(sorted({sources[k] for k in which}))
     out = {"tag": tag, "root": root, "card": card.strip(), "build_s": time.perf_counter() - t0,
            "ptxas": [ln.strip() for log in logs.values() for ln in log.splitlines()
@@ -67,6 +71,30 @@ def main() -> int:
         ms, _, seen = cs.device_ms(fn, dev, pattern, per_call, calls=20)
         return {"event_ms": cs.time_ms(fn, dev), "device_ms": ms, "kernels_per_call": seen}
 
+    if "k1" in which:
+        matrix = cs.bench_matrix(8192)
+        for name, kind, b, _ in cs.SYMM_CASES:
+            for m, n in ((16, 8192), (1, 8192), (16, cs.FLAGSHIP_N)):
+                if n == 8192 and kind == "split":
+                    sym = symm.SymmetricBlockedSplit.from_dense(matrix, b=b, device=dev)
+                elif n == 8192:
+                    sym = symm.SymmetricBlocked.from_dense(
+                        matrix, b=b, device=dev,
+                        dtype=torch.bfloat16 if kind == "bf16" else torch.float32)
+                else:
+                    sym = cs.packed_on_card(n, b, kind, dev, seed=m)
+                split = kind == "split"
+                kernel = symm.symm_matmat_split_kernel if split else symm.symm_matmat_kernel
+                plain = symm.symm_matmat_split if split else symm.symm_matmat
+                x = torch.as_tensor(rng.standard_normal((m, n)), **f32)
+                fn = lambda: kernel(x, sym)  # noqa: E731
+                y = fn()
+                out[f"{name}@{m}x{n}"] = {"rel": cs.rel_err(y, plain(x, sym))[1],
+                                          "same_bits": bool(torch.equal(fn(), y)),
+                                          **timed(fn, "symm_packed", None)}
+                del sym, x, y
+                torch.cuda.empty_cache()
+        del matrix
     if "k2" in which:
         for name, n in (("K2", 8192), ("K2@2^20", 1 << 20)):
             r = torch.as_tensor(rng.standard_normal((16, n)), **f32)

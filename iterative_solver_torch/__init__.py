@@ -42,6 +42,13 @@ from .solvers.fused_davidson import FusedDavidson, make_batched_davidson_solve
 from .solvers.fused_diis import FusedDIIS
 from .solvers.fused_lbfgs import FusedLBFGS
 from .solvers.fused_linear import FusedLinearEquations
+from .solvers.fused_nonsym import (
+    FusedNonSymDavidson,
+    FusedNonSymLinearEquations,
+    finalize_nonsym_batch,
+    make_batched_nonsym_lineq_solve,
+    make_batched_nonsym_solve,
+)
 from .solvers.fused_ppcg import FusedPPCG
 from .solvers.implicit_diff import make_differentiable_eigenpairs, make_differentiable_eigenvalues
 from .solvers.interpolate import Interpolate, Point
@@ -67,6 +74,11 @@ __all__ = [
     "make_differentiable_eigenvalues",
     "make_differentiable_eigenpairs",
     "FusedLinearEquations",
+    "FusedNonSymDavidson",
+    "FusedNonSymLinearEquations",
+    "finalize_nonsym_batch",
+    "make_batched_nonsym_solve",
+    "make_batched_nonsym_lineq_solve",
     "FusedLBFGS",
     "FusedDIIS",
     "Interpolate",

@@ -36,21 +36,26 @@
 //    through a ring of STAGES shared-memory stages with cp.async (16-byte
 //    .cg copies with an L2 evict-first hint; 4-byte ones where b is not a
 //    multiple of 16 bytes), STAGES - 1 chunks in flight while one multiplies.
-// 3. Fewer, wider atomics. A work item is one S x S square (S <= 256) of one
-//    tile; both contributions accumulate in registers over the whole square
-//    and are flushed once, through shared memory, as float4 atomicAdd (a
-//    vector RED on sm_90): 2m/S adds per tile element instead of 2m/128
-//    scalar ones.
+// 3. Partials with a fixed owner, summed in a fixed order. A work item is one
+//    S x S square (S <= 256) of one tile; both contributions accumulate in
+//    registers over the whole square and are stored once, through shared
+//    memory, with plain float4 stores into the item's own two slots of a
+//    workspace (slot 2 w: y_i at the square's rows, 2 w + 1: y_j at its
+//    columns). A second launch (symm_packed_sum_kernel) owns each (row of x,
+//    S-column segment of y): it adds the slots that feed the segment in the
+//    order of a list built on the host (symm.py, square_sum_list), so the
+//    result has the same bits on every call.
 // 4. Work for 132 SMs. The work list (t, r0, c0, diagonal) is built on the
 //    host from ii/jj (symm.py, square_work_list), off-diagonal squares
-//    first, and cached on the storage object; one block per (square, pass
-//    of 16 rows of x).
+//    first, and cached on the storage object with the segments' list; one
+//    block per (square, pass of 16 rows of x).
 // A diagonal tile (ii == jj) forms only y_i += x_i A_ii^T. Any b >= 1 and
 // m >= 1: ragged chunks are zero-filled, rows of x past m are zero, and b not
-// a multiple of 8 (bf16) or 4 (f32, x, y) takes scalar copies and atomics.
+// a multiple of 8 (bf16) or 4 (f32, x, y) takes scalar copies and stores.
 //
-// Atomics change the order of the sum, so the result matches the plain
-// PyTorch version by tolerance (about 1e-6 of max|y|), not bit for bit.
+// The partial sums are added in another order than the plain PyTorch
+// version's, so the result matches it by tolerance (about 1e-6 of max|y|);
+// the order is fixed, so repeated calls give the same bits.
 //
 // Arithmetic, as in the Pallas kernels:
 //   f32 tiles  -> f32 products and sums (the HIGHEST-precision tier);
@@ -195,11 +200,12 @@ __device__ __forceinline__ float4 load_x4(const float* x, int m, int n, int row,
   return v;
 }
 
-// Flush both contributions of a square, staged in ys [2][MB][YLD], to y
-// with one float4 atomicAdd per four columns (scalar ones where b % 4).
-__device__ __forceinline__ void flush(const float* ys, float* y, const Item& it, int m,
-                                      int n, int b, int tid) {
-  const bool vec4 = (b % 4) == 0;
+// Store both contributions of a square, staged in ys [2][MB][YLD], into the
+// block's slots of ws [2 n_items][m][SQ] (plain float4 stores: the slot
+// stride is a multiple of 4 whatever b is; columns past the square's extent
+// are never read back).
+__device__ __forceinline__ void store_slots(const float* ys, float* ws, const Item& it,
+                                            int m, int tid) {
   constexpr int PER = MB * (SQ / 4);
   for (int e = tid; e < 2 * PER; e += THREADS) {
     const int which = e / PER;  // 0: y_i at the square's rows, 1: y_j at its columns
@@ -208,15 +214,58 @@ __device__ __forceinline__ void flush(const float* ys, float* y, const Item& it,
     const int ext = which ? it.cols : it.rows;
     if ((which && it.diag) || it.mbase + mm >= m || p >= ext) continue;
     const float4 v = *reinterpret_cast<const float4*>(ys + (which * MB + mm) * YLD + p);
-    float* dst = y + size_t(it.mbase + mm) * n +
-                 (which ? it.bj * b + it.c0 : it.bi * b + it.r0) + p;
-    if (vec4) {
-      atomicAdd(reinterpret_cast<float4*>(dst), v);
+    float* dst = ws + ((size_t(2) * blockIdx.x + which) * m + it.mbase + mm) * SQ + p;
+    *reinterpret_cast<float4*>(dst) = v;
+  }
+}
+
+// y[row][seg's columns] = sum of the slots listed for the segment, in the
+// list's order. Segment s = p * nsq + q covers columns p b + q SQ onwards
+// (min(SQ, b - q SQ) of them); sums holds the n_seg + 1 offsets of the
+// segments' runs, then the runs of slot numbers. A thread owns four
+// consecutive columns of one row; four slots are loaded ahead and added in
+// order. Every element of y is written (a segment no slot feeds gets 0);
+// blocks stride over the rows where m needs more than 65535 of them.
+__global__ void __launch_bounds__(THREADS)
+symm_packed_sum_kernel(const float* __restrict__ ws, const int* __restrict__ sums,
+                       float* __restrict__ y, int m, int n, int b, int n_seg) {
+  const int nsq = (b + SQ - 1) / SQ;
+  const int seg = blockIdx.x;
+  const int sq = seg % nsq;
+  const int width = min(SQ, b - sq * SQ);
+  const int* slots = sums + n_seg + 1;
+  const int k0 = sums[seg], k1 = sums[seg + 1];
+  for (size_t e = size_t(blockIdx.y) * THREADS + threadIdx.x; e < size_t(m) * (SQ / 4);
+       e += size_t(gridDim.y) * THREADS) {
+    const int row = int(e / (SQ / 4));
+    const int q4 = int(e % (SQ / 4)) * 4;
+    if (q4 >= width) continue;
+    auto at = [&](int k) {
+      return __ldcs(reinterpret_cast<const float4*>(
+          ws + (size_t(slots[k]) * m + row) * SQ + q4));
+    };
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    auto add = [&](const float4& v) {
+      acc.x += v.x;
+      acc.y += v.y;
+      acc.z += v.z;
+      acc.w += v.w;
+    };
+    int k = k0;
+    for (; k + 4 <= k1; k += 4) {
+      const float4 v0 = at(k), v1 = at(k + 1), v2 = at(k + 2), v3 = at(k + 3);
+      add(v0);
+      add(v1);
+      add(v2);
+      add(v3);
+    }
+    for (; k < k1; ++k) add(at(k));
+    float* dst = y + size_t(row) * n + (seg / nsq) * b + sq * SQ + q4;
+    if ((b % 4) == 0 && q4 + 4 <= width) {
+      *reinterpret_cast<float4*>(dst) = acc;
     } else {
-      atomicAdd(dst, v.x);
-      if (p + 1 < ext) atomicAdd(dst + 1, v.y);
-      if (p + 2 < ext) atomicAdd(dst + 2, v.z);
-      if (p + 3 < ext) atomicAdd(dst + 3, v.w);
+      const float v[4] = {acc.x, acc.y, acc.z, acc.w};
+      for (int i = 0; i < 4 && q4 + i < width; ++i) dst[i] = v[i];
     }
   }
 }
@@ -300,7 +349,7 @@ __global__ void __launch_bounds__(THREADS, PLANES == 1 ? 3 : 2)
 symm_packed_mma_kernel(const float* __restrict__ x, const bf16* __restrict__ a0,
                        const bf16* __restrict__ a1, const int* __restrict__ ii,
                        const int* __restrict__ jj, const int4* __restrict__ work,
-                       float* __restrict__ y, int m, int n, int b) {
+                       float* __restrict__ ws, int m, int n, int b) {
   constexpr int STAGE = PLANES * CH * CH;  // bf16 elements per stage
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* ring = reinterpret_cast<bf16*>(smem);
@@ -424,7 +473,7 @@ symm_packed_mma_kernel(const float* __restrict__ x, const bf16* __restrict__ a0,
   }
   for (int r = it.na; r < NCH; ++r) rotate(acc_r);
 
-  // ---- flush: fragments -> ys (aliases the ring) -> float4 atomics
+  // ---- flush: fragments -> ys (aliases the ring) -> the block's slots
   cp_async_wait<0>();
   __syncthreads();
   const int g = lane >> 2;
@@ -451,7 +500,7 @@ symm_packed_mma_kernel(const float* __restrict__ x, const bf16* __restrict__ a0,
     }
   }
   __syncthreads();
-  flush(ys, y, it, m, n, b, tid);
+  store_slots(ys, ws, it, m, tid);
 }
 
 // ------------------------------------------------------ f32 (CUDA cores)
@@ -482,7 +531,7 @@ __device__ __forceinline__ void stage_x_f32(float* xs, const float* x, int m, in
 __global__ void __launch_bounds__(THREADS, 2)
 symm_packed_f32_kernel(const float* __restrict__ x, const float* __restrict__ a,
                        const int* __restrict__ ii, const int* __restrict__ jj,
-                       const int4* __restrict__ work, float* __restrict__ y, int m, int n,
+                       const int4* __restrict__ work, float* __restrict__ ws, int m, int n,
                        int b) {
   constexpr int STAGE = CH * FLD;
   constexpr int HALF = CH / 2;
@@ -624,7 +673,7 @@ symm_packed_f32_kernel(const float* __restrict__ x, const float* __restrict__ a,
     }
     __syncthreads();
   }
-  flush(ys, y, it, m, n, b, tid);
+  store_slots(ys, ws, it, m, tid);
 }
 
 // ------------------------------------------------------------------ launch
@@ -648,21 +697,27 @@ constexpr size_t f32_smem() {
   return max2(ring_bytes<float>(1) + size_t(2) * SQ * FXS * sizeof(float), YS_BYTES);
 }
 
-int check_shape(int m, int n, int b, int n_items) {
+int check_shape(int m, int n, int b, int n_items, int n_seg) {
   if (m <= 0 || n <= 0 || b <= 0 || n_items <= 0 || n % b != 0 ||
-      (m + MB - 1) / MB > 65535)
+      n_seg != (n / b) * ((b + SQ - 1) / SQ) || (m + MB - 1) / MB > 65535)
     return int(cudaErrorInvalidValue);
   return 0;
 }
 
+// The square walk into the slots, then the fixed-order sums into y.
 template <typename Kernel, typename... Args>
-int launch(Kernel kernel, size_t smem, int m, int n_items, cudaStream_t stream,
-           Args... args) {
+int launch(Kernel kernel, size_t smem, const float* ws, const int* sums, float* y, int m,
+           int n, int b, int n_items, int n_seg, cudaStream_t stream, Args... args) {
   // set on every launch: the attribute belongs to the current device
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return int(err);
   kernel<<<dim3(n_items, (m + MB - 1) / MB), THREADS, smem, stream>>>(args...);
+  if (cudaError_t e = cudaGetLastError()) return int(e);
+  const size_t row_blocks = (size_t(m) * SQ / 4 + THREADS - 1) / THREADS;
+  const int per_seg = int(row_blocks < 65535 ? row_blocks : 65535);
+  symm_packed_sum_kernel<<<dim3(n_seg, per_seg), THREADS, 0, stream>>>(ws, sums, y, m, n, b,
+                                                                        n_seg);
   return int(cudaGetLastError());
 }
 
@@ -673,30 +728,34 @@ extern "C" {
 // The square edge the work list must use (symm.py SQUARE).
 int symm_packed_square_edge() { return SQ; }
 
-// y (m, n) f32, zeroed by the caller; x (m, n) f32; tiles (n_pairs, b, b);
-// work (n_items, 4) int32 rows (t, r0, c0, diagonal), 16-byte aligned.
+// y (m, n) f32, every element written; x (m, n) f32; tiles (n_pairs, b, b);
+// work (n_items, 4) int32 rows (t, r0, c0, diagonal), 16-byte aligned;
+// sums the segments' slot lists (n_seg = (n / b) ceil(b / SQ) segments);
+// ws (2 n_items, m, SQ) f32 scratch, 16-byte aligned.
 int symm_packed_f32(const float* x, const float* a, const int* ii, const int* jj,
-                    const int* work, float* y, int m, int n, int b, int n_items,
-                    cudaStream_t stream) {
-  if (int e = check_shape(m, n, b, n_items)) return e;
-  return launch(symm_packed_f32_kernel, f32_smem(), m, n_items, stream, x, a, ii, jj,
-                reinterpret_cast<const int4*>(work), y, m, n, b);
+                    const int* work, const int* sums, float* ws, float* y, int m, int n,
+                    int b, int n_items, int n_seg, cudaStream_t stream) {
+  if (int e = check_shape(m, n, b, n_items, n_seg)) return e;
+  return launch(symm_packed_f32_kernel, f32_smem(), ws, sums, y, m, n, b, n_items, n_seg,
+                stream, x, a, ii, jj, reinterpret_cast<const int4*>(work), ws, m, n, b);
 }
 
 int symm_packed_bf16(const float* x, const bf16* a, const int* ii, const int* jj,
-                     const int* work, float* y, int m, int n, int b, int n_items,
-                     cudaStream_t stream) {
-  if (int e = check_shape(m, n, b, n_items)) return e;
-  return launch(symm_packed_mma_kernel<1>, mma_smem<1>(), m, n_items, stream, x, a, a, ii,
-                jj, reinterpret_cast<const int4*>(work), y, m, n, b);
+                     const int* work, const int* sums, float* ws, float* y, int m, int n,
+                     int b, int n_items, int n_seg, cudaStream_t stream) {
+  if (int e = check_shape(m, n, b, n_items, n_seg)) return e;
+  return launch(symm_packed_mma_kernel<1>, mma_smem<1>(), ws, sums, y, m, n, b, n_items,
+                n_seg, stream, x, a, a, ii, jj, reinterpret_cast<const int4*>(work), ws, m,
+                n, b);
 }
 
 int symm_packed_split(const float* x, const bf16* hi, const bf16* lo, const int* ii,
-                      const int* jj, const int* work, float* y, int m, int n, int b,
-                      int n_items, cudaStream_t stream) {
-  if (int e = check_shape(m, n, b, n_items)) return e;
-  return launch(symm_packed_mma_kernel<2>, mma_smem<2>(), m, n_items, stream, x, hi, lo, ii,
-                jj, reinterpret_cast<const int4*>(work), y, m, n, b);
+                      const int* jj, const int* work, const int* sums, float* ws, float* y,
+                      int m, int n, int b, int n_items, int n_seg, cudaStream_t stream) {
+  if (int e = check_shape(m, n, b, n_items, n_seg)) return e;
+  return launch(symm_packed_mma_kernel<2>, mma_smem<2>(), ws, sums, y, m, n, b, n_items,
+                n_seg, stream, x, hi, lo, ii, jj, reinterpret_cast<const int4*>(work), ws,
+                m, n, b);
 }
 
 const char* kernel_error_string(int err) { return cudaGetErrorString(cudaError_t(err)); }

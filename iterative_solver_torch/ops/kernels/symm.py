@@ -21,11 +21,15 @@ Kernels (CUDA C++ for sm_90a, ``csrc/symm_packed.cu``):
 - ``symm_matmat_split_kernel`` replaces ``symm_matmat_split_pallas`` /
   ``_symm_matmat_split_impl`` (K3), the split double-bf16 "precise" tier.
 
-Each kernel block walks one ``SQUARE`` x ``SQUARE`` piece of one tile and
-forms both of its contributions (the source's head note gives the design).
-The blocks' work list is built here on the host from ``ii``/``jj``
-(``square_work_list``) and cached on the storage object; ``square_walk``
-follows it in plain PyTorch, so the CPU tests reach the walk.
+Each kernel block walks one ``SQUARE`` x ``SQUARE`` piece of one tile,
+forms both of its contributions and stores them in its own two slots of a
+workspace; a second launch adds, for each ``SQUARE``-column segment of y,
+the slots that feed it in a fixed order, so every call gives the same bits
+(the source's head note gives the design). The blocks' work list and the
+segments' slot lists are built here on the host from ``ii``/``jj``
+(``square_work_list``, ``square_sum_list``) and cached on the storage
+object; ``square_walk`` follows both in plain PyTorch, so the CPU tests
+reach the walk and the order of the sums.
 
 Each wrapper launches its kernel for a CUDA tensor (or raises) and counts
 the launch in ``LAUNCHES``; for a CPU tensor it runs the plain PyTorch
@@ -71,8 +75,10 @@ class SymmetricBlocked:
     shape: Tuple[int, int]
     b: int
     diagonal: Optional[Tensor] = None
-    # the kernels' work list (square_work), cached; dataclasses.replace carries it
+    # the kernels' work list (square_work) and the segments' slot lists
+    # (square_sums), cached; dataclasses.replace carries them
     work: Optional[Tensor] = dataclasses.field(default=None, repr=False, compare=False)
+    sums: Optional[Tensor] = dataclasses.field(default=None, repr=False, compare=False)
 
     @property
     def n_pairs(self) -> int:
@@ -98,7 +104,7 @@ class SymmetricBlocked:
             shape=(n_pad, n_pad),
             b=b,
             diagonal=torch.as_tensor(diagonal, dtype=dtype, device=device),
-            work=torch.as_tensor(square_work_list(iis, jjs, b), device=device),
+            **_walk_lists(iis, jjs, b, n_pad, device),
         )
 
 
@@ -152,34 +158,92 @@ def square_work_list(ii, jj, b: int, square: int = SQUARE) -> np.ndarray:
     return work[np.argsort(work[:, 3], kind="stable")].astype(np.int32)
 
 
+def square_sum_list(work, ii, jj, b: int, n: int, square: int = SQUARE) -> np.ndarray:
+    """The order of the kernels' sums, as one int32 array: the n_seg + 1
+    offsets of the segments' runs, then the runs. Segment p * nsq + q (nsq =
+    ceil(b / square)) is the ``square`` columns of y from p b + q square on;
+    work item w stores y_i into slot 2 w (segment ii[t] nsq + r0 / square)
+    and, off the diagonal, y_j into slot 2 w + 1 (segment jj[t] nsq + c0 /
+    square). Each run lists its slots in increasing order; it depends only
+    on ii/jj, b and n, as the work list does."""
+    work = np.asarray(work, dtype=np.int64)
+    ii, jj = np.asarray(ii, dtype=np.int64), np.asarray(jj, dtype=np.int64)
+    nsq = -(-b // square)
+    n_seg = (n // b) * nsq
+    t, r0, c0 = work[:, 0], work[:, 1], work[:, 2]
+    off = ii[t] != jj[t]
+    items = np.arange(work.shape[0])
+    seg = np.concatenate([ii[t] * nsq + r0 // square, (jj[t] * nsq + c0 // square)[off]])
+    slot = np.concatenate([2 * items, 2 * items[off] + 1])
+    order = np.lexsort((slot, seg))
+    ptr = np.concatenate([[0], np.cumsum(np.bincount(seg, minlength=n_seg))])
+    return np.concatenate([ptr, slot[order]]).astype(np.int32)
+
+
+def _walk_lists(ii, jj, b: int, n: int, device) -> dict:
+    work = square_work_list(ii, jj, b)
+    return {"work": torch.as_tensor(work, device=device),
+            "sums": torch.as_tensor(square_sum_list(work, ii, jj, b, n), device=device)}
+
+
+def _cache_walk_lists(sym) -> None:
+    ii, jj = sym.ii.cpu().numpy(), sym.jj.cpu().numpy()
+    if sym.work is None:
+        sym.work = torch.as_tensor(square_work_list(ii, jj, sym.b), device=sym.ii.device)
+    if sym.sums is None:
+        sym.sums = torch.as_tensor(
+            square_sum_list(sym.work.cpu().numpy(), ii, jj, sym.b, sym.shape[0]),
+            device=sym.ii.device)
+
+
 def square_work(sym) -> Tensor:
     """``sym``'s work list on its device, built from ii/jj on first use and
     cached on the object (``from_dense`` builds it with the tiles)."""
     if sym.work is None:
-        sym.work = torch.as_tensor(
-            square_work_list(sym.ii.cpu().numpy(), sym.jj.cpu().numpy(), sym.b),
-            device=sym.ii.device)
+        _cache_walk_lists(sym)
     return sym.work
 
 
+def square_sums(sym) -> Tensor:
+    """``sym``'s segment slot lists (``square_sum_list``) on its device,
+    built on first use and cached on the object beside the work list."""
+    if sym.sums is None:
+        _cache_walk_lists(sym)
+    return sym.sums
+
+
 def square_walk(xs, planes, sym) -> Tensor:
-    """Plain emulation of the kernels' walk: for each work item, both
-    contributions of one square, y_i += x_j Aᵀ and (off the diagonal)
-    y_j += x_i A, summed over the paired x parts and tile planes: one pair
-    for K1, (xh, hi), (xh, lo), (xl, hi) for K3. All in x's dtype; for the
-    CPU tests, which hold it against the plain versions."""
+    """Plain emulation of the kernels' walk and sums: for each work item,
+    both contributions of one square, y_i = x_j Aᵀ and (off the diagonal)
+    y_j = x_i A, summed over the paired x parts and tile planes (one pair
+    for K1; (xh, hi), (xh, lo), (xl, hi) for K3) into the item's own slots;
+    then each segment of y the sum of its slots in ``square_sums`` order.
+    All in x's dtype; for the CPU tests, which hold it against the plain
+    versions."""
     b = sym.b
-    y = torch.zeros_like(xs[0])
+    m, n = xs[0].shape
     ii, jj = sym.ii.tolist(), sym.jj.tolist()
-    for t, r0, c0, diag in square_work(sym).tolist():
+    slots = {}
+    for w, (t, r0, c0, diag) in enumerate(square_work(sym).tolist()):
         r1, c1 = min(r0 + SQUARE, b), min(c0 + SQUARE, b)
         rows = slice(ii[t] * b + r0, ii[t] * b + r1)
         cols = slice(jj[t] * b + c0, jj[t] * b + c1)
-        for x, plane in zip(xs, planes):
-            a = plane[t, r0:r1, c0:c1]
-            y[:, rows] += x[:, cols] @ a.T
-            if not diag:
-                y[:, cols] += x[:, rows] @ a
+        yi = sum(x[:, cols] @ plane[t, r0:r1, c0:c1].T for x, plane in zip(xs, planes))
+        slots[2 * w] = yi
+        if ii[t] != jj[t]:
+            slots[2 * w + 1] = sum(x[:, rows] @ plane[t, r0:r1, c0:c1]
+                                   for x, plane in zip(xs, planes))
+    sums = square_sums(sym).tolist()
+    nsq = -(-b // SQUARE)
+    n_seg = (n // b) * nsq
+    y = torch.zeros_like(xs[0])
+    for seg in range(n_seg):
+        col0 = (seg // nsq) * b + (seg % nsq) * SQUARE
+        width = min(SQUARE, b - (seg % nsq) * SQUARE)
+        acc = torch.zeros((m, width), dtype=y.dtype)
+        for k in range(sums[seg], sums[seg + 1]):
+            acc = acc + slots[sums[n_seg + 1 + k]]
+        y[:, col0:col0 + width] = acc
     return y
 
 
@@ -196,6 +260,7 @@ class SymmetricBlockedSplit:
     b: int
     diagonal: Optional[Tensor] = None
     work: Optional[Tensor] = dataclasses.field(default=None, repr=False, compare=False)
+    sums: Optional[Tensor] = dataclasses.field(default=None, repr=False, compare=False)
 
     @property
     def n_pairs(self) -> int:
@@ -220,7 +285,7 @@ class SymmetricBlockedSplit:
             shape=(n_pad, n_pad),
             b=b,
             diagonal=torch.as_tensor(diagonal, dtype=torch.float32, device=device),
-            work=torch.as_tensor(square_work_list(iis, jjs, b), device=device),
+            **_walk_lists(iis, jjs, b, n_pad, device),
         )
 
 
@@ -318,9 +383,9 @@ _I = ctypes.c_int
 @functools.cache
 def _symm_lib():
     lib = _build.load("symm_packed")
-    lib.symm_packed_f32.argtypes = [_P] * 6 + [_I] * 4 + [_P]
-    lib.symm_packed_bf16.argtypes = [_P] * 6 + [_I] * 4 + [_P]
-    lib.symm_packed_split.argtypes = [_P] * 7 + [_I] * 4 + [_P]
+    lib.symm_packed_f32.argtypes = [_P] * 8 + [_I] * 5 + [_P]
+    lib.symm_packed_bf16.argtypes = [_P] * 8 + [_I] * 5 + [_P]
+    lib.symm_packed_split.argtypes = [_P] * 9 + [_I] * 5 + [_P]
     for fn in (lib.symm_packed_f32, lib.symm_packed_bf16, lib.symm_packed_split,
                lib.symm_packed_square_edge):
         fn.restype = _I
@@ -330,15 +395,24 @@ def _symm_lib():
     return lib
 
 
-def _checked_work(sym, x: Tensor) -> Tensor:
-    """The work list for a launch, checked against the operand."""
-    work = square_work(sym)
-    per_tile = (-(-sym.b // SQUARE)) ** 2
+def _walk_operands(sym, x: Tensor) -> Tuple[Tensor, Tensor, Tensor, int]:
+    """(work, sums, ws, n_seg) of a launch: the lists checked against the
+    operand, and the slots' scratch (2 n_items, m, SQUARE) f32."""
+    work, sums = square_work(sym), square_sums(sym)
+    nsq = -(-sym.b // SQUARE)
+    n_seg = (sym.shape[0] // sym.b) * nsq
+    n_items = sym.n_pairs * nsq * nsq
     if (work.dtype != torch.int32 or work.device != x.device or not work.is_contiguous()
-            or work.shape != (sym.n_pairs * per_tile, 4) or work.data_ptr() % 16):
+            or work.shape != (n_items, 4) or work.data_ptr() % 16):
         raise ValueError(f"work must be a contiguous, 16-byte aligned int32 "
-                         f"({sym.n_pairs * per_tile}, 4) tensor on {x.device}")
-    return work
+                         f"({n_items}, 4) tensor on {x.device}")
+    if (sums.dtype != torch.int32 or sums.device != x.device or not sums.is_contiguous()
+            or sums.ndim != 1 or not n_seg + 1 <= sums.shape[0] <= n_seg + 1 + 2 * n_items):
+        raise ValueError(f"sums must be a contiguous int32 list of {n_seg} segments "
+                         f"on {x.device}")
+    ws = torch.empty((2 * n_items, x.shape[0], SQUARE), dtype=torch.float32,
+                     device=x.device)
+    return work, sums, ws, n_seg
 
 
 def symm_matmat_kernel(x: Tensor, sym: SymmetricBlocked) -> Tensor:
@@ -351,15 +425,16 @@ def symm_matmat_kernel(x: Tensor, sym: SymmetricBlocked) -> Tensor:
     x = x.contiguous()
     _check_operands(x, (sym.values,), sym.ii, sym.jj, sym.shape, sym.b,
                     (torch.float32, torch.bfloat16))
-    work = _checked_work(sym, x)
+    work, sums, ws, n_seg = _walk_operands(sym, x)
     m, n = x.shape
-    y = torch.zeros((m, n), dtype=torch.float32, device=x.device)
+    y = torch.empty((m, n), dtype=torch.float32, device=x.device)
     lib = _symm_lib()
     bf16 = sym.values.dtype == torch.bfloat16
     fn = lib.symm_packed_bf16 if bf16 else lib.symm_packed_f32
     err = fn(x.data_ptr(), sym.values.data_ptr(), sym.ii.data_ptr(),
-             sym.jj.data_ptr(), work.data_ptr(), y.data_ptr(), m, n, sym.b,
-             work.shape[0], _build.stream_handle(x.device))
+             sym.jj.data_ptr(), work.data_ptr(), sums.data_ptr(), ws.data_ptr(),
+             y.data_ptr(), m, n, sym.b, work.shape[0], n_seg,
+             _build.stream_handle(x.device))
     _build.check(lib, err, "symm_packed_bf16" if bf16 else "symm_packed_f32")
     LAUNCHES["symm_bf16" if bf16 else "symm_f32"] += 1
     return y
@@ -375,14 +450,14 @@ def symm_matmat_split_kernel(x: Tensor, sym: SymmetricBlockedSplit) -> Tensor:
     x = x.contiguous()
     _check_operands(x, (sym.hi, sym.lo), sym.ii, sym.jj, sym.shape, sym.b,
                     (torch.bfloat16,))
-    work = _checked_work(sym, x)
+    work, sums, ws, n_seg = _walk_operands(sym, x)
     m, n = x.shape
-    y = torch.zeros((m, n), dtype=torch.float32, device=x.device)
+    y = torch.empty((m, n), dtype=torch.float32, device=x.device)
     lib = _symm_lib()
     err = lib.symm_packed_split(
         x.data_ptr(), sym.hi.data_ptr(), sym.lo.data_ptr(), sym.ii.data_ptr(),
-        sym.jj.data_ptr(), work.data_ptr(), y.data_ptr(), m, n, sym.b, work.shape[0],
-        _build.stream_handle(x.device))
+        sym.jj.data_ptr(), work.data_ptr(), sums.data_ptr(), ws.data_ptr(), y.data_ptr(),
+        m, n, sym.b, work.shape[0], n_seg, _build.stream_handle(x.device))
     _build.check(lib, err, "symm_packed_split")
     LAUNCHES["symm_split"] += 1
     return y

@@ -59,7 +59,8 @@ def check_symmetric_operator(
             f"<u,Av>={s_uv:.6g} vs <Au,v>={s_vu:.6g} "
             f"(relative asymmetry {abs(s_uv - s_vu) / max(scale, 1e-300):.2e}). "
             f"The fused families are symmetric-only by design; for "
-            f"non-hermitian problems use {parity_hint} in the JAX package "
-            f"(not yet ported), or pass check_symmetric=False if the "
-            f"asymmetry is known rounding noise."
+            f"non-hermitian problems use "
+            f"solvers.fused_nonsym.FusedNonSymDavidson (the fused "
+            f"non-hermitian path) or {parity_hint}, or pass "
+            f"check_symmetric=False if the asymmetry is known rounding noise."
         )

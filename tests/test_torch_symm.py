@@ -288,3 +288,30 @@ def test_work_list_covers_every_tile_element_once(n, b, tol):
     assert T.square_work(ts) is work
     lazy = T.SymmetricBlocked(ts.values, ts.ii, ts.jj, ts.shape, ts.b)
     assert torch.equal(T.square_work(lazy), work)
+
+
+@pytest.mark.parametrize("n,b,tol", WALK_SHAPES + [(300, 100, None), (96, 32, None)])
+def test_sum_list_orders_every_slot_once(n, b, tol):
+    """The kernels' sums: each square stores y_i into slot 2 w and, off the
+    diagonal, y_j into slot 2 w + 1; every such slot is listed once, under
+    the segment of y its rows or columns fall in, in increasing order, and
+    the list is cached on the object beside the work list."""
+    ts = T.SymmetricBlocked.from_dense(_walk_matrix(n, b, tol, seed=25), b=b, tol=tol,
+                                       device="cpu")
+    work, sums = T.square_work(ts), T.square_sums(ts)
+    assert sums.dtype == torch.int32 and sums.ndim == 1
+    nsq = -(-b // T.SQUARE)
+    n_seg = (n // b) * nsq
+    ptr, slots = sums[:n_seg + 1].tolist(), sums[n_seg + 1:].tolist()
+    assert ptr[0] == 0 and ptr[-1] == len(slots)
+    ii, jj = ts.ii.tolist(), ts.jj.tolist()
+    expected = {seg: [] for seg in range(n_seg)}
+    for w, (t, r0, c0, _) in enumerate(work.tolist()):
+        expected[ii[t] * nsq + r0 // T.SQUARE].append(2 * w)
+        if ii[t] != jj[t]:
+            expected[jj[t] * nsq + c0 // T.SQUARE].append(2 * w + 1)
+    for seg in range(n_seg):
+        assert slots[ptr[seg]:ptr[seg + 1]] == sorted(expected[seg])
+    assert T.square_sums(ts) is sums
+    lazy = T.SymmetricBlocked(ts.values, ts.ii, ts.jj, ts.shape, ts.b)
+    assert torch.equal(T.square_sums(lazy), sums)
