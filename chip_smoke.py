@@ -188,6 +188,49 @@ Phases, one JSON line each:
     cuBLAS, cuSOLVER and ``torch._int_mm``). The limits come from
     ``calibrate_nonsym_cpu.py``.
 
+19. after the non-hermitian slice, the spill and many-root slice:
+    a. ``offload_stream``: the streamed offload store at n = 2^20 (256 rows
+       of unit N(0, 1) rows made on the card in float64 = 2.15 GB in the
+       store's file in tempfile.gettempdir(), or 128 where that directory
+       is short, printed with the directory; blocks of 64 rows; 16 rows of
+       x): pipelined and serial (prefetch=False) gram and combine in 3
+       turns, the overlap factor (serial over pipelined wall; min, median,
+       max), each stage alone (the reads into a pinned buffer in GB/s, the
+       host cast to float32, the pinned H2D copy of a block in float64 and
+       float32, the products on device-resident blocks in CUDA-event ms),
+       the host f64 store's gram and its time; the error of the gram
+       against it and of the combination against float64 on the card
+       (OFFLOAD_GRAM_LIMIT, OFFLOAD_COMBINE_LIMIT), the same bits in every
+       pipelined and serial call, pinned buffers;
+    b. ``solve_banded``: BandedEigensolver for the 32 lowest roots of the
+       bench matrix through the "exact" action (K1-f32), with device
+       deflation (bands of 16, m_max 96, tol 5e-5) and streamed (bands of
+       8, m_max 64, tol 1e-4, the store's blocks of 8 rows): the f64
+       residual of each row, the f64 Rayleigh quotients against
+       BANDED_REFERENCE_EIGENVALUES, max|X X^T - I|, every row locked,
+       the streamed sweeps within BANDED_MAX_SWEEPS (each sweep's purged
+       residuals in the record); then device deflation at m_max 64 and
+       tol 1e-5, where a band restarts at its float32 floor: its quality
+       reported, not held (ROADMAP Queue 3); launches in every case K1:
+       init + iterations + restarts of each fused solve, and one f64 check
+       per streamed sweep; K2: iterations;
+    c. ``solve_chebyshev``: make_chebyshev_davidson (degree 4, m_max 64,
+       rr "full") on the bench matrix (16 roots, tol 1e-3), then on a
+       flat-diagonal operator (Q diag(w) Q^T at n = 8192, Q from the QR of
+       a default_rng(9) Gaussian on the card in float64, 8 roots in [1, 2]
+       and the rest in [3, 50]; tol 1e-4) beside the Jacobi FusedDavidson:
+       the matvec identity nroots + iterations x nroots x degree, K1
+       launches of the Lanczos bounds (12, at one row), the symmetry probe,
+       the init, degree + 1 per iteration and one per restart; iterations
+       against the CPU's, the f64 residual and Rayleigh quotients, and the
+       wall to solution of each, first (with the bounds and the probe) and
+       steady (a second solve of the same solver, its launches held and
+       counted as well).
+    And after the parity eigen phase (14), ``solve_offload_parity``: the
+    same entry point through the default stores, offload=True and
+    offload="streamed": the iteration count of the CPU run, the same limits,
+    one K6 launch per iteration, the same eigenvalues in all three.
+
 Each Davidson solve reports iterations, convergence, time per iteration,
 the f64 residual ||A x - rho x|| of each normalised Ritz vector against the
 dense f64 matrix, the 4 lowest Rayleigh quotients against
@@ -214,7 +257,8 @@ package beside it is missing. The limits of the sparse phases come from
 ``calibrate_int8_cpu.py``, those of the P-space and linear phases from
 ``calibrate_linear_cpu.py``, those of the nonlinear and gradient phases from
 ``calibrate_nonlinear_cpu.py``, those of the non-hermitian phases from
-``calibrate_nonsym_cpu.py``.
+``calibrate_nonsym_cpu.py``, those of the spill and many-root phases from
+``calibrate_spill_cpu.py``.
 """
 
 from __future__ import annotations
@@ -1464,17 +1508,26 @@ def bsr_problem(bsr):
     return BSRProblem()
 
 
-def solve_parity(bsr, dense, device, tol: float = 1e-5) -> dict:
+def parity_solver(device, tol: float = 1e-5, offload=False, dtype=None):
+    """create_linear_eigensystem(8192, 4, "Davidson") at ``tol``, hermitian,
+    quiet, with the basis history in the given store form (``offload=``)."""
+    import iterative_solver_torch as its
+
+    solver = its.create_linear_eigensystem(SPARSE_N, PARITY_ROOTS, "Davidson",
+                                           f"convergence_threshold={tol}", offload=offload,
+                                           device=device, dtype=dtype)
+    solver.set_hermiticity(True)
+    solver.verbosity = its.Verbosity.NONE
+    return solver
+
+
+def solve_parity(bsr, dense, device, tol: float = 1e-5, offload=False,
+                 phase: str = "solve_parity_create_linear_eigensystem") -> dict:
     """The package's own entry point on the sparse operator:
     create_linear_eigensystem(8192, 4, "Davidson") with a K6 Problem."""
     import torch
 
-    import iterative_solver_torch as its
-
-    solver = its.create_linear_eigensystem(SPARSE_N, PARITY_ROOTS, "Davidson",
-                                           f"convergence_threshold={tol}")
-    solver.set_hermiticity(True)
-    solver.verbosity = its.Verbosity.NONE
+    solver = parity_solver(device, tol, offload)
     reset_launches()
     torch.cuda.synchronize(device)
     t0 = time.perf_counter()
@@ -1494,7 +1547,7 @@ def solve_parity(bsr, dense, device, tol: float = 1e-5) -> dict:
     res = float(np.max(np.linalg.norm(ax - rq[:, None] * xs, axis=1)))
     rq_err = float(np.max(np.abs(np.sort(rq) - np.asarray(REFERENCE_SPARSE_EIGENVALUES))))
     rec = {
-        "phase": "solve_parity_create_linear_eigensystem", "n": SPARSE_N,
+        "phase": phase, "n": SPARSE_N, "store": type(solver.xspace.store_v).__name__,
         "nroots": PARITY_ROOTS, "options": f"convergence_threshold={tol}",
         "converged": bool(converged), "iterations": iters,
         "max_error": float(max(solver.errors)), "seconds": wall,
@@ -1516,7 +1569,7 @@ def solve_parity(bsr, dense, device, tol: float = 1e-5) -> dict:
     if launches != expected or launches["action"] == 0:
         failures.append(f"launches {launches} != expected {expected}")
     if failures:
-        raise AssertionError("solve_parity_create_linear_eigensystem: " + "; ".join(failures))
+        raise AssertionError(f"{phase}[{rec['store']}]: " + "; ".join(failures))
     return rec
 
 
@@ -3137,6 +3190,582 @@ def solve_nonsym_family(device) -> dict:
     return recs
 
 
+# ---------------------------------------------------------------------------
+# The spill and many-root slice: the offload stores, BandedEigensolver and
+# the Chebyshev-filtered Davidson. Limits and iteration counts from
+# calibrate_spill_cpu.py (the port's plain path on the CPU in float32, as
+# the card runs it; PERF.md gives the margins).
+
+# offload_stream: benchmarks/offload_benchmark.py's measurement at the
+# port's largest operator (n = 2^20): 256 rows of history (2.15 GB of f64 in
+# the store's file, 1.07 GB streamed in f32), blocks of 64 rows, 16 rows of x
+OFFLOAD_N = 1 << 20
+OFFLOAD_ROWS = 256
+OFFLOAD_ROWS_SHORT = 128   # where the store's directory cannot hold 256 rows
+OFFLOAD_BLOCK_ROWS = 64
+OFFLOAD_M = 16
+OFFLOAD_TURNS = 3          # pipelined and serial calls, interleaved
+OFFLOAD_SEED = 5
+# max |g - g64| / max |g64| against the host f64 store, and the same for the
+# combination against float64 on the card (the CPU's float32: 5.5e-7 and
+# 2.5e-7)
+OFFLOAD_GRAM_LIMIT = 1e-5
+OFFLOAD_COMBINE_LIMIT = 1e-5
+# the parity Davidson of solve_parity through each store (create_linear_
+# eigensystem on the bench BSR operator, float32): the CPU run's iterations
+# (and the same stats in all three)
+OFFLOAD_PARITY_ITERATIONS = {"default": 4, "host": 4, "streamed": 4}
+# the many-root solves on the bench matrix through the "exact" tier (K1-f32,
+# b = 512): 32 roots in bands of 16 (device deflation) or 8 (streamed, the
+# store's blocks of 8 rows); the 32 lowest eigenvalues by eigvalsh in f64
+SPILL_B = 512
+BANDED_ROOTS = 32
+# (deflate, band, m_max, tol) of each case. In float32 a band solve that
+# restarts and iterates on at its floor breaks down where the small eigh is
+# promoted to float64, as the port's is (ROADMAP Queue 3; the TPU's float32
+# eigh stalls instead), so the held device case's m_max holds a band's
+# solve without a restart (bands of 16 took 3 and 4 iterations), at 5e-5,
+# above the deflated band's float32 floor (1.01e-5); the streamed mode
+# locks at 10 tol on the f64 residual of rows purged in float32
+# (calibrate_spill_cpu.py). "device_m64" is the device mode at m_max 64
+# and 1e-5, where band 2 restarts at its floor: it runs, and its quality
+# is reported and not held, until the eigh is fixed (its launches are held)
+BANDED_MODES = {"device": ("device", 16, 96, 5e-5), "streamed": ("streamed", 8, 64, 1e-4),
+                "device_m64": ("device", 16, 64, 1e-5)}
+BANDED_HELD = ("device", "streamed")
+BANDED_STORE_BLOCK_ROWS = 8
+BANDED_MAX_ITER = 200
+# np.linalg.eigvalsh of the bench matrix in f64 (calibrate_spill_cpu.py banded)
+BANDED_REFERENCE_EIGENVALUES = [
+    -2.0000867851589925, -1.8397575604176897, -1.6784299270313447,
+    -1.5176359291753259, -1.354380384384803, -1.1916396668237093,
+    -1.030912881378253, -0.8718567686726696, -0.7098094415476004,
+    -0.5487012619414396, -0.3875584757858333, -0.22497437244668156,
+    -0.06426207936110097, 0.09760508861511995, 0.259397351803119,
+    0.41979515725184685, 0.5809417619781632, 0.7411574749123583,
+    0.9043552152624925, 1.0643107389233986, 1.2248567850699026,
+    1.386760571569295, 1.5482167938051958, 1.7115320354762371,
+    1.8699015925756228, 2.0323488372238816, 2.1928801725929556,
+    2.3542985980212885, 2.5143718982842898, 2.6778208524884777,
+    2.838336774382932, 2.9989600873342024,
+]
+# (f64 residual, f64 Rayleigh quotients against the reference) limits
+# (the CPU's float32: 1.84e-5 and 3.4e-11 with device deflation; 9.76e-4,
+# the lock bar's 1e-3 holding it, and 5.3e-8 streamed)
+BANDED_LIMITS = {"device": (1e-4, 1e-8), "streamed": (2e-3, 1e-6)}
+# the streamed mode's sweeps: 7 for the bands' first passes, then the last
+# row's tail, whose purged residual falls by 0.90-0.93 a 2-iteration sweep
+# to the 1e-3 bar (the CPU's float32 enters the tail at 1.6e-3: 8 sweeps;
+# the card's at 3.0e-3: 21; calibrate_spill_cpu.py sweeps, PERF.md §6). One
+# sweep a root holds a tail entered at up to 1e-2 (29 sweeps)
+BANDED_MAX_SWEEPS = 32
+BANDED_ORTHO_LIMIT = 1e-4
+# the Chebyshev-filtered Davidson (degree 4, rr "full") on the bench matrix,
+# and beside the Jacobi FusedDavidson on a flat-diagonal operator
+# A = Q diag(w) Q^T (Q from the QR of a seeded Gaussian, on the card)
+CHEB_ROOTS = 16
+CHEB_DEGREE = 4
+CHEB_M_MAX = 64
+# the filtered Ritz block's float32 floor on the bench matrix is 2e-4 to
+# 7e-4, and iterating on at the floor breaks down (iteration 30 on the
+# CPU): 1e-3, met at iteration 9 before the third restart
+CHEB_TOL = 1e-3
+CHEB_MAX_ITER = 200
+FLAT_SEED = 9
+FLAT_ROOTS = 8
+FLAT_TOL = 1e-4
+FLAT_MAX_ITER = 400
+# the port's CPU float32 iterations of the bench and flat solves, and the
+# (f64 residual, f64 Rayleigh quotient) limits of each operator
+CHEB_ITERATIONS = {"bench": 9, "flat_chebyshev": 25, "flat_jacobi": 82}
+# (the CPU's float32: bench 6.8e-4 and 2.4e-7 at tol 1e-3; flat 9.9e-5 and
+# 1.8e-9 at tol 1e-4)
+CHEB_LIMITS = {"bench": (2e-3, 1e-5), "flat": (2e-4, 1e-7)}
+LANCZOS_ITERS = 12   # estimate_spectral_bounds' default
+
+
+def flat_spectrum(n: int) -> np.ndarray:
+    """The flat operator's eigenvalues, ascending: FLAT_ROOTS of them in
+    [1, 2], a gap, then the rest in [3, 50]."""
+    return np.concatenate([np.linspace(1.0, 2.0, FLAT_ROOTS),
+                           np.linspace(3.0, 50.0, n - FLAT_ROOTS)])
+
+
+def spill_action(matrix, device, dtype=None):
+    """(matvec, sym) of the "exact" tier's packed action (K1-f32 on the
+    card) at b = SPILL_B."""
+    from iterative_solver_torch.ops.kernels import symm
+
+    sym = symm.SymmetricBlocked.from_dense(matrix, b=SPILL_B, dtype=dtype, device=device)
+    return symm.symm_matmat_kernel, sym
+
+
+def k1_launches_of_solve(runs, m_max: int, probe: bool, per_iteration: int = 1) -> int:
+    """K1 launches of fused solves given as (rows, iterations) pairs: the
+    init's action, the symmetry probe's two, ``per_iteration`` actions per
+    step (the appended block's, and a Chebyshev filter's degree), and one
+    per restart."""
+    return sum(1 + (2 if probe else 0) + per_iteration * it + expected_restarts(it, rows, m_max)
+               for rows, it in runs)
+
+
+def offload_fill(store, rows: int, device) -> list:
+    """``rows`` unit rows of N(0, 1) entries, made on the card in float64
+    from a seeded generator, appended to ``store``; their slots."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(OFFLOAD_SEED)
+    slots = []
+    for start in range(0, rows, 32):
+        blk = torch.randn((min(32, rows - start), store.n), generator=gen, dtype=torch.float64,
+                          device=device)
+        blk /= torch.linalg.vector_norm(blk, dim=1, keepdim=True)
+        slots += [store.append(r) for r in blk.cpu().numpy()]
+    return slots
+
+
+def offload_inputs(store, device, dtype=None):
+    """x (OFFLOAD_M, N) on ``device`` and the (OFFLOAD_M, rows) coefficients,
+    from default_rng(OFFLOAD_SEED)."""
+    import torch
+
+    rng = np.random.default_rng(OFFLOAD_SEED)
+    x = torch.as_tensor(rng.standard_normal((OFFLOAD_M, store.n)), dtype=dtype or torch.float32,
+                        device=device)
+    coeff = rng.standard_normal((OFFLOAD_M, store.capacity))
+    return x, coeff
+
+
+def offload_references(store, slots, x, coeff, device):
+    """The host-f64 store's gram (OffloadBasisStore.gram on the same file)
+    with its seconds, and the combination in float64 on the card against
+    the rows read back from the store."""
+    import torch
+
+    from iterative_solver_torch.array.offload_store import OffloadBasisStore
+
+    t0 = time.perf_counter()
+    g64 = OffloadBasisStore.gram(store, x, slots)
+    host_gram_s = time.perf_counter() - t0
+    r64 = torch.empty((len(slots), store.n), dtype=torch.float64, device=device)
+    for i, s in enumerate(slots):
+        r64[i] = torch.as_tensor(store._store.get(s), device=device)
+    c64 = torch.as_tensor(coeff[:, :len(slots)], device=device) @ r64
+    return g64, host_gram_s, r64, c64.cpu().numpy()
+
+
+def offload_stream(device) -> dict:
+    """The streamed offload store at n = 2^20 (the smoke's head note):
+    pipelined and serial gram and combine in turns, each stage alone, the
+    host f64 gram, errors and bits."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from iterative_solver_torch.array.offload_store import StreamedOffloadStore
+
+    n, br = OFFLOAD_N, OFFLOAD_BLOCK_ROWS
+    store_dir = tempfile.gettempdir()   # where the store's file lives (TMPDIR)
+    free = shutil.disk_usage(store_dir).free
+    rows = OFFLOAD_ROWS if free >= 1.5 * OFFLOAD_ROWS * n * 8 else OFFLOAD_ROWS_SHORT
+    print(f"offload_stream: {rows} rows of history in {store_dir} "
+          f"({free / 1e9:.1f} GB free)", flush=True)
+    store = StreamedOffloadStore(rows, n, dtype=torch.float32, block_rows=br, device=device)
+    t0 = time.perf_counter()
+    slots = offload_fill(store, rows, device)
+    fill_s = time.perf_counter() - t0
+    x, coeff = offload_inputs(store, device)
+    g64, host_gram_s, r64, c64 = offload_references(store, slots, x, coeff, device)
+
+    # each stage alone: the products on device-resident blocks, the reads
+    # into a pinned buffer, the pinned H2D copies (float64 as the store
+    # stages; float32 and the host cast it would need, the design measured
+    # and rejected: PERF.md)
+    r32 = r64.float()
+    del r64
+    blocks = [r32[k:k + br] for k in range(0, rows, br)]
+    cdev = torch.as_tensor(coeff, dtype=torch.float32, device=device)
+    gram_prod_ms = time_ms(lambda: [x @ b.T for b in blocks], device, reps=5)
+    comb_prod_ms = time_ms(lambda: sum(cdev[:, k * br:(k + 1) * br] @ b
+                                       for k, b in enumerate(blocks)), device, reps=5)
+    del blocks, r32
+    pinned = {dt: torch.empty((br, n), dtype=dt, pin_memory=True)
+              for dt in (torch.float64, torch.float32)}
+    view64, view32 = pinned[torch.float64].numpy(), pinned[torch.float32].numpy()
+    t0 = time.perf_counter()
+    for i, s in enumerate(slots):
+        store._store.get_into(s, view64[i % br])
+    read_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for _ in range(rows // br):
+        view32[...] = view64
+    cast_s = time.perf_counter() - t0
+    h2d = {}
+    for dt, buf in pinned.items():
+        dev = torch.empty((br, n), dtype=dt, device=device)
+        ms = time_ms(lambda: dev.copy_(buf, non_blocking=True), device, reps=5)
+        h2d[str(dt)] = {"ms_per_block": ms, "GB_per_s": buf.numel() * buf.element_size() / ms / 1e6}
+        del dev
+    del pinned, view64, view32
+
+    def timed(fn):
+        sync(device)
+        t0 = time.perf_counter()
+        out = fn()
+        sync(device)
+        return out, time.perf_counter() - t0
+
+    # the first call pins the two staging buffers (2 x 512 MB): timed alone
+    _, first_call_s = timed(lambda: store.gram(x, slots))
+    turns, first = [], None
+    torch.cuda.reset_peak_memory_stats(device)
+    base = torch.cuda.memory_allocated(device)
+    for turn in range(OFFLOAD_TURNS):
+        rec = {}
+        for prefetch in (True, False):
+            key = "pipelined" if prefetch else "serial"
+            g, rec[f"gram_{key}_s"] = timed(lambda: store.gram(x, slots, prefetch=prefetch))
+            c, rec[f"combine_{key}_s"] = timed(
+                lambda: store.combine(coeff, slots, prefetch=prefetch))
+            if first is None:
+                first = (g, c)
+                peak_mb = (torch.cuda.max_memory_allocated(device) - base) / 2 ** 20
+            rec[f"same_bits_{key}"] = bool(np.array_equal(g, first[0])
+                                           and torch.equal(c, first[1]))
+        turns.append(rec)
+    pinned_ok = all(b.is_pinned() for b in store._stage()[0])
+
+    def factors(kind):
+        f = sorted(t[f"{kind}_serial_s"] / t[f"{kind}_pipelined_s"] for t in turns)
+        return {"min": f[0], "median": f[len(f) // 2], "max": f[-1]}
+
+    gram_err = rel_err(torch.as_tensor(first[0]), torch.as_tensor(g64))[1]
+    comb_err = rel_err(first[1].cpu(), torch.as_tensor(c64))[1]
+    history_gb = rows * n * 8 / 1e9
+    rec = {
+        "phase": "offload_stream", "n": n, "rows": rows, "rows_cut": rows != OFFLOAD_ROWS,
+        "block_rows": br, "m": OFFLOAD_M,
+        "store_dir": store_dir, "store_dir_free_GB": free / 1e9, "history_f64_GB": history_gb,
+        "streamed_f32_GB": history_gb / 2, "fill_seconds": fill_s,
+        "turns": turns, "overlap_gram": factors("gram"), "overlap_combine": factors("combine"),
+        "first_call_s": first_call_s,
+        "host_f64_gram_s": host_gram_s,
+        "stage_read_s": read_s, "stage_read_GB_per_s": history_gb / read_s,
+        "stage_host_cast_s": cast_s, "stage_h2d": h2d,
+        "stage_gram_products_ms": gram_prod_ms, "stage_combine_products_ms": comb_prod_ms,
+        "device_peak_MB_while_streaming": peak_mb, "history_MB": history_gb * 1e3 / 1.048576,
+        "gram_rel_err_vs_host_f64": gram_err, "gram_limit": OFFLOAD_GRAM_LIMIT,
+        "combine_rel_err_vs_f64": comb_err, "combine_limit": OFFLOAD_COMBINE_LIMIT,
+        "pinned": pinned_ok,
+    }
+    emit(rec)
+    store.close()
+    failures = []
+    if not all(t["same_bits_pipelined"] and t["same_bits_serial"] for t in turns):
+        failures.append("the pipelined and serial results differ in bits")
+    if not gram_err <= OFFLOAD_GRAM_LIMIT:
+        failures.append(f"gram off the host f64 gram by {gram_err:.3e} > {OFFLOAD_GRAM_LIMIT}")
+    if not comb_err <= OFFLOAD_COMBINE_LIMIT:
+        failures.append(f"combine off by {comb_err:.3e} > {OFFLOAD_COMBINE_LIMIT}")
+    if not pinned_ok:
+        failures.append("the staging buffers are not pinned")
+    if failures:
+        raise AssertionError("offload_stream: " + "; ".join(failures))
+    return rec
+
+
+OFFLOAD_FORMS = {"default": False, "host": True, "streamed": "streamed"}
+
+
+def solve_offload_parity(bsr, dense, device) -> dict:
+    """solve_parity through the three store forms: the default device
+    stores, offload=True (host f64) and offload="streamed"; each with the
+    CPU's iteration count and the same eigenvalues."""
+    recs = {form: solve_parity(bsr, dense, device, offload=offload,
+                               phase="solve_offload_parity")
+            for form, offload in OFFLOAD_FORMS.items()}
+    failures = [f"{form}: {r['iterations']} iterations, the CPU's float32 run took "
+                f"{OFFLOAD_PARITY_ITERATIONS[form]}" for form, r in recs.items()
+                if abs(r["iterations"] - OFFLOAD_PARITY_ITERATIONS[form]) > 2]
+    evals = np.array([r["eigenvalues"] for r in recs.values()])
+    if not np.abs(evals - evals[0]).max() <= 1e-5:
+        failures.append(f"the stores' eigenvalues differ: {evals}")
+    if failures:
+        raise AssertionError("solve_offload_parity: " + "; ".join(failures))
+    return recs
+
+
+def banded_solver(matrix, device, case: str, dtype=None, op=None, store=None):
+    """BandedEigensolver on the bench matrix's "exact" action (K1-f32) with
+    the case's BANDED_MODES settings (streamed: the store's blocks of
+    BANDED_STORE_BLOCK_ROWS rows)."""
+    from iterative_solver_torch.solvers import BandedEigensolver
+
+    matvec, sym = op or spill_action(matrix, device, dtype)
+    deflate, band, m_max, tol = BANDED_MODES[case]
+    return BandedEigensolver(matvec, np.diagonal(matrix), matrix.shape[0], band=band,
+                             m_max=m_max, dtype=dtype, convergence_threshold=tol,
+                             max_iter=BANDED_MAX_ITER, operand=sym, deflate=deflate,
+                             store=store, store_block_rows=BANDED_STORE_BLOCK_ROWS,
+                             device=device)
+
+
+def many_root_quality(vals, vecs, matrix, ref) -> dict:
+    """The f64 residual of each normalised row against the dense f64
+    matrix, max|X X^T - I|, the rows' sorted f64 Rayleigh quotients
+    against ``ref``, and the solver's own eigenvalues against ``ref``."""
+    xs = vecs[:, : matrix.shape[0]]
+    xs = xs / np.linalg.norm(xs, axis=1, keepdims=True)
+    ax = xs @ matrix
+    rq = np.sum(xs * ax, axis=1)
+    ref = np.asarray(ref)
+    return {"f64_max_residual": float(np.max(np.linalg.norm(ax - rq[:, None] * xs, axis=1))),
+            "ortho_max": float(np.abs(vecs @ vecs.T - np.eye(len(vecs))).max()),
+            "rq_max_abs_err": float(np.abs(np.sort(rq) - ref).max()),
+            "eigenvalue_max_abs_err": float(np.abs(np.sort(vals) - ref).max())}
+
+
+def solve_banded(matrix, device, op) -> dict:
+    """32 roots of the bench matrix with BandedEigensolver in both modes."""
+    import torch
+
+    recs = {}
+    for case, (deflate, *_) in BANDED_MODES.items():
+        solver = banded_solver(matrix, device, case, op=op)
+        per_sweep = []
+        if deflate == "streamed":
+            # the f64 residuals of the purged rows at each sweep, against the bar
+            check = solver._f64_check
+
+            def logged(x, check=check):
+                rq, res = check(x)
+                per_sweep.append(sorted(float(r) for r in res))
+                return rq, res
+
+            solver._f64_check = logged
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats(device)
+        base = torch.cuda.memory_allocated(device)
+        sync(device)
+        t0 = time.perf_counter()
+        vals, vecs, errs = solver.solve(BANDED_ROOTS)
+        sync(device)
+        wall = time.perf_counter() - t0
+        launches = solve_launches("symm_f32")
+        streamed = deflate == "streamed"
+        expected = {"action": k1_launches_of_solve(solver.runs, solver.m_max, probe=False)
+                    + (len(solver.runs) if streamed else 0),   # one f64 check per sweep
+                    "chain": sum(it for _, it in solver.runs), "gram": 0}
+        q = many_root_quality(vals, vecs, matrix, BANDED_REFERENCE_EIGENVALUES)
+        history_mb = BANDED_ROOTS * matrix.shape[0] * 8 / 2 ** 20
+        held = case in BANDED_HELD
+        rec = {"phase": "solve_banded", "case": case, "deflate": deflate, "band": solver.band,
+               "held": held, "limits": BANDED_LIMITS.get(case),
+               "m_max": solver.m_max, "tol": solver.tol, "runs": solver.runs,
+               "iterations": sum(it for _, it in solver.runs), "n_locked": solver.n_locked,
+               "seconds": wall, "max_error": float(np.max(errs)), **q,
+               "device_peak_MB": (torch.cuda.max_memory_allocated(device) - base) / 2 ** 20,
+               "locked_history_f64_MB": history_mb, "launches": launches,
+               "expected_launches": expected}
+        if streamed:
+            rec.update(sweeps=len(solver.runs), max_sweeps=BANDED_MAX_SWEEPS,
+                       bar=10 * solver.tol, residuals_per_sweep=per_sweep)
+        emit(rec)
+        failures = []
+        if held:
+            res_limit, rq_limit = BANDED_LIMITS[case]
+            if not q["f64_max_residual"] <= res_limit:
+                failures.append(f"f64 residual {q['f64_max_residual']:.3e} > {res_limit}")
+            if not q["rq_max_abs_err"] <= rq_limit:
+                failures.append(f"Rayleigh quotients off by {q['rq_max_abs_err']:.3e} > "
+                                f"{rq_limit}")
+            if not q["ortho_max"] <= BANDED_ORTHO_LIMIT:
+                failures.append(f"max|X X^T - I| = {q['ortho_max']:.3e}")
+            if solver.n_locked != BANDED_ROOTS:
+                failures.append(f"{solver.n_locked} rows locked, not {BANDED_ROOTS}")
+        if streamed and not len(solver.runs) <= BANDED_MAX_SWEEPS:
+            failures.append(f"{len(solver.runs)} sweeps > {BANDED_MAX_SWEEPS}")
+        if launches != expected or min(launches["action"], launches["chain"]) == 0:
+            failures.append(f"launches {launches} != expected {expected}")
+        if failures:
+            raise AssertionError(f"solve_banded[{case}]: " + "; ".join(failures))
+        recs[case] = rec
+        if solver.store is not None:
+            solver.store.close()
+    return recs
+
+
+def flat_operator(n: int, device, dtype=None):
+    """A = Q diag(w) Q^T on ``device`` in float64, Q from the QR of a
+    default_rng(FLAT_SEED) Gaussian, w = flat_spectrum(n): a dense
+    eigenbasis, so the diagonal carries almost no information. Returns (A
+    as float64 on the device, its packed "exact" action, w)."""
+    import torch
+
+    from iterative_solver_torch.ops.kernels import symm
+
+    g = np.random.default_rng(FLAT_SEED).standard_normal((n, n))
+    q, _ = torch.linalg.qr(torch.as_tensor(g, device=device))
+    del g
+    w = flat_spectrum(n)
+    a64 = (q * torch.as_tensor(w, device=device)) @ q.T
+    del q
+    a64 = 0.5 * (a64 + a64.T)
+    sym = symm.SymmetricBlocked.from_dense(a64.cpu().numpy(), b=SPILL_B, dtype=dtype,
+                                           device=device)
+    return a64, (symm.symm_matmat_kernel, sym), w
+
+
+def chebyshev_solver(matvec, sym, diag, nroots: int, device, dtype=None, tol=None,
+                     max_iter=CHEB_MAX_ITER):
+    from iterative_solver_torch.solvers import make_chebyshev_davidson
+
+    return make_chebyshev_davidson(matvec, diag, sym.shape[0], nroots=nroots,
+                                   degree=CHEB_DEGREE, m_max=CHEB_M_MAX, rr="full",
+                                   operand=sym, convergence_threshold=tol, max_iter=max_iter,
+                                   dtype=dtype, device=device)
+
+
+def jacobi_solver(matvec, sym, diag, nroots: int, device, dtype=None, tol=None,
+                  max_iter=FLAT_MAX_ITER):
+    from iterative_solver_torch import FusedDavidson
+
+    return FusedDavidson(matvec, diag, sym.shape[0], nroots, m_max=CHEB_M_MAX, rr="full",
+                         operand=sym, convergence_threshold=tol, max_iter=max_iter,
+                         dtype=dtype, device=device)
+
+
+def one_cheb_solve(phase, make, v0, nroots, quality, limits, device, degree) -> tuple:
+    """A fused solve built by ``make()`` (its construction runs the Lanczos
+    bounds where the solver is Chebyshev's): its record, with its launches
+    and quality, and the list of its failed checks."""
+    import torch
+
+    reset_launches()
+    sync(device)
+    t0 = time.perf_counter()
+    solver = make()
+    evals, x, errors, iters = solver.run_on_device(v0)
+    sync(device)
+    wall = time.perf_counter() - t0
+    launches = solve_launches("symm_f32")
+    matvecs = solver.matvecs
+    # a second solve of the warm solver (no bounds, no symmetry probe)
+    reset_launches()
+    sync(device)
+    t0 = time.perf_counter()
+    _, _, _, steady_iters = solver.run_on_device(v0)
+    sync(device)
+    steady = time.perf_counter() - t0
+    steady_launches = solve_launches("symm_f32")
+    cheb = solver.expand is not None
+    per_it = degree + 1 if cheb else 1
+    expected = {"action": k1_launches_of_solve([(nroots, iters)], solver.m_max, probe=True,
+                                               per_iteration=per_it)
+                + (LANCZOS_ITERS if cheb else 0),
+                "chain": iters, "gram": 0}
+    steady_expected = {"action": k1_launches_of_solve([(nroots, steady_iters)], solver.m_max,
+                                                      probe=False, per_iteration=per_it),
+                       "chain": steady_iters, "gram": 0}
+    xs = x.detach().to("cpu", torch.float64).numpy()
+    rec = {"phase": phase, "filter": "chebyshev" if cheb else "jacobi", "limits": limits,
+           "degree": degree if cheb else None, "nroots": nroots, "tol": solver.tol,
+           "iterations": iters, "matvecs": matvecs,
+           "matvecs_identity": nroots + iters * nroots * (degree if cheb else 1),
+           "converged": bool(np.max(errors) <= solver.tol), "max_error": float(np.max(errors)),
+           "seconds_to_solution": wall, "seconds_per_iteration": wall / max(iters, 1),
+           "steady_seconds_to_solution": steady, "steady_iterations": steady_iters,
+           **quality(evals, xs), "launches": launches, "expected_launches": expected,
+           "steady_launches": steady_launches, "steady_expected_launches": steady_expected}
+    emit(rec)
+    failures = []
+    if not rec["converged"]:
+        failures.append(f"not converged: max error {rec['max_error']:.3e}")
+    if rec["matvecs"] != rec["matvecs_identity"]:
+        failures.append(f"matvecs {rec['matvecs']} != {rec['matvecs_identity']}")
+    if launches != expected:
+        failures.append(f"launches {launches} != expected {expected}")
+    if steady_launches != steady_expected:
+        failures.append(f"steady launches {steady_launches} != expected {steady_expected}")
+    res_limit, rq_limit = limits
+    if not rec["f64_max_residual"] <= res_limit:
+        failures.append(f"f64 residual {rec['f64_max_residual']:.3e} > {res_limit}")
+    if not rec["rq_max_abs_err"] <= rq_limit:
+        failures.append(f"Rayleigh quotients off by {rec['rq_max_abs_err']:.3e} > {rq_limit}")
+    return rec, failures
+
+
+def solve_chebyshev(matrix, device, op) -> dict:
+    """make_chebyshev_davidson on the bench matrix (16 roots); then on the
+    flat-diagonal operator, Chebyshev beside the Jacobi FusedDavidson."""
+    import torch
+
+    recs, failures = {}, []
+    matvec, sym = op
+    diag = np.diagonal(matrix)
+
+    def bench_quality(evals, xs):
+        q = many_root_quality(evals, xs, matrix, BANDED_REFERENCE_EIGENVALUES[:CHEB_ROOTS])
+        return {k: q[k] for k in ("f64_max_residual", "rq_max_abs_err",
+                                  "eigenvalue_max_abs_err")}
+
+    recs["bench"], f = one_cheb_solve(
+        "solve_chebyshev", lambda: chebyshev_solver(matvec, sym, diag, CHEB_ROOTS, device,
+                                                    tol=CHEB_TOL),
+        guess(diag, CHEB_ROOTS), CHEB_ROOTS, bench_quality, CHEB_LIMITS["bench"], device,
+        CHEB_DEGREE)
+    failures += [f"bench: {m}" for m in f]
+    if abs(recs["bench"]["iterations"] - CHEB_ITERATIONS["bench"]) > 2:
+        failures.append(f"bench: {recs['bench']['iterations']} iterations, the CPU's "
+                        f"{CHEB_ITERATIONS['bench']}")
+    del sym
+
+    t0 = time.perf_counter()
+    a64, (fmatvec, fsym), w = flat_operator(N, device)
+    emit({"phase": "flat_operator", "n": N, "seconds": time.perf_counter() - t0})
+    fdiag = torch.diagonal(a64).cpu().numpy()
+    v0 = guess(fdiag, FLAT_ROOTS)
+
+    def flat_quality(evals, xs):
+        xd = torch.as_tensor(xs[:, :N], device=device)
+        xd = xd / torch.linalg.vector_norm(xd, dim=1, keepdim=True)
+        ax = xd @ a64
+        rq = torch.sum(xd * ax, dim=1)
+        res = torch.linalg.vector_norm(ax - rq[:, None] * xd, dim=1)
+        return {"f64_max_residual": float(res.max()),
+                "rq_max_abs_err": float(np.abs(np.sort(rq.cpu().numpy())
+                                               - w[:FLAT_ROOTS]).max()),
+                "eigenvalue_max_abs_err": float(np.abs(np.sort(evals) - w[:FLAT_ROOTS]).max())}
+
+    for name, make in (
+            ("chebyshev", lambda: chebyshev_solver(fmatvec, fsym, fdiag, FLAT_ROOTS, device,
+                                                   tol=FLAT_TOL, max_iter=FLAT_MAX_ITER)),
+            ("jacobi", lambda: jacobi_solver(fmatvec, fsym, fdiag, FLAT_ROOTS, device,
+                                             tol=FLAT_TOL))):
+        recs[f"flat_{name}"], f = one_cheb_solve(f"solve_flat_{name}", make, v0, FLAT_ROOTS,
+                                                 flat_quality, CHEB_LIMITS["flat"], device,
+                                                 CHEB_DEGREE)
+        failures += [f"flat {name}: {m}" for m in f]
+        want = CHEB_ITERATIONS[f"flat_{name}"]
+        if abs(recs[f"flat_{name}"]["iterations"] - want) > max(2, want // 10):
+            failures.append(f"flat {name}: {recs[f'flat_{name}']['iterations']} iterations, "
+                            f"the CPU's {want}")
+    del a64, fsym
+    torch.cuda.empty_cache()
+    emit({"phase": "chebyshev_vs_jacobi",
+          "wall_ratio": recs["flat_chebyshev"]["seconds_to_solution"]
+          / recs["flat_jacobi"]["seconds_to_solution"],
+          "steady_wall_ratio": recs["flat_chebyshev"]["steady_seconds_to_solution"]
+          / recs["flat_jacobi"]["steady_seconds_to_solution"],
+          "iteration_ratio": recs["flat_chebyshev"]["iterations"]
+          / recs["flat_jacobi"]["iterations"],
+          "matvec_ratio": recs["flat_chebyshev"]["matvecs"] / recs["flat_jacobi"]["matvecs"]})
+    if failures:
+        raise AssertionError("solve_chebyshev: " + "; ".join(failures))
+    return recs
+
+
 def sass_counts(library) -> dict:
     """Instructions of interest in a built library's SASS, from cuobjdump
     (the toolkit's, beside nvcc): tensor-core products (HMMA float, IMMA
@@ -3234,8 +3863,12 @@ def main() -> int:
     del shifted, x_ref
     kernels.append(check_chain_raw(N, device))
     refine = refine_precise(matrix, device)
-    del matrix
     solve_nonsym_family(device)
+    offload_stream(device)
+    spill_op = spill_action(matrix, device)
+    banded = solve_banded(matrix, device, spill_op)
+    cheb = solve_chebyshev(matrix, device, spill_op)
+    del matrix, spill_op
 
     bench_bsr, sparse_dense, bsr_setup_s = make_bench_bsr(device)
     phenol, phenol_diag, phenol_gen_s = phenol_operator(device)
@@ -3244,6 +3877,7 @@ def main() -> int:
     kernels += sparse_kernels
     sparse = solve_sparse_fused(bench_bsr, sparse_dense, bsr_setup_s, device)
     parity = solve_parity(bench_bsr, sparse_dense, device)
+    offload_parity = solve_offload_parity(bench_bsr, sparse_dense, device)
     parity_linear = solve_parity_linear(bench_bsr, sparse_dense, device)
     del bench_bsr, sparse_dense
     phenol_rec = solve_phenol(phenol, phenol_diag, phenol_gen_s, device)
@@ -3253,20 +3887,25 @@ def main() -> int:
     davidson = (fast, precise, exact, int8, int8_precise, sparse, phenol_rec, pspace)
     linear_recs = tuple(linear.values())
     gradients = (lbfgs, diis, implicit, implicit["eigenpairs"])
-    solves = davidson + linear_recs + gradients + (ppcg, ppcg_rr, parity, parity_linear, refine)
+    # the warm (steady) re-solves of the Chebyshev phase count as solves too
+    spill = tuple(banded.values()) + tuple(cheb.values()) + tuple(
+        {"launches": r["steady_launches"]} for r in cheb.values())
+    offload_parity = tuple(offload_parity.values())
+    solves = (davidson + linear_recs + gradients + spill + offload_parity
+              + (ppcg, ppcg_rr, parity, parity_linear, refine))
 
     def action(*recs):
         return sum(r["launches"]["action"] for r in recs)
 
     launches = {
         "K1-bf16": action(fast, linear["fast"]) + sum(r["action"] for r in resumable),
-        "K1-f32": action(exact, linear["exact"], *gradients),
+        "K1-f32": action(exact, linear["exact"], *gradients, *spill),
         "K3": action(precise, pspace, linear["precise"], refine),
-        "K2": sum(p["launches"]["chain"] for p in davidson + linear_recs)
+        "K2": sum(p["launches"]["chain"] for p in davidson + linear_recs + spill)
         + sum(r["chain"] for r in resumable),
         "K4": action(int8, ppcg, ppcg_rr, linear["int8"]),
         "K5": action(int8_precise, linear["int8_precise"]),
-        "K6": action(sparse, parity, phenol_rec, parity_linear),
+        "K6": action(sparse, parity, phenol_rec, parity_linear, *offload_parity),
         "K7": sum(p["launches"]["gram"] for p in solves) + sum(r["gram"] for r in resumable),
     }
     off_path = {"K7"}   # no solver calls it, in either package

@@ -16,6 +16,7 @@ import functools
 import hashlib
 import os
 import subprocess
+import tempfile
 from pathlib import Path
 from typing import Optional, Sequence
 
@@ -75,14 +76,24 @@ def _dptr(a: np.ndarray):
 
 
 class VecStore:
-    """Host/disk tier for basis-vector histories: rows of float64 in a file
-    (a temporary one unless ``path`` is given), with the block numerics
-    streamed through the native double-buffered pipeline."""
+    """Host/disk tier for basis-vector histories: rows of float64 in a file,
+    with the block numerics streamed through the native double-buffered
+    pipeline. Without ``path`` the file is an anonymous one in
+    ``tempfile.gettempdir()`` (``TMPDIR``), unlinked as soon as it is open,
+    so it goes when the store closes."""
 
     def __init__(self, capacity: int, row_len: int, path: Optional[str] = None):
         self._lib = _load()
-        self._h = self._lib.vecstore_create(capacity, row_len,
-                                            path.encode() if path else None)
+        scratch = None
+        if not path:
+            fd, scratch = tempfile.mkstemp(prefix="vecstore-")
+            os.close(fd)
+        try:
+            self._h = self._lib.vecstore_create(capacity, row_len,
+                                                (path or scratch).encode())
+        finally:
+            if scratch is not None:
+                os.unlink(scratch)   # the store's open descriptor keeps the file
         if not self._h:
             raise OSError("vecstore_create failed")
         self.capacity = capacity
@@ -122,10 +133,21 @@ class VecStore:
 
     def get(self, slot: int) -> np.ndarray:
         out = np.empty(self.row_len, dtype=np.float64)
+        self.get_into(slot, out)
+        return out
+
+    def get_into(self, slot: int, out: np.ndarray) -> None:
+        """Read one row straight into ``out``, a C-contiguous float64 array of
+        ``row_len`` values (a row of a pinned staging buffer, say): no row is
+        allocated or copied again. The read releases the GIL (ctypes), so it
+        overlaps the calling process's other threads."""
+        if (out.dtype != np.float64 or out.size != self.row_len
+                or not out.flags.c_contiguous or not out.flags.writeable):
+            raise ValueError(f"get_into needs a writable C-contiguous float64 row of "
+                             f"{self.row_len} values, got {out.dtype} {out.shape}")
         rc = self._lib.vecstore_get(self._h, slot, _dptr(out))
         if rc != 0:
             raise OSError(f"vecstore_get failed rc={rc}")
-        return out
 
     # -- streamed block numerics ----------------------------------------
     def _slots(self, slots: Sequence[int]):

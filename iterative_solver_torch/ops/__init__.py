@@ -1,1 +1,5 @@
 """Operators of the port."""
+
+from . import dense
+
+__all__ = ["dense"]

@@ -12,9 +12,10 @@ return ``(m, N)`` row-blocks instead of mutating VecRef views.
 
 ``device=None`` is the CUDA device and raises where CUDA is absent; pass
 ``device="cpu"`` for the host (the tests do). ``dtype=None`` is float32 on
-CUDA and float64 on the CPU. ``sharding=`` and ``offload=`` raise
-``NotImplementedError``: the distributed layer and the host/disk spill
-store wait for ROADMAP.md Queue 1, item 6.
+CUDA and float64 on the CPU. ``offload=`` moves the basis history to the
+host/disk spill tier (array/offload_store.py). ``sharding=`` raises
+``NotImplementedError``: the distributed layer waits for ROADMAP.md
+Queue 1, item 6.
 """
 
 from __future__ import annotations
@@ -34,7 +35,6 @@ from ..utils import Logger, Profiler, Statistics, null_profiler
 Tensor = torch.Tensor
 
 _SHARDING = "sharding is not ported yet (ROADMAP.md Queue 1, item 6)"
-_OFFLOAD = "the offload store is not ported yet (ROADMAP.md Queue 1, item 6)"
 
 
 def _rows(x) -> Tensor:
@@ -88,8 +88,6 @@ class IterativeSolverTemplate:
     ):
         if sharding is not None:
             raise NotImplementedError(_SHARDING)
-        if offload:
-            raise NotImplementedError(_OFFLOAD)
         self.device = config.resolve_device(device)
         if dtype is None:
             dtype = config.default_dtype(self.device)
@@ -106,9 +104,24 @@ class IterativeSolverTemplate:
         self.profiler = profiler
         self.stats = Statistics()
         cap = capacity if capacity is not None else max(16, 4 * nroots)
+        store_factory = None
+        if offload:
+            # host/disk spill tier for basis histories beyond device memory:
+            # True -> host-f64 OffloadBasisStore (parity numerics);
+            # "streamed" -> StreamedOffloadStore (block numerics streamed
+            # through the device, the BufferManager analogue);
+            # a callable -> the factory itself, called as BasisStore is
+            from ..array.offload_store import OffloadBasisStore, StreamedOffloadStore
+
+            if callable(offload):
+                store_factory = offload
+            elif offload == "streamed":
+                store_factory = StreamedOffloadStore
+            else:
+                store_factory = OffloadBasisStore
         self.xspace = XSpace(
             n, dtype, capacity=cap, logger=self.logger, stats=self.stats,
-            device=self.device,
+            store_factory=store_factory, device=self.device,
         )
         self.subspace_solver = None  # set by concrete solver
         self.errors: List[float] = []

@@ -57,6 +57,7 @@ class XSpace:
         capacity: int = 16,
         logger: Optional[Logger] = None,
         stats: Optional[Statistics] = None,
+        store_factory=None,
         device=None,
     ):
         self.n = int(n)
@@ -64,12 +65,14 @@ class XSpace:
         self.device = _config.resolve_device(device)
         self.logger = logger or Logger()
         self.stats = stats or Statistics()
-        # the JAX package's store_factory (its host/disk spill tier,
-        # offload_store.py) waits for ROADMAP.md Queue 1, item 6
-        self.store_v = BasisStore(capacity, n, dtype, sharding, name="params",
-                                  device=self.device)
-        self.store_a = BasisStore(capacity, n, dtype, sharding, name="actions",
-                                  device=self.device)
+        # store_factory swaps the basis backend: the device BasisStore by
+        # default, an offload store (array/offload_store.py) for the
+        # host/disk spill tier; it is called as BasisStore is
+        factory = store_factory or BasisStore
+        self.store_v = factory(capacity, n, dtype, sharding, name="params",
+                               device=self.device)
+        self.store_a = factory(capacity, n, dtype, sharding, name="actions",
+                               device=self.device)
         # logical index lists; q newest-first
         self.p_slots: List[int] = []
         self.p_sparse: List[Dict[int, float]] = []

@@ -1,6 +1,6 @@
 """The port imports nothing of JAX: no module of iterative_solver_torch/,
-not chip_smoke.py, calibrate_sparse_cpu.py, calibrate_nonlinear_cpu.py or
-calibrate_nonsym_cpu.py imports ``jax``, ``jaxlib``
+not chip_smoke.py, calibrate_sparse_cpu.py, calibrate_nonlinear_cpu.py,
+calibrate_nonsym_cpu.py or calibrate_spill_cpu.py imports ``jax``, ``jaxlib``
 or ``iterative_solver_tpu`` (which would run iterative_solver_tpu/__init__.py
 and import JAX)."""
 
@@ -15,7 +15,8 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "iterative_solver_tpu"}
 PORT_FILES = sorted((ROOT / "iterative_solver_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "calibrate_sparse_cpu.py", ROOT / "compare_kernels.py",
-    ROOT / "calibrate_nonlinear_cpu.py", ROOT / "calibrate_nonsym_cpu.py"]
+    ROOT / "calibrate_nonlinear_cpu.py", ROOT / "calibrate_nonsym_cpu.py",
+    ROOT / "calibrate_spill_cpu.py"]
 
 
 def _imported_roots(path):
@@ -37,7 +38,8 @@ def test_port_files_found():
             "linear_equations.py", "checkpoint.py", "fused_lbfgs.py", "fused_diis.py",
             "optimize.py", "nonlinear_diis.py", "interpolate.py", "implicit_diff.py",
             "calibrate_nonlinear_cpu.py", "fused_nonsym.py", "dense_int8.py",
-            "calibrate_nonsym_cpu.py"} <= names
+            "calibrate_nonsym_cpu.py", "offload_store.py", "banded.py", "chebyshev.py",
+            "calibrate_spill_cpu.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))

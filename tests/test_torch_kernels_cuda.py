@@ -14,7 +14,8 @@ exact in any order, and round their epilogue in the plain version's order:
 they must equal it bit for bit (tolerance 0). K2, K6 and K7 add in a fixed
 order of their own (no atomics): tolerance 1e-5 of the plain result's max
 magnitude (for K7, of the largest sum of |terms|, since a single dot
-product may cancel), and the same bits on a second run.
+product may cancel), and the same bits on a second run. The streamed
+offload store's pinned pipeline must give the bits of its serial run.
 """
 
 import functools
@@ -1186,3 +1187,76 @@ def test_nonsym_batched_on_card(cuda):
         ref = np.linalg.solve(a + s * np.eye(256), rhs.T).T
         assert float(res[4][k].max()) <= 1e-5
         assert np.abs(res[3][k].double().cpu().numpy() - ref).max() <= 1e-4 * np.abs(ref).max()
+
+
+def test_streamed_store_pipeline_same_bits(cuda):
+    """The streamed offload store's pinned pipeline (reader thread, copy
+    stream, compute stream) gives the same bits as its serial run
+    (prefetch=False; the blocked Gram-Schmidt as serial gram and combine
+    block by block), over 5 calls, with 6 blocks in flight; its staging
+    buffers are pinned; and its results agree with the host-f64 store
+    within float32 (1e-5 of the result's max magnitude)."""
+    from iterative_solver_torch.array.offload_store import (
+        OffloadBasisStore,
+        StreamedOffloadStore,
+    )
+
+    rng = np.random.default_rng(12)
+    n, k, br = 1 << 16, 44, 8
+    q, _ = np.linalg.qr(rng.standard_normal((n, k)))
+    rows = q.T
+    store = StreamedOffloadStore(64, n, block_rows=br, device=cuda)
+    host = OffloadBasisStore(64, n, device="cpu")
+    slots = [store.append(r) for r in rows]
+    hslots = [host.append(r) for r in rows]
+    x = rng.standard_normal((4, n))
+    xd = torch.as_tensor(x, dtype=torch.float32, device=cuda)
+    coeff = rng.standard_normal((4, k))
+    inv = np.ones(k)
+    mgs = xd
+    for k0 in range(0, k, br):   # mgs_sweep's blocks, serially
+        chunk = slots[k0:k0 + br]
+        mgs = mgs - store.combine(store.gram(mgs, chunk, prefetch=False) * inv[k0:k0 + br],
+                                  chunk, prefetch=False)
+    ref = (store.gram(xd, slots, prefetch=False), store.combine(coeff, slots, prefetch=False),
+           mgs)
+    for _ in range(5):
+        assert np.array_equal(store.gram(xd, slots), ref[0])
+        assert torch.equal(store.combine(coeff, slots), ref[1])
+        assert torch.equal(store.mgs_sweep(xd, slots, inv), ref[2])
+    assert all(b.is_pinned() for b in store._staging[0])
+    assert ref[1].device.type == "cuda" and ref[1].dtype == torch.float32
+    g64 = host.gram(x, hslots)
+    assert np.abs(ref[0] - g64).max() <= 1e-5 * np.abs(g64).max()
+    c64 = host.combine(coeff, hslots).numpy()
+    assert np.abs(ref[1].double().cpu().numpy() - c64).max() <= 1e-5 * np.abs(c64).max()
+    m64 = host.mgs_sweep(x, hslots, inv).numpy()
+    assert np.abs(ref[2].double().cpu().numpy() - m64).max() <= 1e-5 * np.abs(x).max()
+    store.close()
+    host.close()
+
+
+def test_banded_and_chebyshev_on_card(cuda):
+    """BandedEigensolver (both modes) and the Chebyshev-filtered Davidson on
+    the packed K1-f32 action at n = 1024, against eigvalsh."""
+    from iterative_solver_torch.solvers.banded import BandedEigensolver
+    from iterative_solver_torch.solvers.chebyshev import make_chebyshev_davidson
+    from iterative_solver_torch.solvers.fused_davidson import packed_symmetric_action
+
+    m, d = _bench_spectrum(1024, 3)
+    ref = np.linalg.eigvalsh(m)
+    matvec, op, _ = packed_symmetric_action(m, "exact", 512, cuda)
+    for deflate, band in (("device", 4), ("streamed", 2)):
+        solver = BandedEigensolver(matvec, d, 1024, band=band, m_max=24,
+                                   convergence_threshold=1e-4, max_iter=200, operand=op,
+                                   deflate=deflate, store_block_rows=2, device=cuda)
+        vals, vecs, _ = solver.solve(8)
+        np.testing.assert_allclose(vals, ref[:8], atol=1e-6)
+        assert solver.n_locked == 8
+        assert np.abs(vecs @ vecs.T - np.eye(8)).max() <= 1e-4
+    cheb = make_chebyshev_davidson(matvec, d, 1024, nroots=4, degree=4, m_max=24,
+                                   convergence_threshold=1e-4, operand=op, device=cuda)
+    evals, _, errors, iters = cheb.run_on_device(_one_hot(d, 4))
+    assert np.max(errors) <= 1e-4
+    np.testing.assert_allclose(evals, ref[:4], atol=1e-6)
+    assert cheb.matvecs == 4 + iters * 4 * 4

@@ -222,8 +222,11 @@ def test_unported_entry_points_name_their_item():
         T.create_nonlinear_equations(8, sharding=object(), device="cpu")
     with pytest.raises(NotImplementedError, match=r"item 6\)"):
         T.create_linear_eigensystem(8, 1, sharding=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match=r"item 6\)"):
-        T.create_linear_eigensystem(8, 1, offload=True, device="cpu")
+    # the offload store (item 6a) is ported: offload=True now builds it
+    from iterative_solver_torch.array.offload_store import OffloadBasisStore
+
+    solver = T.create_linear_eigensystem(8, 1, offload=True, device="cpu")
+    assert isinstance(solver.xspace.store_v, OffloadBasisStore)
 
 
 def test_entry_points_default_to_cuda():
