@@ -230,6 +230,41 @@ Phases, one JSON line each:
     same entry point through the default stores, offload=True and
     offload="streamed": the iteration count of the CPU run, the same limits,
     one K6 launch per iteration, the same eigenvalues in all three.
+20. last, after the phenol solve (15), the distribution layer (ROADMAP
+    Queue 1 item 6b; last because this process's profiler windows dropped
+    device events after other processes had shared the card): SHARD_WORLD
+    = 4 ranks, processes of this script
+    (``--shard-worker``) on the one card, joined by gloo through a file
+    store in a temporary directory (NCCL refuses two ranks on one card),
+    every collective staged through pinned host memory; a failed rank
+    fails the run. Each rank packs the bench matrix's five tiers on the
+    host and keeps its round-robin share of the tile pairs
+    (``ShardedSymmetric``).
+    a. ``sharded_kernels``: each rank's K1-bf16, K1-f32, K3, K4 and K5 on
+       its pairs at 16 x 8192 against its plain version (1e-5 of max|y|;
+       K4 and K5 bit for bit) and to the same bits on a second call; the
+       reduce-scattered y against the unsharded kernel's y (rank 0, 1e-5);
+       each rank's device ms, one rank at a time, beside the unsharded
+       kernel's; one sharded matvec's wall ms and its collectives (calls,
+       bytes staged each way, host ms);
+    b. ``solve_sharded[fast|exact|precise|int8|int8_precise]``:
+       FusedDavidson's generic constructor with the tier's ShardedSymmetric
+       matvec and ``sharding=``, the unsharded phase's settings and limits
+       (converged, f64 residual, Rayleigh quotients; max|X X^T - I| <=
+       SHARD_ORTHO_LIMIT), iterations within SHARD_ITER_SLACK of the
+       unsharded card run, every rank the same bits of the eigenvalues,
+       per-rank launches init + probe + iterations + restarts, K2 none;
+    c. ``solve_sharded_ppcg``: the flagship (this process's, saved for the
+       ranks) sharded with ``from_int8``, K4 per rank, the flagship's
+       limits;
+    d. ``solve_sharded_bsr``: bench.py's sparse operator by block rows
+       (``ShardedBSR``, a plain body: no kernel, K6 none), the sparse
+       phase's limits;
+    e. ``nccl_world1``: NCCL at world size 1 in this process: the exact
+       solve with ``sharding=`` against the same solve unsharded without the
+       chain, equal iterations, eigenvalues within 1e-6, nothing staged.
+    The kernels line carries each kernel's per-rank launches on the
+    sharded solves (``rank_launches``) and per-rank ms (``rank_ms``).
 
 Each Davidson solve reports iterations, convergence, time per iteration,
 the f64 residual ||A x - rho x|| of each normalised Ritz vector against the
@@ -258,12 +293,15 @@ package beside it is missing. The limits of the sparse phases come from
 ``calibrate_linear_cpu.py``, those of the nonlinear and gradient phases from
 ``calibrate_nonlinear_cpu.py``, those of the non-hermitian phases from
 ``calibrate_nonsym_cpu.py``, those of the spill and many-root phases from
-``calibrate_spill_cpu.py``.
+``calibrate_spill_cpu.py``; the sharded phases hold the unsharded phases'
+limits, and ``calibrate_sharded_cpu.py`` runs them on the CPU.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -420,7 +458,14 @@ PEAK_BYTES = 3.35e12
 PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12, "int8": 1979e12}
 
 
+_START = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase record also carries ``t_s``, the seconds since
+    the script started."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - _START}
     print(json.dumps(obj), flush=True)
 
 
@@ -490,7 +535,7 @@ PROFILE_RETRIES = []
 
 
 def device_ms(fn, device, pattern: str, per_call: int, calls: int = 10,
-              attempts: int = 3) -> tuple:
+              attempts: int = 8) -> tuple:
     """Device time per call, from torch.profiler (device activity only) over
     ``calls`` calls: of the kernels whose names contain ``pattern``, and of
     all the device work the call does; and the number of such kernels the
@@ -1038,13 +1083,9 @@ def solve_phase(matrix, ref_evals, device, tier, rr, tol, res_limit, rq_limit,
     expected = {"action": 1 + 2 + iters + restarts, "chain": iters, "gram": 0}
     converged = bool(np.max(errors) <= tol)
 
-    xs = x.detach().to("cpu", torch.float64).numpy()[:, : matrix.shape[0]]
-    xs = xs / np.linalg.norm(xs, axis=1, keepdims=True)
-    ax = xs @ matrix  # matrix is symmetric
-    rq = np.sum(xs * ax, axis=1)
-    res = float(np.max(np.linalg.norm(ax - rq[:, None] * xs, axis=1)))
-    rq_low = np.sort(rq)[: len(ref_evals)]
-    rq_err = float(np.max(np.abs(rq_low - np.asarray(ref_evals))))
+    checks = dense_quality(x, matrix, ref_evals)
+    res, rq_low, rq_err = (checks["f64_max_residual"], checks["rayleigh_quotients"],
+                           checks["rq_max_abs_err"])
 
     rec = {
         "phase": phase, "tier": tier, "rr": rr, "n": matrix.shape[0],
@@ -1056,7 +1097,7 @@ def solve_phase(matrix, ref_evals, device, tier, rr, tol, res_limit, rq_limit,
         "steady_seconds": wall2, "steady_seconds_per_iteration": wall2 / max(iters2, 1),
         "setup_seconds": setup_s,
         "f64_max_residual": res, "f64_residual_limit": res_limit,
-        "rayleigh_quotients": rq_low.tolist(), "rq_max_abs_err": rq_err,
+        "rayleigh_quotients": rq_low, "rq_max_abs_err": rq_err,
         "rq_limit": rq_limit, "launches": launches, "expected_launches": expected,
         "action_kernel": action_key, **solver_kw,
     }
@@ -3766,6 +3807,621 @@ def solve_chebyshev(matrix, device, op) -> dict:
     return recs
 
 
+# ---------------------------------------------------------------------------
+# The distribution layer (ROADMAP.md Queue 1 item 6b). SHARD_WORLD ranks run
+# as processes of this script (``--shard-worker``) on the one card, joined by
+# gloo: NCCL refuses two ranks on one card, so every collective is staged
+# through pinned host memory (parallel/collectives.py), and these times
+# measure gloo over the host, not NVLink. NCCL runs once, at world size 1, in
+# this process (``nccl_world1``).
+
+SHARD_WORLD = 4
+SHARD_TIMEOUT_S = 600
+SHARD_ITER_SLACK = 2      # iterations a sharded solve may differ from the unsharded run
+SHARD_ORTHO_LIMIT = 1e-4  # max|X X^T - I| of a sharded solve's Ritz rows
+SHARD_TIME_REPS = 10
+# tier: (rr, tol, f64 residual limit, Rayleigh-quotient limit, launch key,
+# solver keywords): the unsharded solve phases' settings and limits
+SHARD_TIERS = {
+    "fast": ("window", 2e-4, 1e-3, 1e-5, "symm_bf16", {}),
+    "exact": ("full", 1e-5, 1e-4, 1e-8, "symm_f32", {}),
+    "precise": ("full", 1e-5, 1e-4, 1e-8, "symm_split", {}),
+    "int8": ("window", 5e-3, *INT8_LIMITS["int8"], "symm_int8", {}),
+    "int8_precise": ("anchored", 1e-5, *INT8_LIMITS["int8_precise"], "symm_int8_split",
+                     {"anchor_every": 2}),
+}
+# (kernel, tier, tile edge) of the per-rank kernel checks: the tiers'
+# from_dense_symmetric tiles at n = 8192
+SHARD_KERNELS = (("K1-bf16", "fast", 1024), ("K1-f32", "exact", 512), ("K3", "precise", 512),
+                 ("K4", "int8", 1024), ("K5", "int8_precise", 1024))
+# the rank that packs each tier's storage (the int8 tiers alone)
+SHARD_PACKER = {"int8": 0, "int8_precise": 1, "fast": 2, "exact": 2, "precise": 3}
+SHARD_LAUNCH_KEYS = {"K1-bf16": "symm_bf16", "K1-f32": "symm_f32", "K3": "symm_split",
+                     "K4": "symm_int8", "K5": "symm_int8_split"}
+# K4 at the sharded flagship's shape (64 x 32768, a quarter of its pairs)
+SHARD_FLAGSHIP_KERNEL = "K4@flagship"
+# the unsharded kernel check of each per-rank check's shape
+SHARD_UNSHARDED = {"K4": "K4@n8192", SHARD_FLAGSHIP_KERNEL: "K4"}
+
+
+def dense_quality(x, matrix, ref_evals) -> dict:
+    """The f64 checks of Ritz rows against a dense host matrix: the largest
+    residual of the normalised rows, the sorted lowest Rayleigh quotients
+    against ``ref_evals``, and max|X X^T - I| of the rows as returned."""
+    import torch
+
+    x64 = x.detach().to("cpu", torch.float64).numpy()[:, : matrix.shape[0]]
+    xs = x64 / np.linalg.norm(x64, axis=1, keepdims=True)
+    ax = xs @ matrix  # matrix is symmetric
+    rq = np.sum(xs * ax, axis=1)
+    rq_low = np.sort(rq)[: len(ref_evals)]
+    return {"f64_max_residual": float(np.max(np.linalg.norm(ax - rq[:, None] * xs, axis=1))),
+            "rayleigh_quotients": rq_low.tolist(),
+            "rq_max_abs_err": float(np.max(np.abs(rq_low - np.asarray(ref_evals)))),
+            "orthonormality": float(np.max(np.abs(x64 @ x64.T - np.eye(x64.shape[0]))))}
+
+
+def in_rank_turns(mesh, fn):
+    """``fn()`` on each rank in turn, the others waiting, so a rank's timing
+    has the card to itself; returns what ``fn`` returned on this rank."""
+    from iterative_solver_torch.parallel.collectives import barrier
+
+    out = None
+    for r in range(mesh.size):
+        barrier(mesh)
+        if mesh.rank == r:
+            out = fn()
+    barrier(mesh)
+    return out
+
+
+def shard_storages(mesh, matrix, work_dir: str) -> dict:
+    """{tier: host storage}: each tier's from_dense_symmetric storage of
+    ``matrix`` at n = 8192 (tiles of 1024 for fast and the int8 tiers, 512
+    for exact and precise; "exact" in float32, as the card holds it).
+    Rank r packs its share of the tiers (SHARD_PACKER) and saves them in
+    ``work_dir``; every rank then loads all five (the packing is the slow
+    part: about 8 s for an int8 tier, 3 s for the others)."""
+    import torch
+
+    from iterative_solver_torch.parallel.collectives import barrier
+    from iterative_solver_torch.solvers.fused_davidson import packed_storage
+
+    def path(tier):
+        return os.path.join(work_dir, f"storage_{tier}.pt")
+
+    for _, tier, b in SHARD_KERNELS:
+        if SHARD_PACKER[tier] % mesh.size == mesh.rank:
+            torch.save(packed_storage(matrix, tier, b, "cpu", dtype=torch.float32), path(tier))
+    barrier(mesh)
+    return {tier: torch.load(path(tier), weights_only=False) for _, tier, _ in SHARD_KERNELS}
+
+
+def shard_actions(mesh, storages) -> dict:
+    """{tier: (matvec, operand, ShardedSymmetric)}: this rank's share of
+    each tier's pairs on its device."""
+    from iterative_solver_torch.parallel.sharded_symm import ShardedSymmetric
+
+    out = {}
+    for tier, sym in storages.items():
+        ssym = ShardedSymmetric.from_storage(sym, mesh)
+        out[tier] = (*ssym.matvec_fn(), ssym)
+    return out
+
+
+def unsharded_kernel(sym, device):
+    """The unsharded kernel wrapper of a host storage moved to the card:
+    ``fn(x) -> y``, the action the unsharded phases launch."""
+    import torch
+
+    return dataclasses.replace(sym, **{
+        f.name: getattr(sym, f.name).to(device) for f in dataclasses.fields(sym)
+        if isinstance(getattr(sym, f.name), torch.Tensor)}).kernel
+
+
+# (profiler pattern, kernels per call) of a K1/K3 and a K4/K5 wrapper call
+SHARD_DEVICE_PATTERNS = {False: ("symm_packed", SYMM_KERNELS), True: ("symm_int8", 2)}
+
+
+def shard_kernel_case(mesh, name, ssym, op, x, sh, whole) -> tuple:
+    """One kernel on this rank's pairs at x's shape: the partial against its
+    plain version (1e-5 of max|y|; K4/K5 bit for bit), the same bits on a
+    second call, and (rank 0, ``whole`` the unsharded kernel) the
+    reduce-scattered y against the unsharded kernel's y (1e-5). Returns the
+    record and its failures."""
+    import torch
+
+    matvec = ssym.matvec_fn()[0]
+    y = ssym.partial(x, op)
+    y_ref = ssym.local.plain(x)
+    abs_err, rel = rel_err(y, y_ref)
+    agrees = bool(torch.equal(y, y_ref)) if ssym.quantized else rel <= KERNEL_TOL
+    same_bits = bool(torch.equal(ssym.partial(x, op), y))
+    y_full = sh.gather(matvec(sh.shard(x), op), ssym.n)
+    rec = {"phase": "sharded_kernels", "rank": mesh.rank, "name": name,
+           "rows": x.shape[0], "n": ssym.n, "b": ssym.b, "pairs": ssym.n_local_pairs,
+           "pairs_per_dev": ssym.pairs_per_dev, "max_abs_err": abs_err, "max_rel_err": rel,
+           "bit_identical": ssym.quantized, "same_bits": same_bits}
+    failures = []
+    if whole is not None:
+        _, rec["y_rel_err_vs_unsharded"] = rel_err(y_full, whole(x))
+        if not rec["y_rel_err_vs_unsharded"] <= KERNEL_TOL:
+            failures.append(f"y off the unsharded kernel's by {rec['y_rel_err_vs_unsharded']:.3e}")
+    if not agrees:
+        failures.append(f"rank partial off its plain version by {rel:.3e}")
+    if not same_bits:
+        failures.append("a second call gave other bits")
+    return rec, failures
+
+
+def shard_kernel_checks(mesh, matrix, storages, actions, device, flagship=None) -> list:
+    """Phase a: each rank's K1-bf16, K1-f32, K3, K4 and K5 on its pairs at
+    16 x 8192 (``shard_kernel_case``), per-rank and unsharded device ms
+    from the profiler (one rank at a time; CUDA-event ms beside them), and
+    one sharded matvec's collectives: calls, bytes staged each way and host
+    ms; then K4 at the sharded flagship's shape, 64 x 32768 on the rank's
+    quarter of its pairs (``flagship``: its ShardedSymmetric and host
+    storage), CUDA-event ms only."""
+    import torch
+
+    from iterative_solver_torch.parallel import block_sharding, collectives
+
+    sh = block_sharding(mesh)
+    n = matrix.shape[0]
+    x = torch.as_tensor(np.random.default_rng(1).standard_normal((NROOTS, n)),
+                        dtype=torch.float32, device=device)
+    x_local = sh.shard(x)
+    recs = []
+    for name, tier, b in SHARD_KERNELS:
+        t0 = time.perf_counter()
+        matvec, op, ssym = actions[tier]
+        # (the unsharded kernel's device ms at this shape is the parent's
+        # kernel check's)
+        whole = unsharded_kernel(storages[tier], device) if mesh.rank == 0 else None
+        rec, failures = shard_kernel_case(mesh, name, ssym, op, x, sh, whole)
+        rec["tier"] = tier
+        del whole
+        pattern, per_call = SHARD_DEVICE_PATTERNS[ssym.quantized]
+        rec["rank_device_ms"] = in_rank_turns(mesh, lambda: device_ms(
+            lambda: ssym.partial(x, op), device, pattern, per_call)[0])
+        rec["rank_plain_ms"] = in_rank_turns(mesh, lambda: time_ms(
+            lambda: ssym.local.plain(x), device))
+        # one sharded matvec, every rank at once: its collectives
+        matvec(x_local, op)
+        collectives.reset_counters()
+        torch.cuda.synchronize(device)
+        t1 = time.perf_counter()
+        for _ in range(SHARD_TIME_REPS):
+            matvec(x_local, op)
+        torch.cuda.synchronize(device)
+        rec["matvec_wall_ms"] = 1e3 * (time.perf_counter() - t1) / SHARD_TIME_REPS
+        rec["per_matvec"] = {
+            "staged_calls": collectives.STAGED["calls"] / SHARD_TIME_REPS,
+            "staged_bytes": collectives.STAGED["bytes"] / SHARD_TIME_REPS,
+            "staged_ms": collectives.STAGED["ms"] / SHARD_TIME_REPS,
+            "collective_bytes": collectives.TRAFFIC["bytes"] / SHARD_TIME_REPS}
+        if failures:
+            raise AssertionError(f"sharded_kernels {name}, rank {mesh.rank}: "
+                                 + "; ".join(failures))
+        rec["seconds"] = time.perf_counter() - t0
+        recs.append(rec)
+        torch.cuda.empty_cache()
+    if flagship is not None:
+        t0 = time.perf_counter()
+        ssym, host = flagship
+        op = ssym.matvec_fn()[1]
+        xf = torch.as_tensor(np.random.default_rng(2).standard_normal((FLAGSHIP_ROOTS, ssym.n)),
+                             dtype=torch.float32, device=device)
+        whole = unsharded_kernel(host, device) if mesh.rank == 0 else None
+        rec, failures = shard_kernel_case(mesh, SHARD_FLAGSHIP_KERNEL, ssym, op, xf, sh, whole)
+        del whole
+        rec["tier"] = "int8"
+        rec["rank_ms"] = in_rank_turns(mesh, lambda: time_ms(lambda: ssym.partial(xf, op),
+                                                             device))
+        rec["rank_plain_ms"] = in_rank_turns(mesh, lambda: time_ms(
+            lambda: ssym.local.plain(xf), device, reps=3))
+        if failures:
+            raise AssertionError(f"sharded_kernels {SHARD_FLAGSHIP_KERNEL}, rank {mesh.rank}: "
+                                 + "; ".join(failures))
+        rec["seconds"] = time.perf_counter() - t0
+        recs.append(rec)
+        torch.cuda.empty_cache()
+    return recs
+
+
+def shard_solve(mesh, matrix, actions, device, tier) -> dict:
+    """Phase b: FusedDavidson's generic constructor with the tier's
+    ShardedSymmetric matvec, at the unsharded phase's settings; the
+    launches of this rank (init, probe, iterations, restarts; no chain),
+    the collectives, and (rank 0) the f64 checks."""
+    import torch
+
+    from iterative_solver_torch import FusedDavidson
+    from iterative_solver_torch.parallel import block_sharding, collectives
+
+    rr, tol, res_limit, rq_limit, key, kw = SHARD_TIERS[tier]
+    matvec, op, _ = actions[tier]
+    diag = np.diagonal(matrix)
+    t0 = time.perf_counter()
+    solver = FusedDavidson(matvec, diag, matrix.shape[0], NROOTS, m_max=M_MAX, rr=rr,
+                           convergence_threshold=tol, max_iter=60, operand=op,
+                           dtype=torch.float32, sharding=block_sharding(mesh), **kw)
+    setup_s = time.perf_counter() - t0
+    v0 = guess(diag, NROOTS)
+    reset_launches()
+    collectives.reset_counters()
+    t0 = time.perf_counter()
+    evals, x, errors, iters = solver.run_on_device(v0)   # returns host values: synced
+    wall = time.perf_counter() - t0
+    launches = solve_launches(key)
+    staged, traffic = dict(collectives.STAGED), dict(collectives.TRAFFIC)
+    t0 = time.perf_counter()
+    _, _, _, iters2 = solver.run_on_device(v0)
+    wall2 = time.perf_counter() - t0
+    restarts = expected_restarts(iters, NROOTS, M_MAX)
+    expected = {"action": 1 + 2 + iters + restarts, "chain": 0, "gram": 0}
+    rec = {"phase": f"solve_sharded[{tier}]", "rank": mesh.rank, "world": mesh.size,
+           "backend": mesh.backend, "tier": tier, "rr": rr, "tol": tol, "n": matrix.shape[0],
+           "nroots": NROOTS, "m_max": M_MAX, "fuse_chain": solver.fuse_chain,
+           "iterations": iters, "steady_iterations": iters2, "restarts": restarts,
+           "converged": bool(np.max(errors) <= tol), "max_error": float(np.max(errors)),
+           "evals": [float(e) for e in evals], "seconds": wall, "steady_seconds": wall2,
+           "steady_seconds_per_iteration": wall2 / max(iters2, 1), "setup_seconds": setup_s,
+           "launches": launches, "expected_launches": expected, "staged": staged,
+           "collectives": traffic, "f64_residual_limit": res_limit, "rq_limit": rq_limit}
+    failures = []
+    if not rec["converged"]:
+        failures.append(f"not converged: max error {np.max(errors):.3e} > {tol}")
+    # (on the CPU, where calibrate_sharded_cpu.py runs this, nothing launches)
+    if device.type == "cuda" and (launches != expected or launches["action"] == 0):
+        failures.append(f"launches {launches} != expected {expected}")
+    if mesh.rank == 0:
+        rec.update(dense_quality(x, matrix, REFERENCE_EIGENVALUES))
+        if not rec["f64_max_residual"] <= res_limit:
+            failures.append(f"f64 residual {rec['f64_max_residual']:.3e} > {res_limit}")
+        if not rec["rq_max_abs_err"] <= rq_limit:
+            failures.append(f"Rayleigh quotients off by {rec['rq_max_abs_err']:.3e}")
+        if not rec["orthonormality"] <= SHARD_ORTHO_LIMIT:
+            failures.append(f"max|X X^T - I| {rec['orthonormality']:.3e}")
+    if failures:
+        raise AssertionError(f"solve_sharded[{tier}], rank {mesh.rank}: " + "; ".join(failures))
+    return rec
+
+
+def shard_flagship(mesh, work_dir: str, n: int = FLAGSHIP_N) -> tuple:
+    """The flagship operator (synthetic_packed_int8(n, b=1024, seed=0)):
+    the parent's, saved in ``work_dir``, or generated here; sharded by
+    ShardedSymmetric.from_int8. Returns (ShardedSymmetric, host storage,
+    diagonal, seconds)."""
+    import torch
+
+    from iterative_solver_torch.models.synthetic_fci import synthetic_packed_int8
+    from iterative_solver_torch.parallel.sharded_symm import ShardedSymmetric
+
+    t0 = time.perf_counter()
+    saved = os.path.join(work_dir, "flagship.pt")
+    if os.path.exists(saved):
+        # the parent's flagship (the same seed), saved for the ranks
+        sym = torch.load(saved, weights_only=False)
+        diag = sym.diagonal.to(torch.float64).numpy()
+    else:
+        sym, diag = synthetic_packed_int8(n, b=1024, seed=0, device="cpu")
+    return ShardedSymmetric.from_int8(sym, mesh), sym, diag, time.perf_counter() - t0
+
+
+def shard_ppcg(mesh, device, flagship) -> dict:
+    """Phase c: the PPCG flagship (64 roots of synthetic_packed_int8(n,
+    b=1024, seed=0), rr_every 8, tol 5e-3) with the K4 matvec sharded by
+    ShardedSymmetric.from_int8 (``flagship``: ``shard_flagship``'s); the
+    flagship's limits (rank 0)."""
+    import torch
+
+    from iterative_solver_torch import FusedPPCG
+    from iterative_solver_torch.models.synthetic_fci import implied_matmat_int8
+    from iterative_solver_torch.parallel import block_sharding, collectives
+
+    ssym, sym, diag, gen_s = flagship
+    n = ssym.n
+    matvec, op = ssym.matvec_fn()
+    solver = FusedPPCG(matvec, diag, n, FLAGSHIP_ROOTS, rr_every=FLAGSHIP_RR_EVERY,
+                       convergence_threshold=FLAGSHIP_TOL, max_iter=400, operand=op,
+                       dtype=torch.float32, sharding=block_sharding(mesh))
+    v0 = guess(diag, FLAGSHIP_ROOTS)
+    reset_launches()
+    collectives.reset_counters()
+    t0 = time.perf_counter()
+    evals, x, errors, iters = solver.run_on_device(v0)
+    wall = time.perf_counter() - t0
+    launches = solve_launches("symm_int8")
+    staged, traffic = dict(collectives.STAGED), dict(collectives.TRAFFIC)
+    expected = {"action": 1 + 2 + iters + iters // FLAGSHIP_RR_EVERY, "chain": 0, "gram": 0}
+    rec = {"phase": "solve_sharded_ppcg", "rank": mesh.rank, "world": mesh.size, "n": n,
+           "nroots": FLAGSHIP_ROOTS, "b": sym.b, "pairs": ssym.n_local_pairs,
+           "tol": FLAGSHIP_TOL, "iterations": iters,
+           "converged": bool(np.max(errors) <= FLAGSHIP_TOL),
+           "max_error": float(np.max(errors)), "evals": [float(e) for e in evals],
+           "seconds": wall, "seconds_per_iteration": wall / max(iters, 1),
+           "generation_seconds": gen_s, "launches": launches, "expected_launches": expected,
+           "staged": staged, "collectives": traffic}
+    failures = []
+    if not rec["converged"]:
+        failures.append(f"not converged: max error {np.max(errors):.3e}")
+    if device.type == "cuda" and (launches != expected or launches["action"] == 0):
+        failures.append(f"launches {launches} != expected {expected}")
+    if mesh.rank == 0:
+        sym_dev = dataclasses.replace(
+            sym, **{f: getattr(sym, f).to(device) for f in ("q", "gq", "ii", "jj", "diagonal")})
+        rec.update(quality(x, lambda xs: implied_matmat_int8(xs, sym_dev, diag), diag,
+                           FLAGSHIP_ROOTS))
+        del sym_dev
+        if not rec["f64_max_residual"] <= FLAGSHIP_RES_LIMIT:
+            failures.append(f"f64 residual {rec['f64_max_residual']:.3e}")
+        if not rec["orthonormality"] <= FLAGSHIP_ORTHO_LIMIT:
+            failures.append(f"max|X X^T - I| {rec['orthonormality']:.3e}")
+        if not rec["rq_minus_diag_max"] <= FLAGSHIP_SKIP_LIMIT:
+            failures.append(f"a root is skipped: {rec['rq_minus_diag_max']:.3e}")
+    if failures:
+        raise AssertionError(f"solve_sharded_ppcg, rank {mesh.rank}: " + "; ".join(failures))
+    return rec
+
+
+def shard_bsr(mesh, device) -> dict:
+    """Phase d: bench.py's sparse operator sharded by block rows
+    (ShardedBSR: the plain per-rank body, no kernel), FusedDavidson with 16
+    roots, m_max 64, rr "full", tol 1e-5; the sparse phase's limits."""
+    import torch
+
+    from iterative_solver_torch import FusedDavidson
+    from iterative_solver_torch.models.synthetic_fci import synthetic_fci_bsr
+    from iterative_solver_torch.parallel import block_sharding, collectives
+    from iterative_solver_torch.parallel.sharded_bsr import ShardedBSR
+
+    bsr, dense = synthetic_fci_bsr(SPARSE_N, block=SPARSE_BLOCK, density=0.3, seed=1,
+                                   dtype=torch.float32, device="cpu")
+    s = ShardedBSR.from_bsr(bsr, mesh)
+    matvec, op = s.matvec_fn()
+    solver = FusedDavidson(matvec, np.diagonal(dense), SPARSE_N, NROOTS, m_max=M_MAX,
+                           rr="full", convergence_threshold=1e-5, max_iter=60, operand=op,
+                           dtype=torch.float32, sharding=block_sharding(mesh))
+    reset_launches()
+    collectives.reset_counters()
+    t0 = time.perf_counter()
+    evals, x, errors, iters = solver.run_on_device(guess(np.diagonal(dense), NROOTS))
+    wall = time.perf_counter() - t0
+    launches = solve_launches("bsr")
+    rec = {"phase": "solve_sharded_bsr", "rank": mesh.rank, "world": mesh.size, "n": SPARSE_N,
+           "nroots": NROOTS, "iterations": iters, "converged": bool(np.max(errors) <= 1e-5),
+           "max_error": float(np.max(errors)), "evals": [float(e) for e in evals],
+           "seconds": wall, "launches": launches,
+           "expected_launches": {"action": 0, "chain": 0, "gram": 0},
+           "staged": dict(collectives.STAGED), "collectives": dict(collectives.TRAFFIC)}
+    failures = []
+    if not rec["converged"]:
+        failures.append(f"not converged: max error {np.max(errors):.3e}")
+    if launches != rec["expected_launches"]:
+        failures.append(f"launches {launches}: the sharded BSR body launches no kernel")
+    if mesh.rank == 0:
+        rec.update(dense_quality(x, dense, REFERENCE_SPARSE_EIGENVALUES))
+        if not rec["f64_max_residual"] <= 1e-4:
+            failures.append(f"f64 residual {rec['f64_max_residual']:.3e}")
+        if not rec["rq_max_abs_err"] <= 1e-8:
+            failures.append(f"Rayleigh quotients off by {rec['rq_max_abs_err']:.3e}")
+    if failures:
+        raise AssertionError(f"solve_sharded_bsr, rank {mesh.rank}: " + "; ".join(failures))
+    return rec
+
+
+SHARD_PHASES = ("kernels", "solves", "ppcg", "bsr")
+
+
+def shard_worker(rank: int, world: int, store: str, out_dir: str, device_kind: str,
+                 phases, flagship_n: int = FLAGSHIP_N) -> None:
+    """One rank: join the gloo group through the file store, run ``phases``
+    and write the records to ``<out_dir>/rank<r>.json``."""
+    import torch
+
+    torch.set_num_threads(max(1, (os.cpu_count() or world) // world))
+    from iterative_solver_torch.parallel import init_process_group
+
+    device = torch.device(device_kind) if device_kind == "cpu" else torch.device("cuda", 0)
+    mesh = init_process_group(f"file://{store}", world, rank, backend="gloo", device=device)
+    recs = [{"phase": "shard_rank", "rank": rank, "world": world, "backend": mesh.backend,
+             "device": str(device), "staged": device.type == "cuda"}]
+    if {"kernels", "solves"} & set(phases):
+        t0 = time.perf_counter()
+        matrix = bench_matrix(N)
+        storages = shard_storages(mesh, matrix, out_dir)
+        actions = shard_actions(mesh, storages)
+        recs.append({"phase": "shard_setup", "rank": rank,
+                     "seconds": time.perf_counter() - t0})
+    flagship = None
+    if {"kernels", "ppcg"} & set(phases):
+        flagship = shard_flagship(mesh, out_dir, flagship_n)
+    if "kernels" in phases:
+        recs += shard_kernel_checks(mesh, matrix, storages, actions, device, flagship[:2])
+        recs.append({"phase": "shard_profile_retries", "rank": rank,
+                     "retries": list(PROFILE_RETRIES)})
+    if "solves" in phases:
+        recs += [shard_solve(mesh, matrix, actions, device, tier) for tier in SHARD_TIERS]
+    if "ppcg" in phases:
+        recs.append(shard_ppcg(mesh, device, flagship))
+    if "bsr" in phases:
+        recs.append(shard_bsr(mesh, device))
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(recs, f)
+    torch.distributed.destroy_process_group()
+
+
+def spawn_shards(phases, device_kind: str = "cuda", world: int = SHARD_WORLD,
+                 flagship_n: int = FLAGSHIP_N, timeout: float = SHARD_TIMEOUT_S,
+                 flagship=None) -> list:
+    """Run ``phases`` on ``world`` rank processes of this script; returns
+    each rank's records. ``flagship``: the parent's flagship operator (host
+    tensors), saved for the ranks. Any rank that fails, or outlives
+    ``timeout``, fails the run; every process started is ended."""
+    import tempfile
+
+    import torch
+
+    with tempfile.TemporaryDirectory() as tmp:
+        if flagship is not None:
+            torch.save(flagship, os.path.join(tmp, "flagship.pt"))
+        store = os.path.join(tmp, "store")
+        cmd = [sys.executable, os.path.abspath(__file__), "--shard-worker"]
+        procs = [subprocess.Popen(
+            cmd + [str(r), str(world), store, tmp, device_kind, str(flagship_n), *phases],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(world)]
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=timeout)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        if len(outs) < world or any(p.returncode != 0 for p in procs):
+            tails = "\n".join(f"--- rank {r} (exit {p.returncode}):\n{(o or '')[-4000:]}"
+                              for r, (p, o) in enumerate(zip(procs, outs + [""] * world)))
+            raise AssertionError(f"a sharded rank failed:\n{tails}")
+        ranks = []
+        for r in range(world):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        return ranks
+
+
+def run_sharded(device, unsharded_iters: dict, flagship, kernels) -> dict:
+    """Phases a-d on SHARD_WORLD ranks; emits one record per phase (rank
+    0's, with every rank's launches and times beside it) and checks that
+    every rank returned the same bits of the eigenvalues and that each
+    sharded solve took within SHARD_ITER_SLACK iterations of the unsharded
+    run ``unsharded_iters[tier]``; ``kernels`` are the kernel checks' records
+    (the unsharded device ms beside each rank's). Returns {kernel: per-rank
+    launches on the sharded solves} and the per-rank kernel times."""
+    t0 = time.perf_counter()
+    ranks = spawn_shards(SHARD_PHASES, flagship=flagship)
+    # the unsharded kernel check at each per-rank check's shape
+    by_name = {k["name"]: k for k in kernels}
+    emit({"phase": "sharded_ranks", "world": len(ranks), "seconds": time.perf_counter() - t0,
+          "ranks": [r[0] for r in ranks]})
+    by_phase = {}
+    for r, recs in enumerate(ranks):
+        for rec in recs[1:]:
+            key = rec["phase"] + rec.get("name", "")
+            by_phase.setdefault(key, []).append(rec)
+    rank_launches = {k: [0] * len(ranks) for k in SHARD_LAUNCH_KEYS}
+    rank_ms = {}
+    failures = []
+    for key, recs in by_phase.items():
+        head = dict(recs[0])
+        if head["phase"] == "shard_setup":
+            emit({"phase": "shard_setup", "rank_seconds": [rec["seconds"] for rec in recs]})
+            continue
+        if head["phase"] == "shard_profile_retries":
+            emit({"phase": "shard_profile_retries", "ranks": [rec["retries"] for rec in recs]})
+            continue
+        if head["phase"] == "sharded_kernels":
+            for key_ in ("rank_device_ms", "rank_ms", "rank_plain_ms", "pairs", "per_matvec",
+                         "seconds"):
+                if key_ in head:
+                    head[key_] = [rec[key_] for rec in recs]
+            whole = by_name[SHARD_UNSHARDED.get(head["name"], head["name"])]
+            head["unsharded_device_ms"] = whole["kernel_device_ms"]
+            head["unsharded_ms"] = whole["ms"]
+            if head["name"] in SHARD_LAUNCH_KEYS:
+                rank_ms[head["name"]] = head["rank_device_ms"]
+            emit(head)
+            continue
+        head["rank_launches"] = [rec["launches"] for rec in recs]
+        head["rank_seconds"] = [rec["seconds"] for rec in recs]
+        head["evals_same_bits_on_every_rank"] = all(rec["evals"] == recs[0]["evals"]
+                                                    for rec in recs)
+        if not head["evals_same_bits_on_every_rank"]:
+            failures.append(f"{key}: the ranks returned different eigenvalues")
+        tier = head.get("tier")
+        if tier in unsharded_iters:
+            head["unsharded_iterations"] = unsharded_iters[tier]
+            if abs(head["iterations"] - unsharded_iters[tier]) > SHARD_ITER_SLACK:
+                failures.append(f"{key}: {head['iterations']} iterations, the unsharded run "
+                                f"{unsharded_iters[tier]}")
+        lkey = SHARD_TIERS[tier][4] if tier else (
+            "symm_int8" if head["phase"] == "solve_sharded_ppcg" else None)
+        kname = {v: k for k, v in SHARD_LAUNCH_KEYS.items()}.get(lkey)
+        if kname is not None:
+            for r, rec in enumerate(recs):
+                rank_launches[kname][r] += rec["launches"]["action"]
+        emit(head)
+    for kname, counts in rank_launches.items():
+        if min(counts) == 0:
+            failures.append(f"{kname} was launched on no sharded solve of a rank: {counts}")
+    if failures:
+        raise AssertionError("sharded phases: " + "; ".join(failures))
+    return {"rank_launches": rank_launches, "rank_ms": rank_ms}
+
+
+def nccl_world1(matrix, device) -> dict:
+    """Phase e: NCCL at world size 1 in this process (a ``file://`` store in
+    a temporary directory, so runs side by side never share a rendezvous):
+    the "exact" solve with sharding against the same solve without it and
+    without the chain kernel (the sharded path never fuses the chain):
+    equal iterations, eigenvalues within 1e-6."""
+    import tempfile
+
+    import torch
+
+    from iterative_solver_torch import FusedDavidson
+    from iterative_solver_torch.parallel import block_sharding, collectives, init_process_group
+
+    rr, tol, res_limit, rq_limit, key, kw = SHARD_TIERS["exact"]
+    common = dict(tier="exact", m_max=M_MAX, rr=rr, convergence_threshold=tol, max_iter=60)
+    v0 = guess(np.diagonal(matrix), NROOTS)
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh = init_process_group(f"file://{tmp}/nccl_store", 1, 0, backend="nccl",
+                                  device=device)
+        try:
+            single = FusedDavidson.from_dense_symmetric(matrix, NROOTS, fuse_chain=False,
+                                                        **common)
+            s_evals, _, _, s_iters = single.run_on_device(v0)
+            sharded = FusedDavidson.from_dense_symmetric(matrix, NROOTS,
+                                                         sharding=block_sharding(mesh), **common)
+            reset_launches()
+            collectives.reset_counters()
+            torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            evals, x, errors, iters = sharded.run_on_device(v0)
+            torch.cuda.synchronize(device)
+            wall = time.perf_counter() - t0
+            launches = solve_launches(key)
+            staged, traffic = dict(collectives.STAGED), dict(collectives.TRAFFIC)
+        finally:
+            torch.distributed.destroy_process_group()
+    restarts = expected_restarts(iters, NROOTS, M_MAX)
+    expected = {"action": 1 + 2 + iters + restarts, "chain": 0, "gram": 0}
+    rec = {"phase": "nccl_world1", "backend": mesh.backend, "world": mesh.size,
+           "iterations": iters, "unsharded_iterations": s_iters, "seconds": wall,
+           "max_error": float(np.max(errors)),
+           "evals_max_abs_diff": float(np.max(np.abs(np.asarray(evals) - np.asarray(s_evals)))),
+           "launches": launches, "expected_launches": expected, "staged": staged,
+           "collectives": traffic, **dense_quality(x, matrix, REFERENCE_EIGENVALUES)}
+    emit(rec)
+    failures = []
+    if iters != s_iters:
+        failures.append(f"{iters} iterations, unsharded {s_iters}")
+    if not rec["evals_max_abs_diff"] <= 1e-6:
+        failures.append(f"eigenvalues off the unsharded by {rec['evals_max_abs_diff']:.3e}")
+    if not np.max(errors) <= tol:
+        failures.append(f"not converged: {np.max(errors):.3e}")
+    if launches != expected or staged["calls"] != 0:
+        failures.append(f"launches {launches} (expected {expected}), staged {staged}")
+    if not rec["f64_max_residual"] <= res_limit or not rec["rq_max_abs_err"] <= rq_limit:
+        failures.append(f"f64 checks {rec['f64_max_residual']:.3e}, {rec['rq_max_abs_err']:.3e}")
+    if failures:
+        raise AssertionError("nccl_world1: " + "; ".join(failures))
+    return rec
+
+
 def sass_counts(library) -> dict:
     """Instructions of interest in a built library's SASS, from cuobjdump
     (the toolkit's, beside nvcc): tensor-core products (HMMA float, IMMA
@@ -3843,7 +4499,9 @@ def main() -> int:
                                   tol=FLAGSHIP_RR_TOL, res_limit=FLAGSHIP_RR_RES_LIMIT,
                                   min_iters=FLAGSHIP_RR_EVERY,
                                   phase="solve_ppcg_flagship_full_rr")
-    del flagship
+    # the flagship's host copy, for the sharded phases at the end
+    flagship = dataclasses.replace(flagship, **{
+        f: getattr(flagship, f).cpu() for f in ("q", "gq", "ii", "jj", "diagonal")})
     emit(profile_headline(matrix, device))
 
     pspace = solve_pspace(matrix, device)
@@ -3882,6 +4540,15 @@ def main() -> int:
     del bench_bsr, sparse_dense
     phenol_rec = solve_phenol(phenol, phenol_diag, phenol_gen_s, device)
     del phenol
+    # last, as nothing profiled here follows them: the sharded phases (after
+    # other processes shared the card, this process's profiler windows
+    # dropped device events), then NCCL, whose communicator lives in this
+    # process
+    sharded = run_sharded(device, {rec["tier"]: rec["iterations"]
+                                   for rec in (fast, precise, exact, int8, int8_precise)},
+                          flagship, kernels)
+    del flagship
+    nccl = nccl_world1(bench_matrix(N), device)
 
     resumable = list(checkpoint["launches"].values())
     davidson = (fast, precise, exact, int8, int8_precise, sparse, phenol_rec, pspace)
@@ -3899,7 +4566,7 @@ def main() -> int:
 
     launches = {
         "K1-bf16": action(fast, linear["fast"]) + sum(r["action"] for r in resumable),
-        "K1-f32": action(exact, linear["exact"], *gradients, *spill),
+        "K1-f32": action(exact, linear["exact"], nccl, *gradients, *spill),
         "K3": action(precise, pspace, linear["precise"], refine),
         "K2": sum(p["launches"]["chain"] for p in davidson + linear_recs + spill)
         + sum(r["chain"] for r in resumable),
@@ -3920,7 +4587,12 @@ def main() -> int:
         k["launches"] = launches[k["name"]]
         if k["launches"] == 0 and k["name"] not in off_path:
             raise AssertionError(f"{k['name']} was not launched on the main path")
-        line.append({key: k[key] for key in keys})
+        row = {key: k[key] for key in keys}
+        if k["name"] in sharded["rank_launches"]:
+            # the sharded solves' launches and the kernel's ms on each rank's pairs
+            row["rank_launches"] = sharded["rank_launches"][k["name"]]
+            row["rank_ms"] = sharded["rank_ms"][k["name"]]
+        line.append(row)
     if sorted(k["name"] for k in line) != sorted(launches):
         raise AssertionError(f"the kernels line lists {[k['name'] for k in line]}")
     emit({"phase": "profile_retries", "retries": PROFILE_RETRIES})
@@ -3932,4 +4604,10 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--shard-worker"]:
+        # one rank of the sharded phases (spawn_shards):
+        # rank world store out_dir device flagship_n phase...
+        a = sys.argv[2:]
+        shard_worker(int(a[0]), int(a[1]), a[2], a[3], a[4], a[6:], int(a[5]))
+        sys.exit(0)
     sys.exit(main())

@@ -12,6 +12,10 @@ the rows, and the slots are managed on the host:
 - every Gram block and reconstruction is one product against the whole
   stack, and the host indexes its small result by the logical slot lists;
 - erasure frees a slot with no device traffic.
+
+With ``sharding=`` (``parallel/mesh.py``) a store holds this rank's slice
+of every row, ``(capacity, N_local)`` on the mesh's device; its Gram blocks
+and sweeps all-reduce over the mesh and its reconstructions stay local.
 """
 
 from __future__ import annotations
@@ -26,27 +30,30 @@ from . import vector_ops as vops
 
 Tensor = torch.Tensor
 
-_SHARDING = "sharding is not ported yet (ROADMAP.md Queue 1, item 6)"
-
-
 def _host(t: Tensor) -> np.ndarray:
     return t.detach().cpu().numpy()
 
 
 class BasisStore:
     """Slot-managed ``(capacity, N)`` stack of basis vectors on ``device``
-    (``None``: the CUDA device, raising without it)."""
+    (``None``: the CUDA device, raising without it); with ``sharding`` this
+    rank's ``(capacity, N_local)`` slice on the mesh's device."""
 
     def __init__(self, capacity: int, n: int, dtype=torch.float64, sharding=None,
                  name: str = "basis", device=None):
-        if sharding is not None:
-            raise NotImplementedError(_SHARDING)
         self.capacity = int(capacity)
         self.n = int(n)
         self.dtype = dtype
-        self.device = _config.resolve_device(device)
+        self.sharding = None if sharding is None else sharding.adapt(2)
+        if self.sharding is not None:
+            self.device = self.sharding.mesh.device
+            lo, hi = self.sharding.local_range(self.n)
+            self.width = hi - lo
+        else:
+            self.device = _config.resolve_device(device)
+            self.width = self.n
         self.name = name
-        self.data = torch.zeros((self.capacity, self.n), dtype=dtype, device=self.device)
+        self.data = torch.zeros((self.capacity, self.width), dtype=dtype, device=self.device)
         self._free: List[int] = list(range(self.capacity - 1, -1, -1))
 
     # -- slot management -------------------------------------------------
@@ -64,7 +71,7 @@ class BasisStore:
 
     def _grow(self) -> None:
         new_capacity = max(2 * self.capacity, 4)
-        pad = torch.zeros((new_capacity - self.capacity, self.n), dtype=self.dtype,
+        pad = torch.zeros((new_capacity - self.capacity, self.width), dtype=self.dtype,
                           device=self.device)
         self.data = torch.cat([self.data, pad], dim=0)
         self._free.extend(range(new_capacity - 1, self.capacity - 1, -1))
@@ -72,6 +79,10 @@ class BasisStore:
 
     # -- row access ------------------------------------------------------
     def _row(self, vec) -> Tensor:
+        """A row on the store's device: a local slice as given, a global
+        row of a sharded store cut to this rank's slice."""
+        if self.sharding is not None and np.shape(vec)[-1] != self.width:
+            return vops.to_device(vec, self.dtype, sharding=self.sharding)
         return vops.to_device(vec, self.dtype, self.device)
 
     def put(self, slot: int, vec) -> None:
@@ -98,7 +109,7 @@ class BasisStore:
     def rows(self, slots: Sequence[int]) -> Tensor:
         """Gather logical rows as a dense (len(slots), N) block."""
         if len(slots) == 0:
-            return torch.zeros((0, self.n), dtype=self.dtype, device=self.device)
+            return torch.zeros((0, self.width), dtype=self.dtype, device=self.device)
         return self.data[torch.as_tensor(list(slots), dtype=torch.long, device=self.device)]
 
     # -- block numerics --------------------------------------------------
@@ -106,7 +117,7 @@ class BasisStore:
         """<x_i, basis_slot> for EVERY physical slot: (m, capacity) host array.
         One product; callers index the small result by their logical slot
         lists (unused slots give columns that are never read)."""
-        return _host(torch.matmul(x, self.data.T))
+        return _host(vops.gram(x, self.data, self.sharding))
 
     def mgs_sweep(self, r: Tensor, slots: Sequence[int], inv_norms) -> Tensor:
         """Sequential modified Gram-Schmidt of the rows of ``r`` against the
@@ -119,7 +130,8 @@ class BasisStore:
             idx[logical] = slot
             inv[logical] = inv_norms[logical]
         xblock = self.data[torch.as_tensor(idx, device=self.device)]
-        return vops.mgs_project(r, xblock, vops.to_device(inv, self.dtype, self.device))
+        return vops.mgs_project(r, xblock, vops.to_device(inv, self.dtype, self.device),
+                                self.sharding)
 
     def gram(self, x: Tensor, slots: Sequence[int]) -> np.ndarray:
         """<x_i, basis_j> for the logical rows ``slots``: (m, k) host array."""

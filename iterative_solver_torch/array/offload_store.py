@@ -15,8 +15,8 @@ reference's DistrArrayFile-as-Qvector configuration keeps them
   ``block_rows`` rows streamed THROUGH it, so at most two blocks of
   history occupy device memory at once, however long the history is.
 
-``sharding=`` raises ``NotImplementedError``: the distributed layer waits
-for ROADMAP.md Queue 1, item 6b.
+``sharding=`` raises ``NotImplementedError``: the sharded store waits
+for ROADMAP.md Queue 1, item 6c.
 """
 
 from __future__ import annotations
@@ -32,7 +32,7 @@ from ..native import VecStore
 
 Tensor = torch.Tensor
 
-_SHARDING = "sharding is not ported yet (ROADMAP.md Queue 1, item 6b)"
+_SHARDING = "sharding is not ported yet (ROADMAP.md Queue 1, item 6c)"
 
 
 def _host64(x) -> np.ndarray:

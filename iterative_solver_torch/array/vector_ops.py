@@ -11,9 +11,13 @@ of plain functions over ``(m, N)`` row-blocks of tensors:
 - ``select_smallest`` / ``select_max_dot`` <- util/select.h top-n selection.
 
 float32 matmuls run in full float32 (``config`` pins TF32 off), the
-counterpart of the JAX package's ``Precision.HIGHEST``. Sharding helpers
-(``adapt_sharding``) wait for the port of the distributed layer (ROADMAP.md
-Queue 1, item 6).
+counterpart of the JAX package's ``Precision.HIGHEST``.
+
+Sharded row blocks (``parallel/mesh.py``): each rank holds its slice of the
+vector axis, so ``gram``, ``gram_sym``, ``dots_rows`` and ``norms_rows``
+take ``sharding=`` and all-reduce their contraction over N (GSPMD's psum in
+the JAX package); ``reconstruct`` needs no communication. ``to_device``
+with ``sharding=`` keeps this rank's slice of a global array.
 """
 
 from __future__ import annotations
@@ -24,18 +28,19 @@ import numpy as np
 import torch
 
 from .. import config as _config  # noqa: F401  (precision pins)
+from ..parallel.collectives import psum
 
 Tensor = torch.Tensor
 
 
-def gram(x: Tensor, y: Tensor) -> Tensor:
+def gram(x: Tensor, y: Tensor, sharding=None) -> Tensor:
     """<x_i, y_j> for row blocks: (m, N) x (k, N) -> (m, k)."""
-    return torch.matmul(x, y.T)
+    return psum(torch.matmul(x, y.T), sharding)
 
 
-def gram_sym(x: Tensor) -> Tensor:
+def gram_sym(x: Tensor, sharding=None) -> Tensor:
     """<x_i, x_j> overlap of a block with itself: (m, N) -> (m, m)."""
-    return torch.matmul(x, x.T)
+    return psum(torch.matmul(x, x.T), sharding)
 
 
 def reconstruct(coeff: Tensor, basis: Tensor) -> Tensor:
@@ -62,9 +67,9 @@ def scale_rows(alphas: Tensor, x: Tensor) -> Tensor:
     return alphas[:, None] * x
 
 
-def dots_rows(x: Tensor, y: Tensor) -> Tensor:
+def dots_rows(x: Tensor, y: Tensor, sharding=None) -> Tensor:
     """Row-wise dot products: (m, N), (m, N) -> (m,)."""
-    return torch.einsum("in,in->i", x, y)
+    return psum(torch.einsum("in,in->i", x, y), sharding)
 
 
 def chol_jitter(dtype) -> float:
@@ -76,16 +81,17 @@ def chol_jitter(dtype) -> float:
     return 1e-12 if dtype == torch.float64 else 1e-5
 
 
-def norms_rows(x: Tensor) -> Tensor:
-    return torch.sqrt(torch.abs(torch.einsum("in,in->i", x, x)))
+def norms_rows(x: Tensor, sharding=None) -> Tensor:
+    return torch.sqrt(torch.abs(dots_rows(x, x, sharding)))
 
 
-def normalize_rows(x: Tensor, thresh: float = 1.0e-14) -> Tuple[Tensor, Tensor]:
+def normalize_rows(x: Tensor, thresh: float = 1.0e-14,
+                   sharding=None) -> Tuple[Tensor, Tensor]:
     """Normalise each row unless its norm is below ``thresh`` (left untouched).
 
     Mirrors detail::normalise (IterativeSolverTemplate.h:80-93).
     """
-    norms = norms_rows(x)
+    norms = norms_rows(x, sharding)
     safe = torch.where(norms > thresh, norms, torch.ones_like(norms))
     return x / safe[:, None], norms
 
@@ -114,7 +120,7 @@ def fused_dot(x: Tensor, ys: Tensor) -> Tensor:
     return torch.matmul(ys, x)
 
 
-def mgs_project(r: Tensor, xblock: Tensor, inv_norms: Tensor) -> Tensor:
+def mgs_project(r: Tensor, xblock: Tensor, inv_norms: Tensor, sharding=None) -> Tensor:
     """Sequential modified-Gram-Schmidt projection of rows of ``r`` against
     the rows of ``xblock`` in order: r -= (r . x_i) * inv_norms[i] * x_i.
 
@@ -122,7 +128,7 @@ def mgs_project(r: Tensor, xblock: Tensor, inv_norms: Tensor) -> Tensor:
     Mirrors the orthogonalise sweep of propose_rspace.h:433-449."""
     for i in range(xblock.shape[0]):
         x = xblock[i]
-        dots = torch.matmul(r, x)
+        dots = psum(torch.matmul(r, x), sharding)
         r = r - (dots * inv_norms[i])[:, None] * x[None, :]
     return r
 
@@ -137,8 +143,18 @@ def jacobi_precondition_block(residual: Tensor, shifts: Tensor,
     return residual / (diagonals[None, :] - shifts[:, None] + small)
 
 
-def to_device(x, dtype=None, device=None) -> Tensor:
-    """A tensor of ``x`` (numpy, list or tensor) on ``device``."""
+def adapt_sharding(sharding, ndim: int):
+    """Fit a sharding's spec to an array rank: keep the trailing (vector)
+    axes, so a (rows, N) block spec applies to an (N,) vector as (N,)."""
+    return None if sharding is None else sharding.adapt(ndim)
+
+
+def to_device(x, dtype=None, device=None, sharding=None) -> Tensor:
+    """A tensor of ``x`` (numpy, list or tensor) on ``device``; with
+    ``sharding``, this rank's slice of the global ``x`` on the mesh's
+    device."""
+    if sharding is not None:
+        return sharding.shard(x, dtype=dtype)
     if isinstance(x, torch.Tensor):
         return x.to(device=device, dtype=dtype)
     return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)

@@ -16,7 +16,10 @@ iterative_solver_tpu/models/matrix_problem.py):
   (test/itsolv/test_rayleigh_quotient.cpp, python/test).
 
 Each takes ``device`` (``None``: the CUDA device) and ``dtype`` (``None``:
-the device's working dtype), as ``MatrixProblem`` does.
+the device's working dtype), as ``MatrixProblem`` does. ``MatrixProblem``
+also takes ``sharding=matrix_row_sharding(mesh)`` (parallel/mesh.py): each
+rank keeps its rows of the matrix, and the vectors it takes and returns
+are the rank's slices (the parity tier's sharded contract).
 """
 
 from __future__ import annotations
@@ -27,12 +30,11 @@ import numpy as np
 import torch
 
 from .. import config
+from ..parallel.collectives import all_gather
+from ..parallel.mesh import check_sharding
 from ..problem import Problem
 
 Tensor = torch.Tensor
-
-_SHARDING = "sharding is not ported yet (ROADMAP.md Queue 1, item 6)"
-
 
 def load_hamiltonian(path: str) -> np.ndarray:
     """Parse a .hamiltonian file: dimension token then n^2 doubles."""
@@ -46,31 +48,46 @@ def load_hamiltonian(path: str) -> np.ndarray:
 class MatrixProblem(Problem):
     """Linear problem defined by an explicit (hermitian or not) matrix.
     ``device=None`` is the CUDA device; ``dtype=None`` the device's working
-    dtype (float32 on CUDA, float64 on the CPU)."""
+    dtype (float32 on CUDA, float64 on the CPU).
+
+    ``sharding``: a ``matrix_row_sharding`` over a mesh; ``self.matrix``
+    then holds this rank's (N_local, N) rows, ``action`` all-gathers the
+    slices of x and returns the rank's slice of x Aᵀ, and ``diagonals`` and
+    ``p_action`` return the rank's slices."""
 
     def __init__(self, matrix, dtype=None, sharding=None, device=None):
         super().__init__()
-        if sharding is not None:
-            raise NotImplementedError(_SHARDING)
         matrix = np.asarray(matrix, dtype=np.float64)
         self.dimension = matrix.shape[0]
-        self.device = config.resolve_device(device)
+        self.sharding = check_sharding(sharding)
+        self.device = (self.sharding.mesh.device if self.sharding is not None
+                       else config.resolve_device(device))
         if dtype is None:
             dtype = config.default_dtype(self.device)
-        self.matrix = torch.as_tensor(matrix, dtype=dtype, device=self.device)
+        if self.sharding is not None:
+            self._host_matrix = matrix
+            self.matrix = self.sharding.shard(matrix, dtype=dtype)
+            self._lo = self.sharding.local_range(self.dimension)[0]
+        else:
+            self.matrix = torch.as_tensor(matrix, dtype=dtype, device=self.device)
         self.n_actions = 0
 
     def action(self, parameters: Tensor) -> Tensor:
         self.n_actions += parameters.shape[0]
+        if self.sharding is not None:
+            parameters = all_gather(parameters, self.sharding.mesh, dim=1, n=self.dimension)
         return torch.matmul(parameters, self.matrix.T)
 
     def diagonals(self) -> Tensor:
+        if self.sharding is not None:
+            return torch.diagonal(self.matrix, offset=self._lo)
         return torch.diagonal(self.matrix)
 
     def pp_action_matrix(self, pvectors: Sequence[Dict[int, float]]) -> np.ndarray:
         n_p = len(pvectors)
         mat = np.zeros((n_p, n_p))
-        host = self.matrix.to(torch.float64).cpu().numpy()
+        host = (self._host_matrix if self.sharding is not None
+                else self.matrix.to(torch.float64).cpu().numpy())
         for i, pi in enumerate(pvectors):
             for j, pj in enumerate(pvectors):
                 mat[i, j] = sum(

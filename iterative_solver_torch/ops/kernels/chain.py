@@ -352,7 +352,7 @@ def lower_solve(l: Tensor, x: Tensor) -> Tensor:
 
 
 def whiten_after_chain(t: Tensor, n0_2: Tensor, n2: Tensor, nroots: int,
-                       null_thresh: float, g: Optional[Tensor] = None):
+                       null_thresh: float, g: Optional[Tensor] = None, sharding=None):
     """Null-drop + Cholesky whitening shared by the fused solver families
     (chain_pallas.py:123-168).
 
@@ -368,6 +368,8 @@ def whiten_after_chain(t: Tensor, n0_2: Tensor, n2: Tensor, nroots: int,
       solve on the (r, N) block directly.
 
     Returns ``(t, keep)`` — the whitened block and the surviving-row mask.
+    ``sharding``: ``t`` is this rank's slice of N (parallel/mesh.py) and its
+    Gram is all-reduced.
     """
     keep = n2 > null_thresh**2 * torch.clamp(n0_2, min=1e-300)
     one = torch.ones_like(n2)
@@ -379,6 +381,10 @@ def whiten_after_chain(t: Tensor, n0_2: Tensor, n2: Tensor, nroots: int,
     else:
         t = t * s[:, None]
         g = torch.matmul(t, t.T)
+        if sharding is not None:
+            from ...parallel.collectives import psum
+
+            g = psum(g, sharding)
     g = torch.where(keep[:, None] & keep[None, :], g, torch.zeros_like(g))
     # dead rows get a unit diagonal so the Cholesky stays defined; live rows
     # a dtype-aware jitter ABOVE the Gram roundoff (two near-parallel

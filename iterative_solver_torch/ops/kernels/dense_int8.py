@@ -42,7 +42,7 @@ from .symm_int8 import _check_acc_headroom, quantize_rows, quantize_rows_split
 
 Tensor = torch.Tensor
 
-_SHARD = "sharding is not ported yet (ROADMAP.md Queue 1, item 6)"
+_SHARD = "sharding is not ported yet (ROADMAP.md Queue 1, item 6c)"
 # rows of x the card's torch._int_mm takes at least (more than 16, a
 # multiple of 8)
 INT_MM_ROWS = 32

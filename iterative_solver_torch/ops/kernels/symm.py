@@ -80,9 +80,20 @@ class SymmetricBlocked:
     work: Optional[Tensor] = dataclasses.field(default=None, repr=False, compare=False)
     sums: Optional[Tensor] = dataclasses.field(default=None, repr=False, compare=False)
 
+    # the tensors a matvec takes as its operand (``packed_matvec``), in order
+    OPERAND = ("values", "ii", "jj")
+
     @property
     def n_pairs(self) -> int:
         return self.values.shape[0]
+
+    def kernel(self, x: Tensor) -> Tensor:
+        """K1 on this storage (``symm_matmat_kernel``)."""
+        return symm_matmat_kernel(x, self)
+
+    def plain(self, x: Tensor) -> Tensor:
+        """K1's plain version (``symm_matmat``)."""
+        return symm_matmat(x, self)
 
     @classmethod
     def from_dense(cls, matrix: np.ndarray, b: int = 512, dtype=None,
@@ -108,6 +119,17 @@ class SymmetricBlocked:
         )
 
 
+def exactly_symmetric(matrix: np.ndarray, block: int = 256) -> bool:
+    """matrix == matrix.T entry for entry (NaN never equal), compared one
+    pair of ``block`` x ``block`` tiles at a time: a whole-matrix transposed
+    compare walks one operand against its memory order (4x slower at n =
+    8192)."""
+    n = matrix.shape[0]
+    return all(np.array_equal(matrix[i:i + block, j:j + block],
+                              matrix[j:j + block, i:i + block].T)
+               for i in range(0, n, block) for j in range(i, n, block))
+
+
 def _pack_lower(matrix, b, tol=None):
     """Host packing shared by both storage classes: pad to the tile
     multiple, gather the lower tile pairs (one reshape/swap view + fancy
@@ -116,7 +138,7 @@ def _pack_lower(matrix, b, tol=None):
     n = matrix.shape[0]
     if matrix.shape != (n, n):
         raise ValueError(f"operator must be square, got {matrix.shape}")
-    if not np.array_equal(matrix, matrix.T):
+    if not exactly_symmetric(matrix):
         raise ValueError("SymmetricBlocked requires an exactly symmetric matrix")
     b = min(b, n)
     n_pad = ((n + b - 1) // b) * b
@@ -262,9 +284,19 @@ class SymmetricBlockedSplit:
     work: Optional[Tensor] = dataclasses.field(default=None, repr=False, compare=False)
     sums: Optional[Tensor] = dataclasses.field(default=None, repr=False, compare=False)
 
+    OPERAND = ("hi", "lo", "ii", "jj")
+
     @property
     def n_pairs(self) -> int:
         return self.hi.shape[0]
+
+    def kernel(self, x: Tensor) -> Tensor:
+        """K3 on this storage (``symm_matmat_split_kernel``)."""
+        return symm_matmat_split_kernel(x, self)
+
+    def plain(self, x: Tensor) -> Tensor:
+        """K3's plain version (``symm_matmat_split``)."""
+        return symm_matmat_split(x, self)
 
     @classmethod
     def from_dense(cls, matrix: np.ndarray, b: int = 512,
@@ -461,6 +493,20 @@ def symm_matmat_split_kernel(x: Tensor, sym: SymmetricBlockedSplit) -> Tensor:
     _build.check(lib, err, "symm_packed_split")
     LAUNCHES["symm_split"] += 1
     return y
+
+
+def packed_matvec(sym):
+    """``(matvec, operand)`` of a packed storage (this module's or
+    symm_int8.py's): ``matvec(x, operand)`` runs the storage's kernel
+    wrapper (``sym.kernel``) with the operand's tensors in place of its own,
+    cast to x's dtype. The operand is ``sym``'s ``OPERAND`` tensors, never a
+    baked constant."""
+    fields = type(sym).OPERAND
+
+    def matvec(x, op):
+        return dataclasses.replace(sym, **dict(zip(fields, op))).kernel(x).to(x.dtype)
+
+    return matvec, tuple(getattr(sym, f) for f in fields)
 
 
 def make_differentiable_symm_action(sym: SymmetricBlocked):

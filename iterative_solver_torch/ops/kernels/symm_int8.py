@@ -66,7 +66,7 @@ import torch
 
 from ... import config as _config
 from . import _build
-from .symm import _check_operands
+from .symm import _check_operands, exactly_symmetric, packed_matvec
 
 Tensor = torch.Tensor
 
@@ -92,7 +92,7 @@ def _pack_lower(matrix: np.ndarray, b: int):
     n = matrix.shape[0]
     if matrix.shape != (n, n):
         raise ValueError(f"operator must be square, got {matrix.shape}")
-    if not np.allclose(matrix, matrix.T, atol=0.0, rtol=0.0):
+    if not exactly_symmetric(matrix):
         raise ValueError("int8 symmetric packing requires an exactly symmetric matrix")
     b = min(b, n)
     n_pad = ((n + b - 1) // b) * b
@@ -177,9 +177,20 @@ class SymmetricBlockedInt8:
     b: int
     diagonal: Optional[Tensor] = None   # (n_pad,) float32 exact diagonal
 
+    # the tensors a matvec takes as its operand (``symm.packed_matvec``)
+    OPERAND = ("q", "gq", "diagonal", "ii", "jj")
+
     @property
     def n_pairs(self) -> int:
         return self.q.shape[0]
+
+    def kernel(self, x: Tensor) -> Tensor:
+        """K4 on this storage (``symm_matmat_int8_kernel``)."""
+        return symm_matmat_int8_kernel(x, self)
+
+    def plain(self, x: Tensor) -> Tensor:
+        """K4's plain version (``symm_matmat_int8``)."""
+        return symm_matmat_int8(x, self)
 
     @classmethod
     def from_dense(cls, matrix: np.ndarray, b: int = 512, tol: Optional[float] = None,
@@ -216,9 +227,19 @@ class SymmetricBlockedInt8Split:
     b: int
     diagonal: Optional[Tensor] = None   # (n_pad,) float32 exact diagonal
 
+    OPERAND = ("q1", "q2", "gq", "diagonal", "ii", "jj")
+
     @property
     def n_pairs(self) -> int:
         return self.q1.shape[0]
+
+    def kernel(self, x: Tensor) -> Tensor:
+        """K5 on this storage (``symm_matmat_int8_split_kernel``)."""
+        return symm_matmat_int8_split_kernel(x, self)
+
+    def plain(self, x: Tensor) -> Tensor:
+        """K5's plain version (``symm_matmat_int8_split``)."""
+        return symm_matmat_int8_split(x, self)
 
     @classmethod
     def from_dense(cls, matrix: np.ndarray, b: int = 512, tol: Optional[float] = None,
@@ -481,22 +502,12 @@ def symm_matmat_int8_split_kernel(x: Tensor, sym: SymmetricBlockedInt8Split) -> 
 
 
 def int8_matvec(sym):
-    """``(matvec, operand)`` for a built int8 operator: ``matvec(x,
-    operand)`` calls the kernel wrapper of ``sym``'s tier, which launches
-    K4/K5 for CUDA tensors and runs the plain version for CPU tensors.
-    Every tensor (planes, scales, diagonal, topology) is an operand, in the
-    JAX package's order, never a baked constant."""
-    if isinstance(sym, SymmetricBlockedInt8Split):
-        fields = ("q1", "q2", "gq", "diagonal", "ii", "jj")
-        kernel = symm_matmat_int8_split_kernel
-    else:
-        fields = ("q", "gq", "diagonal", "ii", "jj")
-        kernel = symm_matmat_int8_kernel
-
-    def matvec(x, op):
-        return kernel(x, dataclasses.replace(sym, **dict(zip(fields, op)))).to(x.dtype)
-
-    return matvec, tuple(getattr(sym, f) for f in fields)
+    """``(matvec, operand)`` for a built int8 operator (``symm.packed_matvec``):
+    ``matvec(x, operand)`` calls the kernel wrapper of ``sym``'s tier, which
+    launches K4/K5 for CUDA tensors and runs the plain version for CPU
+    tensors. Every tensor (planes, scales, diagonal, topology) is an
+    operand, in the JAX package's order, never a baked constant."""
+    return packed_matvec(sym)
 
 
 def make_int8_matvec(matrix, b: int = 512, two_plane: bool = False,

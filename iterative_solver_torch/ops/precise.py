@@ -44,7 +44,7 @@ class SplitOperator:
                    device=None) -> "SplitOperator":
         """``device=None`` is the CUDA device (raises without it)."""
         if sharding is not None:
-            raise NotImplementedError("sharding is not ported yet (ROADMAP.md Queue 1, item 6)")
+            raise NotImplementedError("sharding is not ported yet (ROADMAP.md Queue 1, item 6c)")
         device = config.resolve_device(device)
         matrix = np.asarray(matrix, dtype=np.float64)
         n = matrix.shape[1]

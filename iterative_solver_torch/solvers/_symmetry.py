@@ -30,15 +30,21 @@ def check_symmetric_operator(
     parity_hint: str,
     device=None,
     rel_tol: float = 1e-2,
+    sharding=None,
 ) -> None:
     """Raise ValueError if matvec is measurably non-symmetric. ``device=None``
-    is the CUDA device (raises without it)."""
+    is the CUDA device (raises without it). With ``sharding`` the block
+    shape is the global one, each rank probes with its slices of the global
+    blocks, and the six sums are all-reduced, so every rank decides alike."""
     device = _config.resolve_device(device)
     rng = np.random.default_rng(0)
     u = rng.standard_normal(block_shape)
     v = rng.standard_normal(block_shape)
-    tu = torch.as_tensor(u, dtype=dtype, device=device)
-    tv = torch.as_tensor(v, dtype=dtype, device=device)
+    if sharding is not None:
+        tu, tv = sharding.shard(u, dtype=dtype), sharding.shard(v, dtype=dtype)
+    else:
+        tu = torch.as_tensor(u, dtype=dtype, device=device)
+        tv = torch.as_tensor(v, dtype=dtype, device=device)
 
     def host(a):
         return a.detach().to("cpu", torch.float64).numpy()
@@ -47,11 +53,16 @@ def check_symmetric_operator(
     wv = host(matvec(tv, operand))
     uu = host(tu)
     vv = host(tv)
-    s_uv = float(np.sum(uu * wv))  # <u, Av>
-    s_vu = float(np.sum(vv * wu))  # <v, Au>
+    sums = np.array([np.sum(uu * wv), np.sum(vv * wu), np.sum(uu * uu),
+                     np.sum(wv * wv), np.sum(vv * vv), np.sum(wu * wu)])
+    if sharding is not None:
+        from ..parallel.collectives import psum
+
+        sums = psum(torch.as_tensor(sums, device=device), sharding).cpu().numpy()
+    s_uv, s_vu = float(sums[0]), float(sums[1])  # <u, Av>, <v, Au>
     scale = (
-        np.linalg.norm(uu) * np.linalg.norm(wv)
-        + np.linalg.norm(vv) * np.linalg.norm(wu)
+        np.sqrt(sums[2]) * np.sqrt(sums[3])
+        + np.sqrt(sums[4]) * np.sqrt(sums[5])
     )
     if abs(s_uv - s_vu) > rel_tol * max(scale, 1e-300):
         raise ValueError(

@@ -13,9 +13,16 @@ return ``(m, N)`` row-blocks instead of mutating VecRef views.
 ``device=None`` is the CUDA device and raises where CUDA is absent; pass
 ``device="cpu"`` for the host (the tests do). ``dtype=None`` is float32 on
 CUDA and float64 on the CPU. ``offload=`` moves the basis history to the
-host/disk spill tier (array/offload_store.py). ``sharding=`` raises
-``NotImplementedError``: the distributed layer waits for ROADMAP.md
-Queue 1, item 6.
+host/disk spill tier (array/offload_store.py).
+
+``sharding=`` (parallel/mesh.py, ``block_sharding(mesh)``) runs the
+Davidson families one process per shard of the vector axis (SPMD): the
+basis stores hold each rank's slice, every overlap and norm over N is
+all-reduced, the caller's blocks and the problem's vectors are each rank's
+slices (a global numpy block is cut to the rank's slice), and the host's
+subspace work sees the same all-reduced numbers on every rank. Families
+whose sharding is not ported (``shardable = False``) raise
+``NotImplementedError`` naming ROADMAP.md Queue 1, item 6c.
 """
 
 from __future__ import annotations
@@ -28,13 +35,14 @@ import torch
 from .. import config
 from ..array import vector_ops as vops
 from ..array.basis_store import _host
+from ..parallel.mesh import check_sharding
 from ..problem import Problem
 from ..subspace.xspace import XSpace
 from ..utils import Logger, Profiler, Statistics, null_profiler
 
 Tensor = torch.Tensor
 
-_SHARDING = "sharding is not ported yet (ROADMAP.md Queue 1, item 6)"
+_SHARDING = "sharding is not ported yet (ROADMAP.md Queue 1, item 6c)"
 
 
 def _rows(x) -> Tensor:
@@ -73,6 +81,7 @@ class Verbosity:
 class IterativeSolverTemplate:
     nonlinear: bool = False
     linear_eigensystem: bool = False
+    shardable: bool = False
 
     def __init__(
         self,
@@ -86,14 +95,15 @@ class IterativeSolverTemplate:
         offload=False,
         device=None,
     ):
-        if sharding is not None:
+        if sharding is not None and not self.shardable:
             raise NotImplementedError(_SHARDING)
-        self.device = config.resolve_device(device)
+        self.sharding = check_sharding(sharding)
+        self.device = (self.sharding.mesh.device if self.sharding is not None
+                       else config.resolve_device(device))
         if dtype is None:
             dtype = config.default_dtype(self.device)
         self.n = int(n)
         self.dtype = dtype
-        self.sharding = None
         self.logger = logger or Logger()
         if profiler is None:
             # ambient PROFILER_DEPTH enables region timing, PROFILER_OUTPUT
@@ -120,7 +130,7 @@ class IterativeSolverTemplate:
             else:
                 store_factory = OffloadBasisStore
         self.xspace = XSpace(
-            n, dtype, capacity=cap, logger=self.logger, stats=self.stats,
+            n, dtype, self.sharding, capacity=cap, logger=self.logger, stats=self.stats,
             store_factory=store_factory, device=self.device,
         )
         self.subspace_solver = None  # set by concrete solver
@@ -229,7 +239,7 @@ class IterativeSolverTemplate:
         params = self._construct_solution_params(roots)
         residual = self._construct_residual_actions(roots)
         if self.normalise_solution:
-            norms = _host(vops.norms_rows(params))
+            norms = _host(vops.norms_rows(params, self.sharding))
             scale = np.where(norms > 1e-14, 1.0 / np.where(norms > 1e-14, norms, 1.0), 1.0)
             scale_dev = vops.to_device(scale, self.dtype, self.device)
             params = vops.scale_rows(scale_dev, params)
@@ -254,6 +264,8 @@ class IterativeSolverTemplate:
         solution = _rows(solution)
         residual = _rows(residual)
         contrib = torch.amax(torch.abs(solution * residual), dim=0)
+        if self.sharding is not None:
+            contrib = self.sharding.gather(contrib, self.n)
         k = min(max_number, self.n)
         vals, idx = torch.topk(contrib, k)
         vals = _host(vals)
@@ -322,7 +334,7 @@ class IterativeSolverTemplate:
         roots = list(range(nsol))
         with self.profiler.push("construct_solutions"):
             sol_params, sol_residuals = self.solution(roots)
-            errors = _host(vops.norms_rows(sol_residuals)).astype(float)
+            errors = _host(vops.norms_rows(sol_residuals, self.sharding)).astype(float)
         self.subspace_solver.set_errors(roots, errors)
         self.set_value_errors()
         self.errors = list(self.subspace_solver.errors)
@@ -368,7 +380,7 @@ class IterativeSolverTemplate:
         """
         from ..native.vecstore import VecStore
 
-        temp = VecStore(2 * nsol, self.n)
+        temp = VecStore(2 * nsol, int(parameters.shape[-1]))
         try:
             errors = np.zeros(nsol)
             slot_pairs = []
@@ -376,7 +388,8 @@ class IterativeSolverTemplate:
                 for start in range(0, nsol, nrows):
                     roots_b = list(range(start, min(start + nrows, nsol)))
                     p_b, r_b = self.solution(roots_b)
-                    errors[start : start + len(roots_b)] = _host(vops.norms_rows(r_b))
+                    errors[start : start + len(roots_b)] = _host(
+                        vops.norms_rows(r_b, self.sharding))
                     p_host = _host(p_b.to(torch.float64))
                     r_host = _host(r_b.to(torch.float64))
                     for i in range(len(roots_b)):
@@ -420,10 +433,25 @@ class IterativeSolverTemplate:
         return len(self.working_set), parameters, actions
 
     def _block(self, x) -> Tensor:
-        """A caller's (rows, N) block (numpy or tensor) on the solver's device."""
+        """A caller's (rows, N) block (numpy or tensor) on the solver's
+        device; under sharding a global block is cut to this rank's slice."""
         if not isinstance(x, torch.Tensor):
             x = np.asarray(x, dtype=np.float64)
-        return _rows(vops.to_device(x, self.dtype, self.device))
+        return _rows(self._vector(x))
+
+    def _vector(self, x) -> Tensor:
+        """``x`` (..., N) on the solver's device: under sharding a global
+        array is cut to this rank's slice and a slice is kept as it is."""
+        if self.sharding is not None and np.shape(x)[-1] == self.n:
+            return vops.to_device(x, self.dtype, sharding=self.sharding)
+        return vops.to_device(x, self.dtype, self.device)
+
+    def _global_smallest(self, diagonals: Tensor, k: int):
+        """Indices and values of the k smallest diagonal entries over the
+        whole vector (the diagonal gathered under sharding)."""
+        if self.sharding is not None:
+            diagonals = self.sharding.gather(diagonals, self.n)
+        return vops.select_smallest(diagonals, k)
 
     # ------------------------------------------------------------------
     def report(self, iteration: Optional[int] = None) -> None:
@@ -462,13 +490,13 @@ class IterativeSolverTemplate:
         diagonals = problem.diagonals()
         use_diagonals = diagonals is not None
         if use_diagonals:
-            diagonals = vops.to_device(diagonals, self.dtype, self.device)
+            diagonals = self._vector(diagonals)
 
         if generate_initial_guess:
             if self.linear_eigensystem:
                 if not use_diagonals:
                     raise RuntimeError("Default initial guess requested, but diagonal elements are not available")
-                idx, _ = vops.select_smallest(diagonals, min(parameters.shape[0], self.n))
+                idx, _ = self._global_smallest(diagonals, min(parameters.shape[0], self.n))
                 guess = np.zeros((parameters.shape[0], self.n))
                 for row, i in enumerate(_host(idx)):
                     guess[row, int(i)] = 1.0
@@ -480,7 +508,7 @@ class IterativeSolverTemplate:
                 guess = np.zeros((parameters.shape[0], self.n))
                 for row in range(parameters.shape[0]):
                     guess[row, row % self.n] = 1.0
-            parameters = vops.to_device(guess, self.dtype, self.device)
+            parameters = self._vector(guess)
 
         nwork = parameters.shape[0]
         pspace = []
@@ -531,7 +559,7 @@ class IterativeSolverTemplate:
     def _auto_pspace(self, problem: Problem, diagonals: Tensor, parameters: Tensor, actions: Tensor):
         """Automatic P-space selection from smallest diagonals
         (IterativeSolverTemplate.h:353-376)."""
-        idx, vals = vops.select_smallest(diagonals, min(self.max_p, self.n))
+        idx, vals = self._global_smallest(diagonals, min(self.max_p, self.n))
         idx = _host(idx)
         vals = _host(vals).astype(float)
         keep = [0] if len(idx) else []

@@ -14,6 +14,12 @@ cannot disturb early ones: the working-set shrinking of the reference
 (IterativeSolverTemplate.h:105-117) without dynamic shapes. The JAX
 ``lax.while_loop`` becomes a host loop that checks convergence before
 every iteration.
+
+Sharding (``sharding=``, parallel/mesh.py) runs one process per shard of
+the vector axis (SPMD): the blocks and the diagonal are each rank's
+slices, every row dot and the max of the diagonal is all-reduced, so every
+rank takes the same branch; ``solve`` takes global right-hand sides and
+returns the gathered solution.
 """
 
 from __future__ import annotations
@@ -25,8 +31,10 @@ import torch
 
 from .. import config
 from ..array.vector_ops import dots_rows as _rows_dot
+from ..array.vector_ops import to_device
+from ..parallel.collectives import pmax
+from ..parallel.mesh import check_sharding
 from ._finite import check_finite
-from .fused_davidson import _SHARDING
 
 Tensor = torch.Tensor
 
@@ -39,18 +47,20 @@ class CGState(NamedTuple):
     errors: Tensor   # (nrhs,) |r| / |b|
 
 
-def _jacobi_inverse(diag: Tensor) -> Tensor:
+def _jacobi_inverse(diag: Tensor, sharding=None) -> Tensor:
     """Reciprocal of the regularised Jacobi denominator, formed once per
     solve; ``diag`` is (N,) shared or (nrhs, N) per right-hand side."""
     d = diag if diag.dim() == 2 else diag[None, :]
-    return 1.0 / (d + 1e-15 * torch.max(torch.abs(d)) + 1e-300)
+    return 1.0 / (d + 1e-15 * pmax(torch.max(torch.abs(d)), sharding) + 1e-300)
 
 
-def _step_body(matvec: Callable[..., Tensor]):
+def _step_body(matvec: Callable[..., Tensor], sharding=None):
+    sh = sharding
+
     def step(state: CGState, operand, dinv: Tensor, b_norm: Tensor, tol_) -> CGState:
         x, r, p, rz = state.x, state.r, state.p, state.rz
         ap = matvec(p, operand)
-        pap = _rows_dot(p, ap)
+        pap = _rows_dot(p, ap, sh)
         # frozen systems (converged, or p annihilated) take a zero step; the
         # guard is relative to rz, so a non-SPD or ill-conditioned operator
         # driving pap toward 0 stops the iterate instead of exploding it
@@ -61,22 +71,22 @@ def _step_body(matvec: Callable[..., Tensor]):
         x = x + alpha[:, None] * p
         r = r - alpha[:, None] * ap
         z = r * dinv
-        rz_new = _rows_dot(r, z)
+        rz_new = _rows_dot(r, z, sh)
         beta = torch.where(active, rz_new / torch.where(rz > 0, rz, one), torch.zeros_like(rz))
         p = z + beta[:, None] * p
-        errors = torch.sqrt(torch.abs(_rows_dot(r, r))) / b_norm
+        errors = torch.sqrt(torch.abs(_rows_dot(r, r, sh))) / b_norm
         return CGState(x, r, p, rz_new, errors)
 
     return step
 
 
-def make_cg_solve(matvec: Callable[..., Tensor]):
+def make_cg_solve(matvec: Callable[..., Tensor], sharding=None):
     """The whole A X = B solve:
     ``solve(state, operand, diag, b_norm, tol, max_iter) -> (state, iterations)``."""
-    step = _step_body(matvec)
+    step = _step_body(matvec, sharding)
 
     def solve(state: CGState, operand, diag: Tensor, b_norm: Tensor, tol_, max_iter_):
-        dinv = _jacobi_inverse(diag)
+        dinv = _jacobi_inverse(diag, sharding)
         s, it = state, 0
         # one scalar sync per iteration; NaN > tol is False, so a NaN error
         # ends the loop and check_finite raises
@@ -88,12 +98,12 @@ def make_cg_solve(matvec: Callable[..., Tensor]):
     return solve
 
 
-def make_cg_init(matvec: Callable[..., Tensor]):
+def make_cg_init(matvec: Callable[..., Tensor], sharding=None):
     def init(x0: Tensor, b: Tensor, operand, diag: Tensor, b_norm: Tensor) -> CGState:
         r = b - matvec(x0, operand)
-        z = r * _jacobi_inverse(diag)
-        rz = _rows_dot(r, z)
-        errors = torch.sqrt(torch.abs(_rows_dot(r, r))) / b_norm
+        z = r * _jacobi_inverse(diag, sharding)
+        rz = _rows_dot(r, z, sharding)
+        errors = torch.sqrt(torch.abs(_rows_dot(r, r, sharding))) / b_norm
         return CGState(x0, r, z, rz, errors)
 
     return init
@@ -146,7 +156,9 @@ class FusedBlockCG:
     For SPD operators only (the CG invariant); use FusedLinearEquations for
     indefinite or general symmetric systems. Shares the (matvec, diagonals,
     n, nrhs, operand) constructor of the other fused families.
-    ``device=None`` means CUDA and raises where CUDA is absent."""
+    ``device=None`` means CUDA and raises where CUDA is absent. Under
+    ``sharding`` the diagonals (shared (N,) or per right-hand side
+    (nrhs, N)) are global and each rank keeps its slice."""
 
     def __init__(
         self,
@@ -162,9 +174,9 @@ class FusedBlockCG:
         check_symmetric: bool = True,
         device=None,
     ):
-        if sharding is not None:
-            raise NotImplementedError(_SHARDING)
-        self.device = config.resolve_device(device)
+        self.sharding = check_sharding(sharding)
+        self.device = (self.sharding.mesh.device if self.sharding is not None
+                       else config.resolve_device(device))
         if dtype is None:
             dtype = config.default_dtype(self.device)
         self.matvec = matvec
@@ -174,24 +186,25 @@ class FusedBlockCG:
         self.tol = convergence_threshold
         self.max_iter = max_iter
         self.operand = operand
-        self.sharding = None
-        self.diag = torch.as_tensor(np.array(diagonals), dtype=dtype, device=self.device)
-        self._init = make_cg_init(matvec)
-        self._solve = make_cg_solve(matvec)
+        self.diag = self._tensor(np.array(diagonals))
+        self._init = make_cg_init(matvec, self.sharding)
+        self._solve = make_cg_solve(matvec, self.sharding)
         self.check_symmetric = check_symmetric
         self._symmetry_checked = False
 
     def _tensor(self, a) -> Tensor:
-        a = a if isinstance(a, torch.Tensor) else torch.as_tensor(np.asarray(a))
-        return a.to(device=self.device, dtype=self.dtype)
+        """A global array (..., n) on the device: this rank's slice under
+        sharding."""
+        return to_device(a, self.dtype, self.device, self.sharding)
 
     def solve(self, b, x0=None):
         """Returns ``(x, errors, iterations)``; errors are |A x - b| / |b|.
         ``x`` stays a tensor on the solver's device; errors come back as
-        numpy."""
+        numpy. Under sharding ``b`` and ``x0`` are global and ``x`` comes
+        back gathered."""
         b = self._tensor(b)
         x0 = torch.zeros_like(b) if x0 is None else self._tensor(x0)
-        b_norm = torch.sqrt(torch.abs(_rows_dot(b, b)))
+        b_norm = torch.sqrt(torch.abs(_rows_dot(b, b, self.sharding)))
         b_norm = torch.where(b_norm > 0, b_norm, torch.ones_like(b_norm))
         if self.check_symmetric and not self._symmetry_checked:
             from ._symmetry import check_symmetric_operator
@@ -199,11 +212,12 @@ class FusedBlockCG:
             # row-wise shifted SPD systems stay term-by-term symmetric
             # under the block contraction, so the probe holds for them too
             check_symmetric_operator(
-                self.matvec, self.operand, tuple(b.shape), self.dtype,
+                self.matvec, self.operand, (b.shape[0], self.n), self.dtype,
                 "FusedBlockCG",
                 "solvers.linear_equations.LinearEquationsDavidson"
                 "(hermitian=False)",
                 device=self.device,
+                sharding=self.sharding,
             )
             self._symmetry_checked = True
         state = self._init(x0, b, self.operand, self.diag, b_norm)
@@ -211,4 +225,5 @@ class FusedBlockCG:
                                    self.tol, self.max_iter)
         errors = final.errors.cpu().numpy()
         check_finite(errors, "FusedBlockCG")
-        return final.x, errors, int(iters)
+        x = final.x if self.sharding is None else self.sharding.gather(final.x, self.n)
+        return x, errors, int(iters)

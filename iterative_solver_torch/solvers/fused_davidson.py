@@ -30,13 +30,22 @@ Differences from the JAX package, each kept to the same semantics:
 - The batched solve runs the same step under ``torch.func.vmap``, so the
   stacks are built without writing a batched block into an unbatched one.
 
-Sharding is not ported yet and raises ``NotImplementedError`` naming its
-ROADMAP item.
+Sharding (``sharding=``, parallel/mesh.py) runs one process per shard of
+the vector axis N (SPMD): every (rows, N) tensor of the state is this
+rank's slice, the matvec maps a rank's slice of x to its slice of y, and
+every contraction over N (the Rayleigh matrix, the dots, the Gram-Schmidt
+projections, the restart and whitening Grams) and the max of the diagonal
+is all-reduced, where GSPMD inserts a psum in the JAX package. The host's
+decisions (convergence, restart, keep masks) read only all-reduced values,
+so every rank takes the same branch. The chain kernel stays off under
+sharding, as the JAX package fuses the chain only when ``sharding is None``
+(fused_davidson.py:839-844). A solve takes the same global guess on every
+rank and returns replicated eigenvalues and errors and the gathered Ritz
+vectors.
 """
 
 from __future__ import annotations
 
-import dataclasses
 from typing import Callable, NamedTuple, Optional
 
 import numpy as np
@@ -50,11 +59,15 @@ from ..ops.kernels.chain import (
     lower_solve,
     whiten_after_chain,
 )
+from ..array.vector_ops import to_device
+from ..parallel.collectives import barrier, pmax, psum
+from ..parallel.mesh import check_sharding
 from ._finite import check_finite
 
 Tensor = torch.Tensor
 
-_SHARDING = "sharding is not ported yet (ROADMAP.md Queue 1, item 6)"
+# the message of the entry points whose sharding waits for its ROADMAP item
+_SHARDING = "sharding is not ported yet (ROADMAP.md Queue 1, item 6c)"
 
 
 class DavidsonState(NamedTuple):
@@ -128,8 +141,8 @@ def validate_p_inputs(p_space, p_actions, n: int):
     return p_dense, n_p, p_action_rows
 
 
-def _dots(a: Tensor, b: Tensor) -> Tensor:
-    return torch.einsum("in,in->i", a, b)
+def _dots(a: Tensor, b: Tensor, sharding=None) -> Tensor:
+    return psum(torch.einsum("in,in->i", a, b), sharding)
 
 
 def _eye(n: int, like: Tensor) -> Tensor:
@@ -151,21 +164,21 @@ def _zero_rows(c: Tensor, n_p: int) -> Tensor:
     return torch.cat([c.new_zeros((n_p,) + tuple(c.shape[1:])), c[n_p:]], dim=0)
 
 
-def _p_project(x: Tensor, pv: Tensor) -> Tensor:
+def _p_project(x: Tensor, pv: Tensor, sharding=None) -> Tensor:
     """Two classical Gram-Schmidt passes of the rows of ``x`` against the
     orthonormal rows ``pv``."""
     for _ in range(2):
-        x = x - torch.matmul(torch.matmul(x, pv.T), pv)
+        x = x - torch.matmul(psum(torch.matmul(x, pv.T), sharding), pv)
     return x
 
 
-def _masked_eigh(v, w, mask):
+def _masked_eigh(v, w, mask, sharding=None):
     """Rayleigh matrix over active slots; inactive diagonals pushed just
     above the active spectrum so their eigenpairs sort last. The pad value
     tracks the matrix scale (a huge constant would wreck a float32 eigh).
     The JAX package promotes this eigh to f64 wherever f64 is native (every
     backend but the TPU); the port does so on the CPU and on CUDA."""
-    h = torch.matmul(v, w.T)
+    h = psum(torch.matmul(v, w.T), sharding)
     h = 0.5 * (h + h.T)
     h = h * (mask[:, None] * mask[None, :])
     big = 4.0 * torch.max(torch.abs(h)) + 1.0
@@ -177,10 +190,11 @@ def _masked_eigh(v, w, mask):
     return torch.linalg.eigh(h)
 
 
-def _eigh_whiten_cols(p, thresh: float = 1e-8):
+def _eigh_whiten_cols(p, thresh: float = 1e-8, sharding=None):
     """Orthonormalise the columns of a coefficient block via its Gram
-    eigendecomposition, dropping null directions. Returns ``(p_white, keep)``."""
-    g = torch.matmul(p.T, p)
+    eigendecomposition, dropping null directions. Returns ``(p_white, keep)``.
+    ``sharding``: the rows of ``p`` are this rank's slice of N."""
+    g = psum(torch.matmul(p.T, p), sharding)
     g = 0.5 * (g + g.T)
     gw, gu = torch.linalg.eigh(g)
     keep = gw > thresh
@@ -190,7 +204,7 @@ def _eigh_whiten_cols(p, thresh: float = 1e-8):
 
 
 def _window_rr(v, w, mask, k: int, c_prev, nroots: int, m_max: int, c_mom=None,
-               n_p: int = 0):
+               n_p: int = 0, sharding=None):
     """Locally-optimal window Rayleigh-Ritz (fused_davidson.py:149-244):
     diagonalise H over span[c_prev | newest appended block] (2r) — plus an
     eigh-whitened momentum group (3r) when ``c_mom`` is given — instead of
@@ -203,7 +217,7 @@ def _window_rr(v, w, mask, k: int, c_prev, nroots: int, m_max: int, c_mom=None,
     and eigh-whitened, since Ritz vectors can grow dominant P components.
     Returns ``(evals[:nroots], c_new, evals_all padded to (m_max,))``."""
     dtype, dev = v.dtype, v.device
-    h = torch.matmul(v, w.T)
+    h = psum(torch.matmul(v, w.T), sharding)
     h = 0.5 * (h + h.T)
     h = h * (mask[:, None] * mask[None, :])
 
@@ -285,6 +299,7 @@ def _step_body(
     fuse_chain: bool = False,
     n_p: int = 0,
     anchor_every: int = 4,
+    sharding=None,
 ):
     """Single-iteration body shared by step, sweep and solve
     (fused_davidson.py:263-393).
@@ -305,22 +320,29 @@ def _step_body(
     ``n_p > 0`` marks the leading n_p stack slots as a frozen, densified P
     space (IterativeSolver.h:131-151): appends (at k >= n_p + nroots) and
     restarts never touch them, the RR sees them through the mask, and the
-    window RR carries them as an exact group."""
+    window RR carries them as an exact group.
+
+    ``sharding``: the stacks, blocks and diagonal are this rank's slices of
+    N and every contraction over N is all-reduced (no chain kernel)."""
     _validate_rr(rr, nroots, m_max, n_p)
+    if fuse_chain and sharding is not None:
+        raise ValueError("the chain kernel is single-device: fuse_chain=True "
+                         "cannot run under sharding")
+    sh = sharding
 
     def step(state: DavidsonState, operand, diag: Tensor, it: int = 0) -> DavidsonState:
         v, w, mask, k = state.v, state.w, state.mask, state.k
         if rr in ("window", "window3", "anchored"):
             if rr == "anchored" and it % anchor_every == 0:
-                ea, c = _masked_eigh(v, w, mask)
+                ea, c = _masked_eigh(v, w, mask, sh)
                 evals, c_new, evals_all = ea[:nroots], c[:, :nroots] * mask[:, None], ea
             else:
                 evals, c_new, evals_all = _window_rr(
                     v, w, mask, k, state.c, nroots, m_max,
-                    c_mom=state.cm if rr == "window3" else None, n_p=n_p)
+                    c_mom=state.cm if rr == "window3" else None, n_p=n_p, sharding=sh)
             coeff = c_new.T
         else:
-            evals_all, c = _masked_eigh(v, w, mask)
+            evals_all, c = _masked_eigh(v, w, mask, sh)
             coeff = (c[:, :nroots] * mask[:, None]).T  # (nroots, m_max)
             evals = evals_all[:nroots]
             c_new = coeff.T
@@ -328,11 +350,11 @@ def _step_body(
         ax = torch.matmul(coeff, w)
         # Rayleigh-quotient refinement: full-length dots are ~eps*||A||
         # accurate, recovering eigenvalue accuracy the small eigh may lack
-        xx = _dots(x, x)
-        xax = _dots(x, ax)
+        xx = _dots(x, x, sh)
+        xax = _dots(x, ax, sh)
         evals = torch.where(xx > 0, xax / torch.where(xx > 0, xx, torch.ones_like(xx)), evals)
         r = ax - evals[:, None] * x
-        errors = torch.sqrt(torch.abs(_dots(r, r)))
+        errors = torch.sqrt(torch.abs(_dots(r, r, sh)))
 
         if fuse_chain:
             if expand is None:
@@ -346,18 +368,18 @@ def _step_body(
             if expand is None:
                 # Jacobi/Davidson preconditioner with the regulariser made
                 # RELATIVE to the spectrum scale
-                scale_est = torch.max(torch.abs(diag)) + torch.max(torch.abs(evals))
+                scale_est = pmax(torch.max(torch.abs(diag)), sh) + torch.max(torch.abs(evals))
                 t = r / (diag[None, :] - evals[:, None] + 1e-15 * scale_est + 1e-300)
             else:
                 t = expand(x, r, evals, evals_all, mask, diag, operand)
             # null detection compares post-GS norms to the PRE-GS norms
-            n0_2 = _dots(t, t)
+            n0_2 = _dots(t, t, sh)
             # two classical GS passes against the basis
             for _ in range(2):
-                proj = torch.matmul(t, v.T) * mask[None, :]
+                proj = psum(torch.matmul(t, v.T), sh) * mask[None, :]
                 t = t - torch.matmul(proj, v)
-            n2 = _dots(t, t)
-            t, keep = whiten_after_chain(t, n0_2, n2, nroots, null_thresh)
+            n2 = _dots(t, t, sh)
+            t, keep = whiten_after_chain(t, n0_2, n2, nroots, null_thresh, sharding=sh)
 
         # append at slot k, in place; never over the frozen P slots
         if k + nroots > m_max or k < n_p:
@@ -379,22 +401,22 @@ def _step_body(
 def make_davidson_step(matvec, nroots: int, m_max: int, null_thresh: float = 1e-10,
                        expand: Optional[Callable] = None, rr: str = "full",
                        fuse_chain: bool = False, n_p: int = 0,
-                       anchor_every: int = 4):
+                       anchor_every: int = 4, sharding=None):
     """Single iteration: ``step(state, operand, diag, it=0) -> state``."""
     return _step_body(matvec, nroots, m_max, null_thresh, expand, rr,
-                      fuse_chain, n_p, anchor_every)
+                      fuse_chain, n_p, anchor_every, sharding)
 
 
 def make_davidson_sweep(matvec, nroots: int, m_max: int, steps: int,
                         null_thresh: float = 1e-10,
                         expand: Optional[Callable] = None, rr: str = "full",
                         fuse_chain: bool = False, n_p: int = 0,
-                        anchor_every: int = 4):
+                        anchor_every: int = 4, sharding=None):
     """``steps`` Davidson iterations with no convergence check between them:
     ``sweep(state, operand, diag, it0=0)``; ``it0`` is the global iteration
     offset, so the anchored cadence does not reset at sweep boundaries."""
     body = _step_body(matvec, nroots, m_max, null_thresh, expand, rr,
-                      fuse_chain, n_p, anchor_every)
+                      fuse_chain, n_p, anchor_every, sharding)
 
     def sweep(state: DavidsonState, operand, diag: Tensor, it0: int = 0) -> DavidsonState:
         for i in range(steps):
@@ -405,19 +427,20 @@ def make_davidson_sweep(matvec, nroots: int, m_max: int, steps: int,
 
 
 def _restart_body(matvec: Callable[..., Tensor], nroots: int, m_max: int,
-                  n_p: int = 0):
+                  n_p: int = 0, sharding=None):
     """Collapse the basis onto the current Ritz vectors (DSpaceResetter
     analogue, fused_davidson.py:433-491). With ``n_p > 0`` the frozen P
     slots survive untouched (basis and action rows: no operator
     application) and the Ritz block is orthogonalised against them; a Ritz
     vector that has converged into the P span projects to (near) zero and
     its slot restarts dead (eigh-whitening with null-drop)."""
+    sh = sharding
 
     def restart_p(state: DavidsonState, operand) -> DavidsonState:
         pv, pw = state.v[:n_p], state.w[:n_p]
-        pc = torch.matmul(state.x, pv.T)  # (r, n_p) P coordinates
-        x = _p_project(state.x, pv)
-        xo_t, keep = _eigh_whiten_cols(x.T, thresh=1e-10)
+        pc = psum(torch.matmul(state.x, pv.T), sh)  # (r, n_p) P coordinates
+        x = _p_project(state.x, pv, sh)
+        xo_t, keep = _eigh_whiten_cols(x.T, thresh=1e-10, sharding=sh)
         xo = xo_t.T
         live = keep.to(state.mask.dtype)
         v = _stack_rows([pv, xo.to(pv.dtype)], m_max)
@@ -427,7 +450,7 @@ def _restart_body(matvec: Callable[..., Tensor], nroots: int, m_max: int,
         if state.c is not None:
             # exact coordinates of the outgoing Ritz block in the fresh
             # basis: P components, then whitened-complement components
-            c0 = _stack_rows([pc.T, torch.matmul(xo, x.T)], m_max)
+            c0 = _stack_rows([pc.T, psum(torch.matmul(xo, x.T), sh)], m_max)
         cm0 = None if state.cm is None else torch.zeros_like(state.cm)
         return DavidsonState(v, w, mask, n_p + nroots, state.evals, state.x, state.r,
                              state.errors, c0, cm0)
@@ -437,7 +460,7 @@ def _restart_body(matvec: Callable[..., Tensor], nroots: int, m_max: int,
 
     def restart(state: DavidsonState, operand) -> DavidsonState:
         x = state.x
-        g = torch.matmul(x, x.T)
+        g = psum(torch.matmul(x, x.T), sh)
         l = _cholesky_nan(g + 1e-30 * _eye(nroots, g))
         xo = lower_solve(l, x)
         v = _stack_rows([xo.to(state.v.dtype)], m_max)
@@ -455,12 +478,12 @@ def _restart_body(matvec: Callable[..., Tensor], nroots: int, m_max: int,
 
 
 def make_restart(matvec: Callable[..., Tensor], nroots: int, m_max: int,
-                 n_p: int = 0):
-    return _restart_body(matvec, nroots, m_max, n_p)
+                 n_p: int = 0, sharding=None):
+    return _restart_body(matvec, nroots, m_max, n_p, sharding)
 
 
 def _init_body(matvec: Callable[..., Tensor], nroots: int, m_max: int,
-               n_p: int = 0, p_actions: bool = False):
+               n_p: int = 0, p_actions: bool = False, sharding=None):
     """Whole state initialisation (fused_davidson.py:502-593): orthonormalise
     the guess block, run its action, and lay out the fixed-capacity stacks.
 
@@ -471,26 +494,27 @@ def _init_body(matvec: Callable[..., Tensor], nroots: int, m_max: int,
     caller's exact action rows, mapped through the same whitening
     (``lower_solve``: L⁻¹ as one matmul); otherwise the operator computes
     them and ``wp`` is ignored."""
+    sh = sharding
 
     def init_p(v0: Tensor, operand, p: Tensor, wp: Tensor) -> DavidsonState:
-        gp = torch.matmul(p, p.T)
+        gp = psum(torch.matmul(p, p.T), sh)
         lp = _cholesky_nan(gp + 1e-30 * _eye(n_p, gp))
         pw = lower_solve(lp, p)
         wpw = lower_solve(lp, wp) if p_actions else matvec(pw, operand)
-        v0 = _p_project(v0, pw)
+        v0 = _p_project(v0, pw, sh)
         # guesses fully inside the P span project to zero: eigh-whitening
         # drops them as dead slots instead of NaN-ing a Cholesky
-        v0o_t, keep = _eigh_whiten_cols(v0.T, thresh=1e-10)
+        v0o_t, keep = _eigh_whiten_cols(v0.T, thresh=1e-10, sharding=sh)
         v0o = v0o_t.T
         live = keep.to(v0.dtype)
         w0 = matvec(v0o, operand) * live[:, None]
         v = _stack_rows([pw.to(v0.dtype), v0o], m_max)
         w = _stack_rows([wpw.to(v0.dtype), w0.to(v0.dtype)], m_max)
         mask = _stack_rows([live.new_ones((n_p,)), live], m_max)
-        xx = _dots(v0o, v0o)
-        rho = _dots(v0o, w0) / torch.where(xx > 0, xx, torch.ones_like(xx))
+        xx = _dots(v0o, v0o, sh)
+        rho = _dots(v0o, w0, sh) / torch.where(xx > 0, xx, torch.ones_like(xx))
         r0 = w0 - rho[:, None] * v0o
-        errors = torch.sqrt(torch.abs(_dots(r0, r0)))
+        errors = torch.sqrt(torch.abs(_dots(r0, r0, sh)))
         # a guess swallowed by the P span has a ZERO seed residual: that is
         # "untested", not "converged" (the solve would exit before its first
         # RR). Dead slots seed at inf; the first step replaces them.
@@ -504,7 +528,7 @@ def _init_body(matvec: Callable[..., Tensor], nroots: int, m_max: int,
         return init_p
 
     def init(v0: Tensor, operand) -> DavidsonState:
-        g = torch.matmul(v0, v0.T)
+        g = psum(torch.matmul(v0, v0.T), sh)
         l = _cholesky_nan(g + 1e-30 * _eye(nroots, g))
         v0o = lower_solve(l, v0)
         w0 = matvec(v0o, operand)
@@ -512,10 +536,10 @@ def _init_body(matvec: Callable[..., Tensor], nroots: int, m_max: int,
         w = _stack_rows([w0.to(v0.dtype)], m_max)
         mask = _stack_rows([torch.ones_like(v0o[:, 0])], m_max)
         # seed evals/x/r/errors with the guess block's honest Rayleigh data
-        xx = _dots(v0o, v0o)
-        rho = _dots(v0o, w0) / torch.where(xx > 0, xx, torch.ones_like(xx))
+        xx = _dots(v0o, v0o, sh)
+        rho = _dots(v0o, w0, sh) / torch.where(xx > 0, xx, torch.ones_like(xx))
         r0 = w0 - rho[:, None] * v0o
-        errors = torch.sqrt(torch.abs(_dots(r0, r0)))
+        errors = torch.sqrt(torch.abs(_dots(r0, r0, sh)))
         c0 = _stack_rows([_eye(nroots, v0)], m_max)
         # momentum starts at zero: the whitening drops null columns until a
         # real previous Ritz block exists
@@ -526,8 +550,8 @@ def _init_body(matvec: Callable[..., Tensor], nroots: int, m_max: int,
 
 
 def make_davidson_init(matvec: Callable[..., Tensor], nroots: int, m_max: int,
-                       n_p: int = 0, p_actions: bool = False):
-    return _init_body(matvec, nroots, m_max, n_p, p_actions)
+                       n_p: int = 0, p_actions: bool = False, sharding=None):
+    return _init_body(matvec, nroots, m_max, n_p, p_actions, sharding)
 
 
 def _not_converged(s: DavidsonState, tol: float) -> bool:
@@ -549,6 +573,7 @@ def make_davidson_solve(
     fuse_chain: bool = False,
     n_p: int = 0,
     anchor_every: int = 4,
+    sharding=None,
 ):
     """The whole solve: step until convergence or ``max_iter``, restarting
     whenever the basis fills (fused_davidson.py:603-679).
@@ -560,8 +585,8 @@ def make_davidson_solve(
     slot keeps the latest value if the solve runs longer) and returns
     ``(final, iters, errors_history)``."""
     step = _step_body(matvec, nroots, m_max, null_thresh, expand, rr,
-                      fuse_chain, n_p, anchor_every)
-    restart = _restart_body(matvec, nroots, m_max, n_p)
+                      fuse_chain, n_p, anchor_every, sharding)
+    restart = _restart_body(matvec, nroots, m_max, n_p, sharding)
 
     def solve(state: DavidsonState, operand, diag: Tensor, tol_, max_iter_):
         hist = (torch.full((history,), float("nan"), dtype=state.errors.dtype,
@@ -597,6 +622,7 @@ def make_davidson_solve_chunked(
     fuse_chain: bool = False,
     n_p: int = 0,
     anchor_every: int = 4,
+    sharding=None,
 ):
     """Whole solve with the convergence check hoisted to restart boundaries
     (fused_davidson.py:682-734): each trip runs one basis-fill sweep of
@@ -604,8 +630,8 @@ def make_davidson_solve_chunked(
     collapsing the basis whenever a full sweep would not fit. Iteration
     counts are quantised up to the sweep length."""
     step = _step_body(matvec, nroots, m_max, null_thresh, expand, rr,
-                      fuse_chain, n_p, anchor_every)
-    restart = _restart_body(matvec, nroots, m_max, n_p)
+                      fuse_chain, n_p, anchor_every, sharding)
+    restart = _restart_body(matvec, nroots, m_max, n_p, sharding)
     fill_steps = max(1, (m_max - n_p - nroots) // nroots)
 
     def solve(state: DavidsonState, operand, diag: Tensor, tol_, max_iter_):
@@ -732,41 +758,46 @@ def _check_tier(tier: Optional[str], device, dtype) -> str:
     return tier
 
 
-def packed_symmetric_action(matrix: np.ndarray, tier: str, b: int, device):
-    """``(matvec, operand, sym)`` of the packed-triangle symmetric action of
-    ``matrix`` in ``tier``'s storage at tile size ``b``, shared by
-    FusedDavidson and FusedLinearEquations: "fast" bf16 tiles (K1),
-    "precise" split bf16 planes (K3), "exact" tiles in the working dtype
-    (K1 f32 on CUDA), "int8"/"int8_precise" one or two int8 planes (K4,
-    K5). "fast" stores bf16 tiles on every device, so CPU tests see the
-    operator accuracy the card has."""
-    from ..ops.kernels.symm import (
-        SymmetricBlocked,
-        SymmetricBlockedSplit,
-        symm_matmat_kernel,
-        symm_matmat_split_kernel,
-    )
-    from ..ops.kernels.symm_int8 import make_int8_matvec
+def packed_storage(matrix: np.ndarray, tier: str, b: int, device, dtype=None):
+    """``tier``'s packed storage of ``matrix`` at tile size ``b``: "fast"
+    bf16 tiles (K1), "precise" split bf16 planes (K3), "exact" tiles in
+    ``dtype`` (default: the device's working dtype; K1 f32 on CUDA),
+    "int8"/"int8_precise" one or two int8 planes (K4, K5). "fast" stores
+    bf16 tiles on every device, so CPU tests see the operator accuracy the
+    card has."""
+    from ..ops.kernels.symm import SymmetricBlocked, SymmetricBlockedSplit
+    from ..ops.kernels.symm_int8 import SymmetricBlockedInt8, SymmetricBlockedInt8Split
 
     if tier in ("int8", "int8_precise"):
-        return make_int8_matvec(matrix, b=b, two_plane=(tier == "int8_precise"),
-                                device=device)
+        cls = SymmetricBlockedInt8Split if tier == "int8_precise" else SymmetricBlockedInt8
+        return cls.from_dense(matrix, b=b, device=device)
     if tier == "precise":
-        sym = SymmetricBlockedSplit.from_dense(matrix, b=b, device=device)
+        return SymmetricBlockedSplit.from_dense(matrix, b=b, device=device)
+    tile_dtype = torch.bfloat16 if tier == "fast" else dtype or config.default_dtype(device)
+    return SymmetricBlocked.from_dense(matrix, b=b, dtype=tile_dtype, device=device)
 
-        def matvec(x, op):
-            s = dataclasses.replace(sym, hi=op[0], lo=op[1], ii=op[2], jj=op[3])
-            return symm_matmat_split_kernel(x, s)
 
-        return matvec, (sym.hi, sym.lo, sym.ii, sym.jj), sym
-    tile_dtype = torch.bfloat16 if tier == "fast" else config.default_dtype(device)
-    sym = SymmetricBlocked.from_dense(matrix, b=b, dtype=tile_dtype, device=device)
+def packed_symmetric_action(matrix: np.ndarray, tier: str, b: int, device,
+                            sharding=None):
+    """``(matvec, operand, sym)`` of the packed-triangle symmetric action of
+    ``matrix`` in ``tier``'s storage (``packed_storage``), shared by
+    FusedDavidson and FusedLinearEquations; ``matvec`` runs the storage's
+    kernel wrapper (``symm.packed_matvec``).
 
-    def matvec(x, op):
-        s = dataclasses.replace(sym, values=op[0], ii=op[1], jj=op[2])
-        return symm_matmat_kernel(x, s)
+    With ``sharding`` the storage is packed on the host (the "exact" tiles
+    in the rank's working dtype) and each rank keeps its round-robin share
+    of the tile pairs (parallel/sharded_symm.py): ``matvec`` maps a rank's
+    slice of x to its slice of y and ``sym`` is the ShardedSymmetric."""
+    if sharding is not None:
+        from ..parallel.sharded_symm import ShardedSymmetric
 
-    return matvec, (sym.values, sym.ii, sym.jj), sym
+        host = packed_storage(matrix, tier, b, "cpu", dtype=config.default_dtype(device))
+        ssym = ShardedSymmetric.from_storage(host, sharding.mesh)
+        return (*ssym.matvec_fn(), ssym)
+    from ..ops.kernels.symm import packed_matvec
+
+    sym = packed_storage(matrix, tier, b, device)
+    return (*packed_matvec(sym), sym)
 
 
 class FusedDavidson:
@@ -775,7 +806,13 @@ class FusedDavidson:
     ``device=None`` means CUDA and raises where CUDA is absent; pass
     ``device="cpu"`` for the host (the tests do). ``dtype=None`` is float32
     on CUDA and float64 on the CPU. ``fuse_chain=None`` turns the chain
-    kernel on for float32 on CUDA."""
+    kernel on for float32 on CUDA.
+
+    ``sharding`` (parallel/mesh.py, e.g. ``block_sharding(mesh)``): every
+    rank of the mesh builds the solver with the same arguments and a matvec
+    that maps its slice of x to its slice of y; ``diagonals`` (and the P
+    space) are global and each rank keeps its slice; the device is the
+    mesh's."""
 
     def __init__(
         self,
@@ -799,9 +836,9 @@ class FusedDavidson:
         anchor_every: int = 4,
         device=None,
     ):
-        if sharding is not None:
-            raise NotImplementedError(_SHARDING)
-        self.device = config.resolve_device(device)
+        self.sharding = check_sharding(sharding)
+        self.device = (self.sharding.mesh.device if self.sharding is not None
+                       else config.resolve_device(device))
         if dtype is None:
             dtype = config.default_dtype(self.device)
         self.p_dense, self.n_p, self.p_action_rows = validate_p_inputs(
@@ -815,26 +852,29 @@ class FusedDavidson:
         self.nroots = nroots
         self.m_max = eff_m_max
         self.dtype = dtype
-        self.sharding = None
         self.tol = convergence_threshold
         self.max_iter = max_iter
-        self.diag = torch.as_tensor(np.array(diagonals), dtype=dtype, device=self.device)
+        self.diag = to_device(np.array(diagonals), dtype, self.device, self.sharding)
         self.operand = operand
         self.expand = expand
         # matvec count per appended direction
         self.matvecs_per_direction = matvecs_per_direction
         self.rr = rr
         if fuse_chain is None:
-            fuse_chain = chain_auto(self.device, dtype)
+            # the chain kernel is single-device: off under sharding
+            fuse_chain = self.sharding is None and chain_auto(self.device, dtype)
         self.fuse_chain = fuse_chain
         self.anchor_every = max(1, int(anchor_every))
         self.step = make_davidson_step(matvec, nroots, self.m_max, expand=expand, rr=rr,
                                        fuse_chain=fuse_chain, n_p=self.n_p,
-                                       anchor_every=self.anchor_every)
-        self.restart = make_restart(matvec, nroots, self.m_max, n_p=self.n_p)
+                                       anchor_every=self.anchor_every,
+                                       sharding=self.sharding)
+        self.restart = make_restart(matvec, nroots, self.m_max, n_p=self.n_p,
+                                    sharding=self.sharding)
         self._init = make_davidson_init(
             matvec, nroots, self.m_max, n_p=self.n_p,
-            p_actions=self.n_p > 0 and self.p_action_rows is not None)
+            p_actions=self.n_p > 0 and self.p_action_rows is not None,
+            sharding=self.sharding)
         self.iterations = 0
         self.check_symmetric = check_symmetric
         self._symmetry_checked = False
@@ -869,7 +909,8 @@ class FusedDavidson:
         multiple; returned Ritz vectors carry the padded width — slice with
         ``solver.unpad(x)``.
         """
-        device = config.resolve_device(device)
+        sharding = check_sharding(kwargs.get("sharding"))
+        device = sharding.mesh.device if sharding is not None else config.resolve_device(device)
         matrix = np.asarray(matrix, dtype=np.float64)
         n = matrix.shape[0]
         tier = _check_tier(tier, device, kwargs.get("dtype"))
@@ -880,7 +921,7 @@ class FusedDavidson:
             if (tier in ("fast", "int8", "int8_precise")
                     and -(-n // 1024) * 1024 == -(-n // 512) * 512):
                 b = 1024
-        matvec, operand, sym = packed_symmetric_action(matrix, tier, b, device)
+        matvec, operand, sym = packed_symmetric_action(matrix, tier, b, device, sharding)
         n_pad = sym.shape[0]
         # padded diagonal entries sit far above the spectrum so
         # diagonal-based guesses never pick the dead coordinates
@@ -896,6 +937,10 @@ class FusedDavidson:
             x = x.detach().cpu().numpy()
         return np.asarray(x)[..., : self.n_orig]
 
+    def _global(self, t: Tensor) -> Tensor:
+        """A (..., n) block of the state, whole: gathered under sharding."""
+        return t if self.sharding is None else self.sharding.gather(t, self.n)
+
     def init_state(self, v0) -> DavidsonState:
         v0 = v0 if isinstance(v0, torch.Tensor) else torch.as_tensor(np.asarray(v0))
         if self.n_orig != self.n and v0.shape[-1] == self.n_orig:
@@ -903,22 +948,23 @@ class FusedDavidson:
             pad = torch.zeros(v0.shape[:-1] + (self.n - v0.shape[-1],),
                               dtype=v0.dtype, device=v0.device)
             v0 = torch.cat([v0, pad], dim=-1)
-        v0 = v0.to(device=self.device, dtype=self.dtype).contiguous()
+        v0 = to_device(v0, self.dtype, self.device, self.sharding).contiguous()
         if self.check_symmetric and not self._symmetry_checked:
             from ._symmetry import check_symmetric_operator
 
             check_symmetric_operator(
-                self.matvec, self.operand, tuple(v0.shape), self.dtype,
+                self.matvec, self.operand, (v0.shape[0], self.n), self.dtype,
                 "FusedDavidson",
                 "solvers.linear_eigensystem.LinearEigensystemDavidson"
                 "(hermitian=False)",
                 device=self.device,
+                sharding=self.sharding,
             )
             self._symmetry_checked = True
         if self.n_p:
             if self._p_dev is None:
-                p = torch.as_tensor(self.p_dense, dtype=self.dtype, device=self.device)
-                wp = (torch.as_tensor(self.p_action_rows, dtype=self.dtype, device=self.device)
+                p = to_device(self.p_dense, self.dtype, self.device, self.sharding)
+                wp = (to_device(self.p_action_rows, self.dtype, self.device, self.sharding)
                       if self.p_action_rows is not None else torch.zeros_like(p))
                 self._p_dev = (p, wp)
             state = self._init(v0, self.operand, *self._p_dev)
@@ -930,7 +976,7 @@ class FusedDavidson:
     def _finish(self, state: DavidsonState):
         evals, errors = state.evals.cpu().numpy(), state.errors.cpu().numpy()
         check_finite(errors, "FusedDavidson")
-        return evals, state.x, errors, self.iterations
+        return evals, self._global(state.x), errors, self.iterations
 
     def run(self, v0):
         """Host-driven loop: one step per call, errors fetched each step."""
@@ -950,7 +996,7 @@ class FusedDavidson:
         convergence only at restart boundaries; the iteration count is then
         quantised up to the basis-fill length."""
         kw = dict(expand=self.expand, rr=self.rr, fuse_chain=self.fuse_chain,
-                  n_p=self.n_p, anchor_every=self.anchor_every)
+                  n_p=self.n_p, anchor_every=self.anchor_every, sharding=self.sharding)
         if chunked:
             solve = make_davidson_solve_chunked(self.matvec, self.nroots, self.m_max, **kw)
         else:
@@ -979,12 +1025,14 @@ class FusedDavidson:
         (fused_davidson.py:1095-1138): restores the iteration and matvec
         counters and, by default, keeps checkpointing to the same path.
         A checkpoint written by the JAX package loads here, and the other
-        way round."""
+        way round. Under sharding every rank reads the file and keeps its
+        slices."""
         from ..utils.checkpoint import load_fused_state
 
-        state, meta = load_fused_state(checkpoint_path, dtype=self.dtype,
-                                       device=self.device)
-        if tuple(state.v.shape) != (self.m_max, self.n):
+        state, meta = load_fused_state(checkpoint_path, sharding=self.sharding,
+                                       dtype=self.dtype, device=self.device)
+        width = self.n if self.sharding is None else self.diag.shape[-1]
+        if tuple(state.v.shape) != (self.m_max, width):
             raise ValueError(
                 f"checkpoint stacks are {tuple(state.v.shape)} but this "
                 f"solver is configured (m_max={self.m_max}, n={self.n})")
@@ -1018,7 +1066,8 @@ class FusedDavidson:
         sweep = make_davidson_sweep(self.matvec, self.nroots, self.m_max, steps,
                                     expand=self.expand, rr=self.rr,
                                     fuse_chain=self.fuse_chain, n_p=self.n_p,
-                                    anchor_every=self.anchor_every)
+                                    anchor_every=self.anchor_every,
+                                    sharding=self.sharding)
         max_sweeps = max(1, self.max_iter // steps + 1)
         for sweeps_done in range(1, max_sweeps + 1):
             state = sweep(state, self.operand, self.diag, (sweeps_done - 1) * steps)
@@ -1026,12 +1075,23 @@ class FusedDavidson:
             self.matvecs += steps * self.nroots * self.matvecs_per_direction
             errors = state.errors.cpu().numpy()
             if checkpoint_path is not None and sweeps_done % max(1, checkpoint_every) == 0:
-                from ..utils.checkpoint import save_fused_state
-
-                save_fused_state(state, checkpoint_path, iterations=self.iterations,
-                                 matvecs=self.matvecs, tol=float(self.tol),
-                                 nroots=self.nroots, n_p=self.n_p, rr=self.rr)
+                self._checkpoint(state, checkpoint_path)
             if np.all(errors <= self.tol) or self.iterations >= self.max_iter:
                 break
             state = self.restart(state, self.operand)
         return self._finish(state)
+
+    def _checkpoint(self, state: DavidsonState, path: str) -> None:
+        """Save the state; under sharding its (rows, N) fields are gathered,
+        rank 0 writes the file and every rank waits for it."""
+        from ..utils.checkpoint import save_fused_state
+
+        if self.sharding is not None:
+            state = state._replace(**{f: self._global(getattr(state, f))
+                                      for f in ("v", "w", "x", "r")})
+        if self.sharding is None or self.sharding.mesh.rank == 0:
+            save_fused_state(state, path, iterations=self.iterations,
+                             matvecs=self.matvecs, tol=float(self.tol),
+                             nroots=self.nroots, n_p=self.n_p, rr=self.rr)
+        if self.sharding is not None:
+            barrier(self.sharding.mesh)

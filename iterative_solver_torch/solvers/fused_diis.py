@@ -34,7 +34,7 @@ from ._finite import check_finite
 
 Tensor = torch.Tensor
 
-_SHARDING = "sharding is not ported yet (ROADMAP.md Queue 1, item 6)"
+_SHARDING = "sharding is not ported yet (ROADMAP.md Queue 1, item 6c)"
 
 
 class DIISState(NamedTuple):

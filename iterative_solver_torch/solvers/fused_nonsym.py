@@ -57,7 +57,7 @@ from .fused_davidson import validate_p_inputs
 
 Tensor = torch.Tensor
 
-_SHARDING = "sharding is not ported yet (ROADMAP.md Queue 1, item 6)"
+_SHARDING = "sharding is not ported yet (ROADMAP.md Queue 1, item 6c)"
 
 
 class NonSymDeviceState(NamedTuple):

@@ -25,7 +25,12 @@ Differences from the JAX package, each kept to the same semantics:
 - ``jnp.linalg.cholesky`` returns NaN on failure; ``_cholesky_nan`` keeps
   that contract without a host sync.
 
-``sharding`` raises ``NotImplementedError`` naming its ROADMAP item.
+Sharding (``sharding=``, parallel/mesh.py) runs one process per shard of
+the vector axis (SPMD), as FusedDavidson does: every (r, N) block is this
+rank's slice, every dot and Gram over N is all-reduced (the nine dots of
+the per-root 3x3 Rayleigh-Ritz in one all-reduce) and the max of the
+diagonal too, so every rank takes the same branch; the solve returns
+replicated eigenvalues and errors and the gathered Ritz vectors.
 """
 
 from __future__ import annotations
@@ -36,14 +41,14 @@ import numpy as np
 import torch
 
 from .. import config
-from ..array.vector_ops import chol_jitter
+from ..array.vector_ops import chol_jitter, to_device
 from ..array.vector_ops import dots_rows as _rows_dot
 from ..ops.kernels.chain import _cholesky_nan, lower_solve
+from ..parallel.collectives import pmax, psum
+from ..parallel.mesh import check_sharding
 from ._finite import check_finite
 
 Tensor = torch.Tensor
-
-_SHARDING = "sharding is not ported yet (ROADMAP.md Queue 1, item 6)"
 
 
 class PPCGState(NamedTuple):
@@ -134,7 +139,8 @@ def _batched_eigh3(a: Tensor, sweeps: int = 6):
     return w, vm
 
 
-def _batched_rr3(x, ax, w, aw, p, ap, live_w, live_p, nroots: int) -> Tensor:
+def _batched_rr3(x, ax, w, aw, p, ap, live_w, live_p, nroots: int,
+                 sharding=None) -> Tensor:
     """Per-root (3, 3) Rayleigh-Ritz, batched over roots
     (fused_ppcg.py:130-195). Rows are unit-normalised or exactly zero, so
     the metric has a unit diagonal on live directions; dead directions are
@@ -144,10 +150,11 @@ def _batched_rr3(x, ax, w, aw, p, ap, live_w, live_p, nroots: int) -> Tensor:
     one = torch.ones((nroots,), dtype=dtype, device=x.device)
     lw = live_w.to(dtype)
     lp = live_p.to(dtype)
-    xw, xp, wp = _rows_dot(x, w), _rows_dot(x, p), _rows_dot(w, p)
-    hxx = _rows_dot(x, ax)
-    hxw, hxp = _rows_dot(w, ax), _rows_dot(p, ax)
-    hww, hwp, hpp = _rows_dot(w, aw), _rows_dot(p, aw), _rows_dot(p, ap)
+    # the nine row dots over N, in one all-reduce under sharding
+    dots = psum(torch.stack([_rows_dot(a, c) for a, c in (
+        (x, w), (x, p), (w, p), (x, ax), (w, ax), (p, ax), (w, aw), (p, aw), (p, ap))]),
+        sharding)
+    xw, xp, wp, hxx, hxw, hxp, hww, hwp, hpp = dots.unbind(0)
 
     gw0, gw1, gw2, gu = _jacobi3_packed(one, lw, lp, xw, xp, wp)
     # dtype-aware whitening floor: admitting a direction with gw at the
@@ -189,31 +196,34 @@ def _batched_rr3(x, ax, w, aw, p, ap, live_w, live_p, nroots: int) -> Tensor:
                         for i in range(3)], dim=-1)
 
 
-def _step_body(matvec: Callable[..., Tensor], nroots: int, rr_every: int):
-    """One PPCG iteration (fused_ppcg.py:198-290)."""
+def _step_body(matvec: Callable[..., Tensor], nroots: int, rr_every: int,
+               sharding=None):
+    """One PPCG iteration (fused_ppcg.py:198-290). ``sharding``: the blocks
+    and the diagonal are this rank's slices of N."""
+    sh = sharding
 
     def step(state: PPCGState, operand, diag: Tensor) -> PPCGState:
         x, ax, p, ap = state.x, state.ax, state.p, state.ap
         dtype = x.dtype
         tiny = _floor(1e-300, dtype)
 
-        rho = _rows_dot(x, ax)          # x rows orthonormal
+        rho = _rows_dot(x, ax, sh)          # x rows orthonormal
         res = ax - rho[:, None] * x
-        errors = torch.sqrt(torch.abs(_rows_dot(res, res)))
+        errors = torch.sqrt(torch.abs(_rows_dot(res, res, sh)))
 
         # Jacobi-preconditioned correction, projected against X only
-        scale_est = torch.max(torch.abs(diag)) + torch.max(torch.abs(rho))
+        scale_est = pmax(torch.max(torch.abs(diag)), sh) + torch.max(torch.abs(rho))
         w = res / (diag[None, :] - rho[:, None] + 1e-15 * scale_est + tiny)
-        w = w - torch.matmul(torch.matmul(w, x.T), x)
-        cp = torch.matmul(p, x.T)
+        w = w - torch.matmul(psum(torch.matmul(w, x.T), sh), x)
+        cp = psum(torch.matmul(p, x.T), sh)
         p = p - torch.matmul(cp, x)
         ap = ap - torch.matmul(cp, ax)
 
-        wn2 = _rows_dot(w, w)
+        wn2 = _rows_dot(w, w, sh)
         live_w = _flush(wn2) > tiny
         sw = torch.where(live_w, 1.0 / torch.sqrt(torch.where(live_w, wn2, 1.0)), 0.0)
         w = w * sw[:, None]
-        pn2 = _rows_dot(p, p)
+        pn2 = _rows_dot(p, p, sh)
         # dtype-aware momentum floor: normalising a nearly cancelled p
         # amplifies the carried ap error by 1/|p|; drop the row instead
         eps_p = 1e-24 if dtype == torch.float64 else _floor(1e-6, dtype)
@@ -224,7 +234,7 @@ def _step_body(matvec: Callable[..., Tensor], nroots: int, rr_every: int):
 
         aw = matvec(w, operand)         # the action of the iteration
 
-        c = _batched_rr3(x, ax, w, aw, p, ap, live_w, live_p, nroots)
+        c = _batched_rr3(x, ax, w, aw, p, ap, live_w, live_p, nroots, sh)
         x_new = c[:, 0:1] * x + c[:, 1:2] * w + c[:, 2:3] * p
         ax_new = c[:, 0:1] * ax + c[:, 1:2] * aw + c[:, 2:3] * ap
         p_new = c[:, 1:2] * w + c[:, 2:3] * p
@@ -232,7 +242,7 @@ def _step_body(matvec: Callable[..., Tensor], nroots: int, rr_every: int):
 
         # Cholesky-QR keeps the block orthonormal; AX gets the same
         # transform. L^-1 is formed once against the small identity.
-        g = torch.matmul(x_new, x_new.T)
+        g = psum(torch.matmul(x_new, x_new.T), sh)
         g = g + chol_jitter(dtype) * _eye(nroots, g)
         l = _cholesky_nan(g)
         li = torch.linalg.solve_triangular(l, _eye(nroots, g), upper=False)
@@ -244,7 +254,7 @@ def _step_body(matvec: Callable[..., Tensor], nroots: int, rr_every: int):
             # full RR: re-couple and re-sort the roots, and re-anchor AX
             # with an exact action (the carried block drifts); the
             # momentum block stays carried
-            h = torch.matmul(x_new, ax_new.T)
+            h = psum(torch.matmul(x_new, ax_new.T), sh)
             h = 0.5 * (h + h.T)
             _, cmat = torch.linalg.eigh(h)
             rot = cmat.T
@@ -257,38 +267,40 @@ def _step_body(matvec: Callable[..., Tensor], nroots: int, rr_every: int):
     return step
 
 
-def make_ppcg_init(matvec: Callable[..., Tensor], nroots: int):
+def make_ppcg_init(matvec: Callable[..., Tensor], nroots: int, sharding=None):
     """Orthonormalise the guess, run its action, zero momentum
     (fused_ppcg.py:293-312)."""
+    sh = sharding
 
     def init(v0: Tensor, operand) -> PPCGState:
-        g = torch.matmul(v0, v0.T)
+        g = psum(torch.matmul(v0, v0.T), sh)
         # the jitter is calibrated for unit-scale rows: scale it to the guess
         scale = torch.clamp(torch.max(torch.abs(torch.diagonal(g))),
                             min=_floor(1e-300, g.dtype))
         l = _cholesky_nan(g + (chol_jitter(g.dtype) * scale) * _eye(nroots, g))
         x = lower_solve(l, v0)
         ax = matvec(x, operand)
-        rho = _rows_dot(x, ax)
+        rho = _rows_dot(x, ax, sh)
         res = ax - rho[:, None] * x
-        errors = torch.sqrt(torch.abs(_rows_dot(res, res)))
+        errors = torch.sqrt(torch.abs(_rows_dot(res, res, sh)))
         return PPCGState(x, ax, torch.zeros_like(x), torch.zeros_like(x), rho, errors, 0)
 
     return init
 
 
-def make_ppcg_step(matvec, nroots: int, rr_every: int = 5):
+def make_ppcg_step(matvec, nroots: int, rr_every: int = 5, sharding=None):
     """Single iteration: ``step(state, operand, diag) -> state``."""
-    return _step_body(matvec, nroots, rr_every)
+    return _step_body(matvec, nroots, rr_every, sharding)
 
 
-def make_ppcg_solve(matvec, nroots: int, rr_every: int = 5, history: int = 0):
+def make_ppcg_solve(matvec, nroots: int, rr_every: int = 5, history: int = 0,
+                    sharding=None):
     """The whole solve: step until the max error is <= tol or ``max_iter``
     (fused_ppcg.py:319-364). ``solve(state, operand, diag, tol, max_iter)
     -> (final, iterations)``; ``history > 0`` also returns a ``(history,)``
     buffer of each iteration's max residual norm (NaN beyond the run; a run
     longer than ``history`` overwrites the last slot)."""
-    step = _step_body(matvec, nroots, rr_every)
+    step = _step_body(matvec, nroots, rr_every, sharding)
 
     def solve(state: PPCGState, operand, diag: Tensor, tol_, max_iter_):
         hist = (torch.full((history,), float("nan"), dtype=state.errors.dtype,
@@ -303,9 +315,10 @@ def make_ppcg_solve(matvec, nroots: int, rr_every: int = 5, history: int = 0):
             it += 1
         # the step stores the incoming iterate's Rayleigh data: refresh so
         # the returned evals/errors describe the returned x rows
-        rho = _rows_dot(s.x, s.ax)
+        rho = _rows_dot(s.x, s.ax, sharding)
         res = s.ax - rho[:, None] * s.x
-        final = s._replace(evals=rho, errors=torch.sqrt(torch.abs(_rows_dot(res, res))))
+        final = s._replace(evals=rho,
+                           errors=torch.sqrt(torch.abs(_rows_dot(res, res, sharding))))
         if history:
             return final, it, hist
         return final, it
@@ -325,7 +338,11 @@ class FusedPPCG:
     Caveat: a root whose guess is degenerate, or gets knocked off its
     target, has no expanding subspace to rediscover an interior eigenvalue
     and may converge to some other eigenpair. Supply linearly independent
-    guesses when the lowest block matters."""
+    guesses when the lowest block matters.
+
+    ``sharding`` (parallel/mesh.py): every rank builds the solver with the
+    same arguments and a matvec mapping its slice of x to its slice of y;
+    ``diagonals`` is global and each rank keeps its slice."""
 
     def __init__(
         self,
@@ -342,11 +359,11 @@ class FusedPPCG:
         check_symmetric: bool = True,
         device=None,
     ):
-        if sharding is not None:
-            raise NotImplementedError(_SHARDING)
         if rr_every < 1:
             raise ValueError("rr_every must be >= 1")
-        self.device = config.resolve_device(device)
+        self.sharding = check_sharding(sharding)
+        self.device = (self.sharding.mesh.device if self.sharding is not None
+                       else config.resolve_device(device))
         if dtype is None:
             dtype = config.default_dtype(self.device)
         self.matvec = matvec
@@ -357,10 +374,9 @@ class FusedPPCG:
         self.tol = convergence_threshold
         self.max_iter = max_iter
         self.operand = operand
-        self.diag = torch.as_tensor(np.array(diagonals), dtype=dtype, device=self.device)
-        self.sharding = None
-        self._init = make_ppcg_init(matvec, nroots)
-        self._solve = make_ppcg_solve(matvec, nroots, rr_every)
+        self.diag = to_device(np.array(diagonals), dtype, self.device, self.sharding)
+        self._init = make_ppcg_init(matvec, nroots, self.sharding)
+        self._solve = make_ppcg_solve(matvec, nroots, rr_every, sharding=self.sharding)
         self.n_orig = n
         self.check_symmetric = check_symmetric
         self._symmetry_checked = False
@@ -375,8 +391,8 @@ class FusedPPCG:
 
         proto = FusedDavidson.from_dense_symmetric(
             np.asarray(matrix, dtype=np.float64), nroots=nroots, tier=tier, b=b,
-            device=device)
-        solver = cls(proto.matvec, proto.diag.cpu().numpy(), proto.n, nroots,
+            device=device, sharding=kwargs.get("sharding"))
+        solver = cls(proto.matvec, proto._global(proto.diag).cpu().numpy(), proto.n, nroots,
                      operand=proto.operand, dtype=proto.dtype, device=proto.device,
                      **kwargs)
         solver.n_orig = proto.n_orig
@@ -394,16 +410,17 @@ class FusedPPCG:
             pad = torch.zeros(v0.shape[:-1] + (self.n - self.n_orig,),
                               dtype=v0.dtype, device=v0.device)
             v0 = torch.cat([v0, pad], dim=-1)
-        v0 = v0.to(device=self.device, dtype=self.dtype).contiguous()
+        v0 = to_device(v0, self.dtype, self.device, self.sharding).contiguous()
         if self.check_symmetric and not self._symmetry_checked:
             from ._symmetry import check_symmetric_operator
 
             check_symmetric_operator(
-                self.matvec, self.operand, tuple(v0.shape), self.dtype,
+                self.matvec, self.operand, (v0.shape[0], self.n), self.dtype,
                 "FusedPPCG",
                 "solvers.linear_eigensystem.LinearEigensystemDavidson"
                 "(hermitian=False)",
                 device=self.device,
+                sharding=self.sharding,
             )
             self._symmetry_checked = True
         return self._init(v0, self.operand)
@@ -412,13 +429,15 @@ class FusedPPCG:
         """The whole solve. Returns ``(evals, x, errors, iters)`` with the
         eigenvalues and rows sorted ascending (the periodic RR sorts; the
         final state may be mid-window, so sort on exit). ``x`` stays a
-        tensor on the solver's device."""
+        tensor on the solver's device (gathered under sharding)."""
         state = self.init_state(v0)
         final, iters = self._solve(state, self.operand, self.diag, self.tol, self.max_iter)
         evals = final.evals.cpu().numpy()
         errors = final.errors.cpu().numpy()
         order = np.argsort(evals)
         x = final.x[torch.as_tensor(order, device=final.x.device)]
+        if self.sharding is not None:
+            x = self.sharding.gather(x, self.n)
         check_finite(errors, "FusedPPCG")
         return evals[order], x, errors[order], int(iters)
 

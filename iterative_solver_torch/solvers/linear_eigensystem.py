@@ -26,6 +26,7 @@ class LinearEigensystemDavidson(IterativeSolverTemplate):
 
     nonlinear = False
     linear_eigensystem = True
+    shardable = True
 
     def __init__(self, n: int, nroots: int = 1, **kwargs):
         hermitian = kwargs.pop("hermitian", False)

@@ -24,6 +24,7 @@ Tensor = torch.Tensor
 class LinearEquationsDavidson(IterativeSolverTemplate):
     nonlinear = False
     linear_eigensystem = False
+    shardable = True
 
     def __init__(self, n: int, nroots: int = 1, **kwargs):
         hermitian = kwargs.pop("hermitian", True)
@@ -62,8 +63,7 @@ class LinearEquationsDavidson(IterativeSolverTemplate):
         subspace (LinearEquationsDavidson.h:73-81 + XSpace::add_rhs_equations)."""
         if isinstance(rhs, torch.Tensor):
             rhs = rhs.detach().cpu().numpy()
-        rhs = vops.to_device(np.atleast_2d(np.asarray(rhs, dtype=np.float64)), self.dtype,
-                             self.device)
+        rhs = self._vector(np.atleast_2d(np.asarray(rhs, dtype=np.float64)))
         self.xspace.add_rhs_equations(rhs)
         self.set_n_roots(self.xspace.dimensions.nRHS)
 

@@ -24,6 +24,7 @@ import torch
 from ..array import vector_ops as vops
 from ..array.basis_store import _host
 from ..ops import dense
+from ..parallel.collectives import psum
 from ..subspace.dimensions import Dimensions
 from ..subspace.xspace import XSpace
 from ..utils import Logger
@@ -154,7 +155,7 @@ def construct_dspace(
 
     nd = proj.shape[0]
     if nd == 0:
-        empty = torch.zeros((0, xspace.n), dtype=xspace.dtype, device=xspace.device)
+        empty = torch.zeros((0, xspace.width), dtype=xspace.dtype, device=xspace.device)
         return empty, empty
 
     # device: one combine per store over [deleted-Q, old-D] vectors
@@ -162,7 +163,7 @@ def construct_dspace(
     a_slots = [xspace.q_slots[i][1] for i in q_delete] + [s[1] for s in xspace.d_slots]
     dparams = xspace.store_v.combine(proj, v_slots)
     dactions = xspace.store_a.combine(proj, a_slots)
-    norms = _host(vops.norms_rows(dparams)).astype(float)
+    norms = _host(vops.norms_rows(dparams, xspace.sharding)).astype(float)
     inv = vops.to_device(1.0 / norms, xspace.dtype, xspace.device)
     dparams = vops.scale_rows(inv, dparams)
     dactions = vops.scale_rows(inv, dactions)
@@ -187,7 +188,7 @@ def append_overlap_with_r(xspace: XSpace, rparams: Tensor) -> np.ndarray:
     cross = gv[:, slots] if slots else np.zeros((nr, 0))
     ov[nx:, :nx] = cross
     ov[:nx, nx:] = cross.T
-    ov[nx:, nx:] = _host(vops.gram_sym(rparams))
+    ov[nx:, nx:] = _host(vops.gram_sym(rparams, xspace.sharding))
     return ov
 
 
@@ -235,20 +236,22 @@ def modified_gram_schmidt(
     nr = rparams.shape[0]
     rparams = rparams.clone()  # updated row by row below
     for i in range(nr):
-        norm = float(torch.sqrt(torch.abs(torch.dot(rparams[i], rparams[i]))))
+        norm = float(torch.sqrt(torch.abs(psum(torch.dot(rparams[i], rparams[i]),
+                                               xspace.sharding))))
         if norm > norm_thresh:
             rparams[i] = rparams[i] / norm
             if i + 1 < nr:
-                dots = vops.gram(rparams[i + 1:], rparams[i: i + 1])  # (nr-i-1, 1)
+                dots = vops.gram(rparams[i + 1:], rparams[i: i + 1],
+                                 xspace.sharding)  # (nr-i-1, 1)
                 rparams[i + 1:] = rparams[i + 1:] + (-dots * rparams[i][None, :])
         else:
             null_params.append(i)
     return rparams, null_params
 
 
-def normalise_block(rparams: Tensor, thresh: float = 1.0e-14) -> Tensor:
+def normalise_block(rparams: Tensor, thresh: float = 1.0e-14, sharding=None) -> Tensor:
     """Normalise rows unless their norm is below ``thresh`` (propose_rspace.h:18-28)."""
-    normed, _ = vops.normalize_rows(rparams, thresh)
+    normed, _ = vops.normalize_rows(rparams, thresh, sharding)
     return normed
 
 
@@ -288,7 +291,7 @@ def propose_rspace(
     wresidual = residuals[:nw]
     surviving = list(range(nw))
 
-    wresidual = normalise_block(wresidual)
+    wresidual = normalise_block(wresidual, sharding=xspace.sharding)
     full_overlap = append_overlap_with_r(xspace, wresidual)
     redundant = redundant_parameters(
         full_overlap, xspace.dimensions.nX, nw, svd_thresh, logger
@@ -304,7 +307,7 @@ def propose_rspace(
             keep = [i for i in range(wresidual.shape[0]) if i not in set(null_indices)]
             wresidual = _take(wresidual, keep)
             surviving = [surviving[i] for i in keep]
-        wresidual = normalise_block(wresidual)
+        wresidual = normalise_block(wresidual, sharding=xspace.sharding)
 
     k = wresidual.shape[0]
     if k:
@@ -348,7 +351,7 @@ class DSpaceResetter:
             v_slots = [s[0] for s in xspace.q_slots] + [s[0] for s in xspace.d_slots]
             block = xspace.store_v.combine(proj, v_slots)
             self.solution_params = [block[i] for i in range(proj.shape[0])]
-            empty = torch.zeros((0, xspace.n), dtype=xspace.dtype, device=xspace.device)
+            empty = torch.zeros((0, xspace.width), dtype=xspace.dtype, device=xspace.device)
             xspace.update_dspace(empty, empty)
 
         nr = min(nrows, len(self.solution_params))

@@ -31,6 +31,7 @@ import torch
 from .. import config as _config
 from ..array import vector_ops as vops
 from ..array.basis_store import BasisStore, _host
+from ..parallel.mesh import check_sharding
 from ..utils import Logger, Statistics
 from .dimensions import Dimensions
 
@@ -62,16 +63,21 @@ class XSpace:
     ):
         self.n = int(n)
         self.dtype = dtype
-        self.device = _config.resolve_device(device)
+        self.sharding = check_sharding(sharding)
+        self.device = (self.sharding.mesh.device if self.sharding is not None
+                       else _config.resolve_device(device))
+        # the width of a row here: this rank's slice of N under sharding
+        lo, hi = (0, self.n) if self.sharding is None else self.sharding.local_range(self.n)
+        self.width = hi - lo
         self.logger = logger or Logger()
         self.stats = stats or Statistics()
         # store_factory swaps the basis backend: the device BasisStore by
         # default, an offload store (array/offload_store.py) for the
         # host/disk spill tier; it is called as BasisStore is
         factory = store_factory or BasisStore
-        self.store_v = factory(capacity, n, dtype, sharding, name="params",
+        self.store_v = factory(capacity, n, dtype, self.sharding, name="params",
                                device=self.device)
-        self.store_a = factory(capacity, n, dtype, sharding, name="actions",
+        self.store_a = factory(capacity, n, dtype, self.sharding, name="actions",
                                device=self.device)
         # logical index lists; q newest-first
         self.p_slots: List[int] = []
@@ -135,11 +141,11 @@ class XSpace:
         ga_p = self.store_a.gram_block(params)  # params . all stored actions
         gv_a = self.store_v.gram_block(actions)  # actions . all stored vectors
         ga_a = self.store_a.gram_block(actions) if self.action_dot_action else None
-        rr_s = _host(vops.gram_sym(params))
+        rr_s = _host(vops.gram_sym(params, self.sharding))
         if self.action_dot_action:
-            rr_h = _host(vops.gram_sym(actions))
+            rr_h = _host(vops.gram_sym(actions, self.sharding))
         else:
-            rr_h = _host(vops.gram(params, actions))
+            rr_h = _host(vops.gram(params, actions, self.sharding))
         self.stats.gemm_inner_ops += 4
 
         pv = self.p_slots
@@ -242,8 +248,8 @@ class XSpace:
         gv_dp = self.store_v.gram_block(dparams)
         ga_dp = self.store_a.gram_block(dparams)
         gv_da = self.store_v.gram_block(dactions)
-        s_dd = _host(vops.gram_sym(dparams))
-        h_dd = _host(vops.gram(dparams, dactions))
+        s_dd = _host(vops.gram_sym(dparams, self.sharding))
+        h_dd = _host(vops.gram(dparams, dactions, self.sharding))
         self.stats.gemm_inner_ops += 4
 
         nX = dims.nX
@@ -288,24 +294,24 @@ class XSpace:
         for i, pvec in enumerate(pvectors):
             for idx, val in pvec.items():
                 dense[i, int(idx)] = val
-        block = vops.to_device(dense, self.dtype, self.device)
+        block = vops.to_device(dense, self.dtype, self.device, sharding=self.sharding)
         for i in range(nP):
             self.p_slots.append(self.store_v.append(block[i]))
         self.p_sparse = [dict(p) for p in pvectors]
-        s_pp = _host(vops.gram_sym(block))
+        s_pp = _host(vops.gram_sym(block, self.sharding))
         self.stats.gemm_inner_ops += 1
         self.s = s_pp
         self.h = np.asarray(pp_action_matrix, dtype=np.float64).reshape(nP, nP).copy()
         if self.rhs_slots:
             rhs_block = self.rhs_vectors()
-            self.rhs = _host(vops.gram(block, rhs_block))
+            self.rhs = _host(vops.gram(block, rhs_block, self.sharding))
         else:
             self.rhs = np.zeros((nP, 0))
 
     # ------------------------------------------------------------------
     def add_rhs_equations(self, rhs_block: Tensor) -> None:
         """Store RHS vectors b for A x = b (XSpace.h:208-220)."""
-        norms = _host(vops.norms_rows(rhs_block))
+        norms = _host(vops.norms_rows(rhs_block, self.sharding))
         for i in range(rhs_block.shape[0]):
             if norms[i] == 0:
                 raise RuntimeError("RHS vector cannot be zero")
@@ -315,7 +321,7 @@ class XSpace:
         dims = self.dimensions
         if dims.nX:
             x_block = torch.cat([self.params_p(), self.params_q(), self.params_d()], dim=0)
-            self.rhs = _host(vops.gram(x_block, self.rhs_vectors()))
+            self.rhs = _host(vops.gram(x_block, self.rhs_vectors(), self.sharding))
             self.stats.gemm_inner_ops += 1
         else:
             self.rhs = np.zeros((0, len(self.rhs_slots)))

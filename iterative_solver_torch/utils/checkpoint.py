@@ -41,8 +41,6 @@ import torch
 
 from .. import config
 
-_SHARDING = "sharding is not ported yet (ROADMAP.md Queue 1, item 6)"
-
 # dataset name in the HDF5 tree for each gathered state key
 _H5_LAYOUT = {
     "s": "subspace/s",
@@ -73,8 +71,12 @@ def _host(x) -> np.ndarray:
     return np.asarray(x)
 
 
-def _collect_block(store, slots) -> np.ndarray:
-    return np.asarray(_host(store.rows(list(slots))), dtype=np.float64)
+def _collect_block(store, slots, sharding=None, n=None) -> np.ndarray:
+    """The rows ``slots`` of a store, whole (gathered under sharding)."""
+    rows = store.rows(list(slots))
+    if sharding is not None:
+        rows = sharding.gather(rows, n)
+    return np.asarray(_host(rows), dtype=np.float64)
 
 
 def _write_hdf5(path: str, meta_json: str, data: dict) -> None:
@@ -98,20 +100,27 @@ def _read_hdf5(path: str):
 
 def save_checkpoint(solver, path: str) -> None:
     """Persist a parity solver mid-solve; the format follows the extension
-    (.h5/.hdf5 -> named-group HDF5, anything else -> compressed npz)."""
+    (.h5/.hdf5 -> named-group HDF5, anything else -> compressed npz). Under
+    sharding every rank calls it: the rows are gathered, rank 0 writes the
+    file and every rank waits for it."""
     xs = solver.xspace
+    sh = xs.sharding
+
+    def block(store, slots):
+        return _collect_block(store, slots, sh, xs.n)
+
     data = {
         "s": xs.s,
         "h": xs.h,
         "rhs_mat": xs.rhs,
         "value": xs.value,
-        "q_params": _collect_block(xs.store_v, [s[0] for s in xs.q_slots]),
-        "q_actions": _collect_block(xs.store_a, [s[1] for s in xs.q_slots]),
-        "d_params": _collect_block(xs.store_v, [s[0] for s in xs.d_slots]),
-        "d_actions": _collect_block(xs.store_a, [s[1] for s in xs.d_slots]),
-        "rhs_vectors": _collect_block(xs.store_v, xs.rhs_slots),
+        "q_params": block(xs.store_v, [s[0] for s in xs.q_slots]),
+        "q_actions": block(xs.store_a, [s[1] for s in xs.q_slots]),
+        "d_params": block(xs.store_v, [s[0] for s in xs.d_slots]),
+        "d_actions": block(xs.store_a, [s[1] for s in xs.d_slots]),
+        "rhs_vectors": block(xs.store_v, xs.rhs_slots),
         "rhs_norm": np.asarray(xs.rhs_norm, dtype=np.float64),
-        "p_dense": _collect_block(xs.store_v, xs.p_slots),
+        "p_dense": block(xs.store_v, xs.p_slots),
         "errors": np.asarray(solver.errors, dtype=np.float64),
         "working_set": np.asarray(solver.working_set, dtype=np.int64),
         "solutions": _host(getattr(solver.subspace_solver, "solutions", np.zeros((0, 0)))),
@@ -145,24 +154,29 @@ def save_checkpoint(solver, path: str) -> None:
     if hasattr(solver, "max_size_qspace"):
         meta["extras"]["max_size_qspace"] = int(solver.max_size_qspace)
 
-    if _is_hdf5_path(path):
-        _write_hdf5(path, json.dumps(meta), data)
-    else:
-        np.savez_compressed(path, meta=json.dumps(meta), **data)
+    if sh is None or sh.mesh.rank == 0:
+        if _is_hdf5_path(path):
+            _write_hdf5(path, json.dumps(meta), data)
+        else:
+            np.savez_compressed(path, meta=json.dumps(meta), **data)
+    if sh is not None:
+        from ..parallel.collectives import barrier
+
+        barrier(sh.mesh)
 
 
 def load_checkpoint(path: str, sharding=None, dtype=None, device=None):
     """Rebuild a parity solver from a checkpoint; returns the restored
     solver, on ``device``. A checkpoint of a class that is not a parity
-    solver raises ``ValueError``."""
+    solver raises ``ValueError``. With ``sharding`` (parallel/mesh.py)
+    every rank reads the file and its solver's stores keep the rank's
+    slices of the rows."""
     from ..array import vector_ops as vops
     from ..solvers.linear_eigensystem import LinearEigensystemDavidson, LinearEigensystemRSPT
     from ..solvers.linear_equations import LinearEquationsDavidson
     from ..solvers.nonlinear_diis import NonLinearEquationsDIIS
     from ..solvers.optimize import OptimizeBFGS, OptimizeSD
 
-    if sharding is not None:
-        raise NotImplementedError(_SHARDING)
     registry = {
         cls.__name__: cls
         for cls in (LinearEigensystemDavidson, LinearEigensystemRSPT, LinearEquationsDavidson,
@@ -179,7 +193,7 @@ def load_checkpoint(path: str, sharding=None, dtype=None, device=None):
     if cls is None:
         raise ValueError(f"checkpoint of a {meta['solver_class']}, which is not a "
                          f"parity solver of this package")
-    solver = cls(meta["n"], meta["nroots"], dtype=dtype, device=device)
+    solver = cls(meta["n"], meta["nroots"], dtype=dtype, device=device, sharding=sharding)
     solver.convergence_threshold = meta["convergence_threshold"]
     solver.max_iter = meta["max_iter"]
     xs = solver.xspace
@@ -191,7 +205,7 @@ def load_checkpoint(path: str, sharding=None, dtype=None, device=None):
         solver.max_size_qspace = meta["extras"]["max_size_qspace"]
 
     def dev(row):
-        return vops.to_device(row, xs.dtype, xs.device)
+        return vops.to_device(row, xs.dtype, xs.device, sharding=xs.sharding)
 
     # restore basis vectors in logical order
     for row in arrays["p_dense"]:
@@ -275,15 +289,16 @@ def save_fused_state(state, path: str, **meta) -> None:
     np.savez_compressed(path, meta=json.dumps(header, default=_jsonable), **data)
 
 
-def load_named_state(path: str, cls, sharding=None, dtype=None, device=None):
+def load_named_state(path: str, cls, sharding=None, dtype=None, device=None,
+                     shard_fields=("v", "w")):
     """Rebuild any flat NamedTuple state saved by ``save_fused_state``.
     0-d integer fields load as host ints (the port's slot and iteration
     counters), other integer fields as int tensors, float fields as
     ``dtype`` (default: as stored) on ``device``. Missing optional fields
-    restore as None. Returns ``(state, meta)``."""
-    if sharding is not None:
-        raise NotImplementedError(_SHARDING)
-    device = config.resolve_device(device)
+    restore as None. With ``sharding`` (parallel/mesh.py) every rank reads
+    the file and keeps its slices of the fields named in ``shard_fields``,
+    on the mesh's device. Returns ``(state, meta)``."""
+    device = sharding.mesh.device if sharding is not None else config.resolve_device(device)
     if _is_hdf5_path(path):
         import h5py
 
@@ -297,12 +312,14 @@ def load_named_state(path: str, cls, sharding=None, dtype=None, device=None):
             header = json.loads(str(z["meta"]))
             arrays = {k: z[k] for k in header["fields"]}
 
-    def restore(arr):
+    def restore(name, arr):
         if np.issubdtype(arr.dtype, np.integer):
             return int(arr) if arr.ndim == 0 else torch.as_tensor(arr, device=device)
+        if sharding is not None and name in shard_fields:
+            return sharding.shard(arr, dtype=dtype)
         return torch.as_tensor(arr, dtype=dtype, device=device)
 
-    fields = {name: restore(arr) for name, arr in arrays.items()}
+    fields = {name: restore(name, arr) for name, arr in arrays.items()}
     for missing in set(cls._fields) - set(fields):
         fields[missing] = None
     return cls(**fields), header["meta"]
@@ -310,11 +327,14 @@ def load_named_state(path: str, cls, sharding=None, dtype=None, device=None):
 
 def load_fused_state(path: str, sharding=None, dtype=None, device=None):
     """Rebuild a DavidsonState (+ the saved metadata dict) from disk: the
-    DavidsonState case of ``load_named_state``."""
+    DavidsonState case of ``load_named_state``. Under sharding every (rows,
+    N) field is a rank's slice in the port's SPMD solve, so the stacks and
+    the Ritz and residual blocks are cut (the JAX package re-shards the
+    stacks and lets GSPMD place the rest)."""
     from ..solvers.fused_davidson import DavidsonState
 
     return load_named_state(path, DavidsonState, sharding=sharding, dtype=dtype,
-                            device=device)
+                            device=device, shard_fields=("v", "w", "x", "r"))
 
 
 # ---------------------------------------------------------------------------

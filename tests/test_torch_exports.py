@@ -1,10 +1,8 @@
 """Each subpackage of the port exports the names its JAX counterpart exports.
 
 The JAX ``__all__`` lists are read from the source with ``ast``, so the
-check needs no JAX import. Left out, and listed here: the names of
-ROADMAP.md Queue 1 item 6b (the distribution layer, not ported yet), and
-the Pallas entry points, which the port exports under its kernel
-wrappers' names instead."""
+check needs no JAX import. Left out, and listed here: the Pallas entry
+points, which the port exports under its kernel wrappers' names instead."""
 
 import ast
 import importlib
@@ -16,10 +14,9 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 SUBPACKAGES = ("solvers", "array", "subspace", "native", "ops", "ops.kernels", "models",
-               "utils")
+               "utils", "parallel")
 # JAX name -> the port's name for it (None: waits for its ROADMAP item)
 NOT_EXPORTED = {
-    "array": {"Distribution": None, "spread_remainder": None},   # item 6b
     "ops.kernels": {"bsr_matmat_pallas": "bsr_matmat_kernel",
                     "masked_gram_pallas": "masked_gram_kernel"},
 }
@@ -80,6 +77,7 @@ def test_importing_the_subpackages_builds_nothing_and_needs_no_card():
         "subprocess.run = lambda *a, **k: calls.append(a) or real(*a, **k)\n"
         "import iterative_solver_torch.solvers, iterative_solver_torch.array\n"
         "import iterative_solver_torch.subspace, iterative_solver_torch.native\n"
+        "import iterative_solver_torch.parallel\n"
         "import iterative_solver_torch.ops.kernels\n"
         "from iterative_solver_torch.ops.kernels import _build\n"
         "from iterative_solver_torch.native import vecstore\n"

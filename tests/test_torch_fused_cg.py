@@ -184,7 +184,9 @@ def test_batched_matches_jax():
 def test_defaults_and_refusals(mat):
     ts = T.FusedBlockCG(_tmv, np.diag(mat), N, 2, operand=torch.as_tensor(mat), device="cpu")
     assert ts.dtype == torch.float64 and ts.max_iter == 1000
-    with pytest.raises(NotImplementedError, match=r"item 6\)"):
+    # sharding is ported (tests/test_torch_sharded_solvers.py) and takes a
+    # parallel.mesh.Sharding
+    with pytest.raises(TypeError, match="Sharding"):
         T.FusedBlockCG(_tmv, np.diag(mat), N, 2, device="cpu", sharding=object())
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):

@@ -255,11 +255,12 @@ def test_default_device_raises_without_cuda(mat):
 @pytest.mark.parametrize("case", ["p_space", "p_actions", "sharding", "checkpoint",
                                   "resume", "batched"])
 def test_unported_inputs_raise(mat, case, tmp_path):
-    """Only sharding is still unported (ROADMAP item 6) and raises; the
-    inputs that raised before P-space, checkpointing and the batched solve
-    were ported are now accepted."""
+    """The inputs that raised before P-space, checkpointing, the batched
+    solve and sharding were ported are now accepted; sharding takes a
+    parallel.mesh.Sharding (tests/test_torch_sharded_solvers.py drives it)
+    and refuses anything else."""
     if case == "sharding":
-        with pytest.raises(NotImplementedError, match=r"ROADMAP.md Queue 1, item 6\)"):
+        with pytest.raises(TypeError, match="Sharding"):
             T.FusedDavidson.from_dense_symmetric(mat, 2, device="cpu", sharding=object())
     elif case in ("p_space", "p_actions"):
         arg = {"p_space": [{0: 1.0}]}

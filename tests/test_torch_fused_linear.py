@@ -172,7 +172,9 @@ def test_bad_inputs_raise(mat, rhs):
         T.FusedLinearEquations.from_dense_symmetric(mat, NRHS, b=B, m_max=7, device="cpu")
     with pytest.raises(ValueError, match="tier"):
         T.FusedLinearEquations.from_dense_symmetric(mat, NRHS, tier="banana", device="cpu")
-    with pytest.raises(NotImplementedError, match=r"item 6\)"):
+    # sharding is ported (tests/test_torch_sharded_solvers.py) and takes a
+    # parallel.mesh.Sharding
+    with pytest.raises(TypeError, match="Sharding"):
         T.FusedLinearEquations.from_dense_symmetric(mat, NRHS, device="cpu",
                                                     sharding=object())
 

@@ -260,7 +260,9 @@ def test_bad_arguments_raise(mat):
     d = np.diag(mat).copy()
     with pytest.raises(ValueError, match="rr_every"):
         T.FusedPPCG(_dense_matvec, d, N, 2, rr_every=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # sharding is ported (tests/test_torch_sharded_solvers.py); it takes a
+    # parallel.mesh.Sharding and refuses anything else
+    with pytest.raises(TypeError, match="Sharding"):
         T.FusedPPCG(_dense_matvec, d, N, 2, sharding=object(), device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):

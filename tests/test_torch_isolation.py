@@ -1,6 +1,7 @@
 """The port imports nothing of JAX: no module of iterative_solver_torch/,
 not chip_smoke.py, calibrate_sparse_cpu.py, calibrate_nonlinear_cpu.py,
-calibrate_nonsym_cpu.py or calibrate_spill_cpu.py imports ``jax``, ``jaxlib``
+calibrate_nonsym_cpu.py, calibrate_spill_cpu.py, calibrate_sharded_cpu.py or
+the sharded tests' worker (tests/torch_shard_worker.py) imports ``jax``, ``jaxlib``
 or ``iterative_solver_tpu`` (which would run iterative_solver_tpu/__init__.py
 and import JAX)."""
 
@@ -16,7 +17,8 @@ FORBIDDEN = {"jax", "jaxlib", "iterative_solver_tpu"}
 PORT_FILES = sorted((ROOT / "iterative_solver_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "calibrate_sparse_cpu.py", ROOT / "compare_kernels.py",
     ROOT / "calibrate_nonlinear_cpu.py", ROOT / "calibrate_nonsym_cpu.py",
-    ROOT / "calibrate_spill_cpu.py"]
+    ROOT / "calibrate_spill_cpu.py", ROOT / "calibrate_sharded_cpu.py",
+    ROOT / "tests" / "torch_shard_worker.py"]
 
 
 def _imported_roots(path):
@@ -39,7 +41,9 @@ def test_port_files_found():
             "optimize.py", "nonlinear_diis.py", "interpolate.py", "implicit_diff.py",
             "calibrate_nonlinear_cpu.py", "fused_nonsym.py", "dense_int8.py",
             "calibrate_nonsym_cpu.py", "offload_store.py", "banded.py", "chebyshev.py",
-            "calibrate_spill_cpu.py"} <= names
+            "calibrate_spill_cpu.py", "distribution.py", "distr_array.py", "mesh.py",
+            "collectives.py", "sharded_symm.py", "sharded_bsr.py",
+            "calibrate_sharded_cpu.py", "torch_shard_worker.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -105,7 +109,17 @@ import iterative_solver_torch.solvers.propose_rspace
 import iterative_solver_torch.utils.logger
 import iterative_solver_torch.utils.profiler
 import iterative_solver_torch.utils.statistics
+import iterative_solver_torch.array.distribution
+import iterative_solver_torch.array.distr_array
+import iterative_solver_torch.parallel
+import iterative_solver_torch.parallel.mesh
+import iterative_solver_torch.parallel.collectives
+import iterative_solver_torch.parallel.sharded_symm
+import iterative_solver_torch.parallel.sharded_bsr
 import chip_smoke
+import calibrate_sharded_cpu
+sys.path.insert(0, "tests")
+import torch_shard_worker
 import calibrate_sparse_cpu
 import calibrate_nonlinear_cpu
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in FORBIDDEN)

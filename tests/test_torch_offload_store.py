@@ -68,7 +68,8 @@ def test_interface_matches_device_store_and_jax():
 def test_store_defaults_and_refusals():
     store = OffloadBasisStore(4, 8, device=CPU)
     assert store.dtype == torch.float64 and store.device.type == "cpu"
-    with pytest.raises(NotImplementedError, match="item 6b"):
+    # the offload stores' sharding waits for ROADMAP item 6c
+    with pytest.raises(NotImplementedError, match="item 6c"):
         OffloadBasisStore(4, 8, sharding=object(), device=CPU)
     store.close()
 

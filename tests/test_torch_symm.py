@@ -219,6 +219,42 @@ def test_wrappers_take_plain_version_on_cpu():
     assert T.LAUNCHES == before
 
 
+def _storage(kind, mat, b):
+    from iterative_solver_torch.ops.kernels import symm_int8 as T8
+
+    return {"f32": lambda: T.SymmetricBlocked.from_dense(mat, b=b, dtype=torch.float32,
+                                                         device="cpu"),
+            "bf16": lambda: T.SymmetricBlocked.from_dense(mat, b=b, dtype=torch.bfloat16,
+                                                          device="cpu"),
+            "split": lambda: T.SymmetricBlockedSplit.from_dense(mat, b=b, device="cpu"),
+            "int8": lambda: T8.SymmetricBlockedInt8.from_dense(mat, b=b, device="cpu"),
+            "int8_split": lambda: T8.SymmetricBlockedInt8Split.from_dense(mat, b=b,
+                                                                          device="cpu")}[kind]()
+
+
+@pytest.mark.parametrize("kind", ["f32", "bf16", "split", "int8", "int8_split"])
+def test_packed_matvec_runs_the_storage_kernel_with_its_operand(kind):
+    """``packed_matvec``: the operand is the storage's OPERAND tensors; the
+    matvec runs the storage's kernel wrapper (here its plain version, on
+    the CPU) with the operand's tensors in place of the storage's own."""
+    mat = _random_symmetric(128, seed=16)
+    sym = _storage(kind, mat, 32)
+    x = torch.from_numpy(_x(3, 128, seed=17, dtype=np.float32))
+    matvec, op = T.packed_matvec(sym)
+    assert len(op) == len(type(sym).OPERAND)
+    assert all(a is getattr(sym, f) for a, f in zip(op, type(sym).OPERAND))
+    y = matvec(x, op)
+    assert y.dtype == x.dtype
+    assert torch.equal(y, sym.plain(x)) and torch.equal(sym.kernel(x), sym.plain(x))
+    # a zero operand in place of every tile plane gives the diagonal's action alone
+    planes = ("values", "hi", "lo", "q", "q1", "q2")
+    zeroed = tuple(torch.zeros_like(a) if f in planes else a
+                   for a, f in zip(op, type(sym).OPERAND))
+    diag = getattr(sym, "diagonal", None) if kind.startswith("int8") else None
+    expect = torch.zeros_like(x) if diag is None else x * diag[None, :]
+    assert torch.equal(matvec(x, zeroed), expect)
+
+
 # the kernels' square walk (``square_work_list`` / ``square_walk``): b below,
 # at and above the 256-wide square, ragged b, tiles dropped by ``tol``
 WALK_SHAPES = [(192, 96, None), (400, 200, None), (1024, 512, None), (2048, 1024, None),
