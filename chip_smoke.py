@@ -241,8 +241,10 @@ Phases, one JSON line each:
     host and keeps its round-robin share of the tile pairs
     (``ShardedSymmetric``).
     a. ``sharded_kernels``: each rank's K1-bf16, K1-f32, K3, K4 and K5 on
-       its pairs at 16 x 8192 against its plain version (1e-5 of max|y|;
-       K4 and K5 bit for bit) and to the same bits on a second call; the
+       its pairs at 16 x 8192, and K1-f32 at 1, 4 and 8 x 8192 (the rows
+       the family phases give it), against its plain version (1e-5 of
+       max|y|; K4 and K5 bit for bit) and to the same bits on a second
+       call; the
        reduce-scattered y against the unsharded kernel's y (rank 0, 1e-5);
        each rank's device ms, one rank at a time, beside the unsharded
        kernel's; one sharded matvec's wall ms and its collectives (calls,
@@ -260,11 +262,40 @@ Phases, one JSON line each:
     d. ``solve_sharded_bsr``: bench.py's sparse operator by block rows
        (``ShardedBSR``, a plain body: no kernel, K6 none), the sparse
        phase's limits;
+    the family phases (ROADMAP Queue 1 item 6c), on the same ranks, each
+    at its unsharded phase's settings and limits, its seconds and staged
+    collectives printed, every rank the same bits, iterations within
+    SHARD_ITER_SLACK of the unsharded card run (or of the CPU's where the
+    card has no unsharded twin), K2, K6 and K7 none:
+       ``solve_sharded_lbfgs`` and ``solve_sharded_diis`` (17a, b: the
+       gradient and the residual through the "exact" tier's sharded K1-f32
+       action plus 3 I); ``refine_sharded`` (16f's input, the parent's
+       precise solve, refined to 1e-8 with K3 on each rank's pairs in the
+       deflated CG); ``solve_sharded_nonsym`` (18c's int8_precise device-RR
+       solve, the planes' rows sharded by DenseInt8Split.shard, x gathered
+       and quantized over its full rows); ``solve_sharded_banded`` (19b's
+       device mode: 32 roots in bands of 16, m_max 96, tol 5e-5);
+       ``solve_sharded_chebyshev`` (19c's flat operator, rank 0 building it);
+       ``solve_sharded_parity[rspt|bfgs|diis]`` (the parity families in
+       float32 with K1-f32: RSPT on the bench matrix, BFGS on the quadratic
+       of A+3I, DIIS on (A+3I)x + 0.05 x∘x − b; SHARD_PARITY);
+       ``offload_sharded[host|streamed]`` (the parity Davidson on the
+       bench matrix through sharded offload stores);
     e. ``nccl_world1``: NCCL at world size 1 in this process: the exact
        solve with ``sharding=`` against the same solve unsharded without the
        chain, equal iterations, eigenvalues within 1e-6, nothing staged.
     The kernels line carries each kernel's per-rank launches on the
-    sharded solves (``rank_launches``) and per-rank ms (``rank_ms``).
+    sharded solves (``rank_launches``: K1-f32 and K3 with the family
+    phases') and per-rank ms (``rank_ms``).
+21. after the differentiable solves (17d), ``c_api``: the C ABI
+    (bindings/c_api.py) in this process, driven as a C program drives it
+    (Initialize, SetDiagonals, AddVector, EndIteration, Finalize) for the
+    parity Davidson on the bench matrix, 4 roots, tol 1e-5, the solver in
+    float64 on the card, each action K1-f32: the parity phase's limits,
+    the CPU run's iterations within 2, one launch per AddVector; then the
+    embedded library (bindings/build_embedded.py, cffi) built and
+    examples/c/linear_eigensystem_c.c compiled against
+    include/iterative_solver_c.h and run with the device unset (the card).
 
 Each Davidson solve reports iterations, convergence, time per iteration,
 the f64 residual ||A x - rho x|| of each normalised Ritz vector against the
@@ -1972,20 +2003,38 @@ def solve_linear(shifted, b, x_ref, device, tier) -> dict:
     return rec
 
 
+def precise_solver(matrix, device=None, dtype=None):
+    """bench.py's precise leg: tier "precise", 16 roots, rr "full", tol
+    1e-5."""
+    from iterative_solver_torch import FusedDavidson
+
+    return FusedDavidson.from_dense_symmetric(
+        matrix, NROOTS, tier="precise", m_max=M_MAX, rr="full", convergence_threshold=1e-5,
+        max_iter=60, device=device, dtype=dtype)
+
+
+def precise_start(matrix, device) -> np.ndarray:
+    """The refinement's input: the precise solve's Ritz rows in float64 on
+    the host (float32 working precision)."""
+    import torch
+
+    solver = precise_solver(matrix, device, torch.float32)
+    x = solver.run_on_device(guess(np.diagonal(matrix), NROOTS))[1]
+    return x.detach().to("cpu", torch.float64).numpy()
+
+
 def refine_precise(matrix, device) -> dict:
     """bench.py's precise_1e8 leg: the precise solve (16 roots, rr "full",
     tol 1e-5), then EigenpairRefiner with the f64 action (on the card) and
     the K3 matvec for the deflated CG corrections, to 1e-8; and
-    refine_on_host from the same vectors."""
+    refine_on_host from the same vectors. The record's "x0" (popped by the
+    caller) is the refinement's input, for the sharded refinement."""
     import torch
 
-    from iterative_solver_torch import FusedDavidson
     from iterative_solver_torch.ops.precise import refine_on_host
     from iterative_solver_torch.solvers.refine import EigenpairRefiner
 
-    solver = FusedDavidson.from_dense_symmetric(
-        matrix, NROOTS, tier="precise", m_max=M_MAX, rr="full", convergence_threshold=1e-5,
-        max_iter=60)
+    solver = precise_solver(matrix)
     diag = np.diagonal(matrix)
     _, x, _, solve_iters = solver.run_on_device(guess(diag, NROOTS))
     x = x.detach().to("cpu", torch.float64).numpy()
@@ -2034,6 +2083,7 @@ def refine_precise(matrix, device) -> dict:
         failures.append(f"launches {launches} != expected {expected}")
     if failures:
         raise AssertionError("refine_precise_1e8: " + "; ".join(failures))
+    rec["x0"] = x
     return rec
 
 
@@ -2635,6 +2685,158 @@ def check_symm_adjoint(matrix, device) -> dict:
         "shapes": {"m": m, "n": n, "b": sym.b, "n_pairs": sym.n_pairs,
                    "checked_rows": list(ADJOINT_ROWS)},
     }
+
+
+# ---------------------------------------------------------------------------
+# The C ABI (bindings/, ROADMAP.md Queue 1 item 7b): the instance-stack API
+# in this process, then the embedded shared library built with cffi and the
+# repository's C example run against it.
+
+C_API_TOL = 1e-5
+C_API_EXAMPLE = os.path.join("examples", "c", "linear_eigensystem_c.c")
+# the port's CPU run of c_api_loop (float64 solver, float32 plain action;
+# calibrate_sharded_cpu.py c_api)
+C_API_ITERATIONS = 3
+
+
+def c_api_loop(matrix, device, action):
+    """The parity Davidson through bindings/c_api.py as a C program drives
+    it: Initialize (4 roots, tol C_API_TOL, hermitian; the device the
+    option store's, else the card), SetDiagonals, then AddVector with
+    ``action(rows)`` and, while EndIterationNeeded, the Jacobi update at
+    the working set's eigenvalues (as examples/c/linear_eigensystem_c.c)
+    and EndIteration; Eigenvalues, Errors, Solution, Finalize. Returns
+    (eigenvalues, errors, solution rows, iterations, stats, action calls,
+    the stack depth after Finalize)."""
+    from iterative_solver_torch.bindings import c_api
+
+    n, nroot = matrix.shape[0], PARITY_ROOTS
+    diag = np.diagonal(matrix)
+    c_api.IterativeSolverLinearEigensystemInitialize(n, nroot, thresh=C_API_TOL,
+                                                     hermitian=True)
+    c_api.IterativeSolverSetDiagonals(diag)
+    solver = c_api._top().solver
+    params, actions = np.zeros((nroot, n)), np.zeros((nroot, n))
+    for r, i in enumerate(np.argsort(diag)[:nroot]):
+        params[r, i] = 1.0
+    nwork, calls = nroot, 0
+    for _ in range(c_api.IterativeSolverMaxIter()):
+        actions[:nwork] = action(params[:nwork])
+        calls += 1
+        nwork = c_api.IterativeSolverAddVector(nwork, params, actions)
+        while c_api.IterativeSolverEndIterationNeeded():
+            if nwork > 0:
+                ev = np.zeros(nroot)
+                c_api.IterativeSolverWorkingSetEigenvalues(ev)
+                actions[:nwork] /= diag[None, :] - ev[:nwork, None] + 1e-15
+            nwork = c_api.IterativeSolverEndIteration(nwork, params, actions)
+        if nwork < 1:
+            break
+    evals, errors = np.zeros(nroot), np.zeros(nroot)
+    c_api.IterativeSolverEigenvalues(evals)
+    c_api.IterativeSolverErrors(errors)
+    p, r = np.zeros((nroot, n)), np.zeros((nroot, n))
+    c_api.IterativeSolverSolution(nroot, np.arange(nroot, dtype=np.int32), p, r)
+    iters, stats = solver.stats.iterations, str(solver.stats)
+    c_api.IterativeSolverFinalize()
+    return evals, errors, p, iters, stats, calls, len(c_api._stack)
+
+
+def k1_host_action(sym, device):
+    """``action(rows)``: host float64 rows through K1-f32 on ``device``,
+    back as host float64."""
+    import torch
+
+    from iterative_solver_torch.ops.kernels import symm
+
+    def action(rows):
+        x = torch.as_tensor(rows, dtype=torch.float32, device=device)
+        return symm.symm_matmat_kernel(x, sym).to("cpu", torch.float64).numpy()
+
+    return action
+
+
+def run_embedded_example(tmp: str) -> dict:
+    """Build libiterative_solver_torch_c.so with cffi into ``tmp``, compile
+    C_API_EXAMPLE against the repository's include/iterative_solver_c.h
+    with gcc and run it with the device unset (the card): its exit code,
+    its "C ABI OK" line and no exception inside the library."""
+    import sysconfig
+
+    from iterative_solver_torch.bindings import build_embedded
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    lib = os.path.join(tmp, "lib")
+    t0 = time.perf_counter()
+    build_embedded.build(lib)
+    build_s = time.perf_counter() - t0
+    exe = os.path.join(tmp, "linear_eigensystem_c")
+    subprocess.run(["gcc", "-O2", os.path.join(root, C_API_EXAMPLE), "-I",
+                    os.path.join(root, "include"), "-L", lib, "-literative_solver_torch_c",
+                    "-lm", "-o", exe], check=True, capture_output=True, text=True)
+    env = dict(os.environ)
+    env.pop("ITERATIVE_SOLVER_DEVICE", None)
+    # the embedded interpreter finds the port and this interpreter's packages
+    env["PYTHONPATH"] = os.pathsep.join([root] + [p for p in sys.path if p and os.path.isdir(p)])
+    env["LD_LIBRARY_PATH"] = os.pathsep.join(
+        [lib, sysconfig.get_config_var("LIBDIR") or "", env.get("LD_LIBRARY_PATH", "")])
+    t0 = time.perf_counter()
+    run = subprocess.run([exe], env=env, capture_output=True, text=True, timeout=300)
+    return {"example": C_API_EXAMPLE, "build_seconds": build_s,
+            "run_seconds": time.perf_counter() - t0, "returncode": run.returncode,
+            "stdout_tail": run.stdout[-400:], "stderr_tail": run.stderr[-2000:],
+            "ok": run.returncode == 0 and "C ABI OK" in run.stdout
+            and "Traceback" not in run.stderr}
+
+
+def solve_c_api(matrix, device) -> dict:
+    """The ``c_api`` phase: ``c_api_loop`` on the bench matrix with K1-f32
+    actions (one launch per AddVector): converged to C_API_TOL, the parity
+    phase's limits on the returned solutions (f64 residual 1e-4, Rayleigh
+    quotients 1e-8), the CPU run's iterations within 2, the stack empty
+    after Finalize; then ``run_embedded_example``."""
+    import tempfile
+
+    import torch
+
+    sym = packed_exact(matrix, device)
+    reset_launches()
+    sync(device)
+    t0 = time.perf_counter()
+    evals, errors, p, iters, stats, calls, depth = c_api_loop(matrix, device,
+                                                              k1_host_action(sym, device))
+    sync(device)
+    wall = time.perf_counter() - t0
+    launches = solve_launches("symm_f32")
+    q = dense_quality(torch.as_tensor(p), matrix, REFERENCE_EIGENVALUES[:PARITY_ROOTS])
+    rec = {"phase": "c_api", "n": matrix.shape[0], "nroots": PARITY_ROOTS, "tol": C_API_TOL,
+           "solver_dtype": "float64", "iterations": iters, "cpu_iterations": C_API_ITERATIONS,
+           "stats": stats, "eigenvalues": evals.tolist(), "max_error": float(errors.max()),
+           "seconds": wall, "seconds_per_iteration": wall / max(iters, 1),
+           "stack_after_finalize": depth, "launches": launches,
+           "expected_launches": {"action": calls, "chain": 0, "gram": 0},
+           "f64_max_residual": q["f64_max_residual"], "rq_max_abs_err": q["rq_max_abs_err"]}
+    failures = []
+    if not errors.max() <= C_API_TOL:
+        failures.append(f"errors {errors} > {C_API_TOL}")
+    if not q["f64_max_residual"] <= 1e-4:
+        failures.append(f"f64 residual {q['f64_max_residual']:.3e} > 1e-4")
+    if not q["rq_max_abs_err"] <= 1e-8:
+        failures.append(f"Rayleigh quotients off by {q['rq_max_abs_err']:.3e} > 1e-8")
+    if abs(iters - C_API_ITERATIONS) > 2:
+        failures.append(f"{iters} iterations, the CPU run {C_API_ITERATIONS}")
+    if depth != 0:
+        failures.append(f"{depth} instances left on the stack")
+    if launches != rec["expected_launches"] or launches["action"] == 0:
+        failures.append(f"launches {launches} != expected {rec['expected_launches']}")
+    with tempfile.TemporaryDirectory() as tmp:
+        rec["embedded"] = run_embedded_example(tmp)
+    if not rec["embedded"]["ok"]:
+        failures.append(f"the C example through the embedded library: {rec['embedded']}")
+    emit(rec)
+    if failures:
+        raise AssertionError("c_api: " + "; ".join(failures))
+    return rec
 
 
 # ---------------------------------------------------------------------------
@@ -3840,6 +4042,11 @@ SHARD_LAUNCH_KEYS = {"K1-bf16": "symm_bf16", "K1-f32": "symm_f32", "K3": "symm_s
                      "K4": "symm_int8", "K5": "symm_int8_split"}
 # K4 at the sharded flagship's shape (64 x 32768, a quarter of its pairs)
 SHARD_FLAGSHIP_KERNEL = "K4@flagship"
+# the rows of x at which the family phases launch each rank's K1-f32 (1:
+# L-BFGS, DIIS and the parity RSPT, BFGS and DIIS; 4 and fewer: the parity
+# Davidson and offload as roots converge; 8: Chebyshev), each checked as
+# the 16-row case is (``K1-f32@<rows>x8192``)
+SHARD_FAMILY_ROWS = (1, 4, 8)
 # the unsharded kernel check of each per-rank check's shape
 SHARD_UNSHARDED = {"K4": "K4@n8192", SHARD_FLAGSHIP_KERNEL: "K4"}
 
@@ -3875,13 +4082,14 @@ def in_rank_turns(mesh, fn):
     return out
 
 
-def shard_storages(mesh, matrix, work_dir: str) -> dict:
+def shard_storages(mesh, matrix, work_dir: str, tiers=None) -> dict:
     """{tier: host storage}: each tier's from_dense_symmetric storage of
     ``matrix`` at n = 8192 (tiles of 1024 for fast and the int8 tiers, 512
     for exact and precise; "exact" in float32, as the card holds it).
     Rank r packs its share of the tiers (SHARD_PACKER) and saves them in
-    ``work_dir``; every rank then loads all five (the packing is the slow
-    part: about 8 s for an int8 tier, 3 s for the others)."""
+    ``work_dir``; every rank then loads them all (the packing is the slow
+    part: about 8 s for an int8 tier, 3 s for the others). ``tiers``: those
+    of SHARD_KERNELS to pack (default all five)."""
     import torch
 
     from iterative_solver_torch.parallel.collectives import barrier
@@ -3890,11 +4098,12 @@ def shard_storages(mesh, matrix, work_dir: str) -> dict:
     def path(tier):
         return os.path.join(work_dir, f"storage_{tier}.pt")
 
-    for _, tier, b in SHARD_KERNELS:
+    wanted = [(tier, b) for _, tier, b in SHARD_KERNELS if tiers is None or tier in tiers]
+    for tier, b in wanted:
         if SHARD_PACKER[tier] % mesh.size == mesh.rank:
             torch.save(packed_storage(matrix, tier, b, "cpu", dtype=torch.float32), path(tier))
     barrier(mesh)
-    return {tier: torch.load(path(tier), weights_only=False) for _, tier, _ in SHARD_KERNELS}
+    return {tier: torch.load(path(tier), weights_only=False) for tier, _ in wanted}
 
 
 def shard_actions(mesh, storages) -> dict:
@@ -3959,7 +4168,8 @@ def shard_kernel_checks(mesh, matrix, storages, actions, device, flagship=None) 
     16 x 8192 (``shard_kernel_case``), per-rank and unsharded device ms
     from the profiler (one rank at a time; CUDA-event ms beside them), and
     one sharded matvec's collectives: calls, bytes staged each way and host
-    ms; then K4 at the sharded flagship's shape, 64 x 32768 on the rank's
+    ms; then K1-f32 at the family phases' rows (SHARD_FAMILY_ROWS, the same
+    checks, CUDA-event ms); then K4 at the sharded flagship's shape, 64 x 32768 on the rank's
     quarter of its pairs (``flagship``: its ShardedSymmetric and host
     storage), CUDA-event ms only."""
     import torch
@@ -4006,6 +4216,25 @@ def shard_kernel_checks(mesh, matrix, storages, actions, device, flagship=None) 
         rec["seconds"] = time.perf_counter() - t0
         recs.append(rec)
         torch.cuda.empty_cache()
+    _, op, ssym = actions["exact"]
+    whole = unsharded_kernel(storages["exact"], device) if mesh.rank == 0 else None
+    for rows in SHARD_FAMILY_ROWS:
+        t0 = time.perf_counter()
+        name = f"K1-f32@{rows}x{n}"
+        xr = x[:rows].contiguous()
+        rec, failures = shard_kernel_case(mesh, name, ssym, op, xr, sh, whole)
+        rec["tier"] = "exact"
+        rec["rank_ms"] = in_rank_turns(mesh, lambda: time_ms(lambda: ssym.partial(xr, op),
+                                                             device))
+        rec["rank_plain_ms"] = in_rank_turns(mesh, lambda: time_ms(
+            lambda: ssym.local.plain(xr), device))
+        if failures:
+            raise AssertionError(f"sharded_kernels {name}, rank {mesh.rank}: "
+                                 + "; ".join(failures))
+        rec["seconds"] = time.perf_counter() - t0
+        recs.append(rec)
+    del whole
+    torch.cuda.empty_cache()
     if flagship is not None:
         t0 = time.perf_counter()
         ssym, host = flagship
@@ -4211,7 +4440,555 @@ def shard_bsr(mesh, device) -> dict:
     return rec
 
 
-SHARD_PHASES = ("kernels", "solves", "ppcg", "bsr")
+# ---------------------------------------------------------------------------
+# The remaining families under sharding (ROADMAP.md Queue 1 item 6c), on the
+# same ranks after phases a-d: each at its unsharded phase's settings and
+# limits, the action each rank's K1-f32 ("exact", b = 512) or K3 ("precise")
+# on its pairs through ShardedSymmetric, or the dense int8 planes' rank rows
+# (torch._int_mm). Iteration counts within SHARD_ITER_SLACK of the unsharded
+# card run, or of calibrate_sharded_cpu.py's unsharded float32 CPU run where
+# the card has no unsharded twin (SHARD_FAMILY_CPU_ITERATIONS).
+
+SHARD_FAMILIES = ("lbfgs", "diis", "refine", "nonsym", "banded", "chebyshev", "parity",
+                  "offload")
+# the parity families under sharding, float32 with K1-f32 per rank (the
+# unsharded card phase runs them in float64 with a dense matmul, so it is
+# not their twin): method -> (options, tolerance); RSPT on the bench matrix,
+# BFGS on the quadratic of A+3I about np.linalg.solve(A+3I, b), DIIS on
+# (A+3I)x + 0.05 x∘x − b (calibrate_sharded_cpu.py parity)
+SHARD_PARITY = {"rspt": ("convergence_threshold=1e-5,max_iter=40", None),
+                "bfgs": ("max_size_qspace=6", 1e-3),
+                "diis": ("max_size_qspace=8", 1e-4)}
+# the checks' limits: |sum of the RSPT series - the lowest eigenvalue|, BFGS's
+# max|x - x*|, DIIS's f64 relative residual (the CPU's float32 on 4 ranks:
+# 4.2e-8, 7.4e-7, 6.8e-7)
+SHARD_PARITY_LIMITS = {"rspt": 1e-6, "bfgs": 1e-5, "diis": 2e-6}
+# the offload phase: the parity Davidson (4 roots, tol 1e-5) on the bench
+# matrix through each sharded store form
+SHARD_OFFLOAD_FORMS = {"host": True, "streamed": "streamed"}
+# the port's unsharded float32 CPU iterations of the phases whose card run
+# has no unsharded twin (calibrate_sharded_cpu.py parity offload)
+SHARD_FAMILY_CPU_ITERATIONS = {"parity_rspt": 4, "parity_bfgs": 4, "parity_diis": 4,
+                               "offload_host": 3, "offload_streamed": 3}
+
+
+def family_record(mesh, phase, key, iters, seconds, launches, expected, **extra) -> dict:
+    """A sharded family phase's record: the rank, the iterations compared
+    with the unsharded run ``key``, the seconds, the staged collectives and
+    their count, this rank's launches against ``expected`` (K2, K6 and K7
+    must stay 0)."""
+    from iterative_solver_torch.parallel import collectives
+
+    return {"phase": phase, "rank": mesh.rank, "world": mesh.size, "unsharded_key": key,
+            "device_type": mesh.device.type,
+            "iterations": iters, "seconds": seconds, "launches": launches,
+            "expected_launches": expected, "staged": dict(collectives.STAGED),
+            "collectives": dict(collectives.TRAFFIC),
+            "staged_collectives": collectives.STAGED["calls"], **extra}
+
+
+def family_launches(key: str) -> dict:
+    """``solve_launches`` with the BSR action (K6) beside it."""
+    return {**solve_launches(key), "bsr": read_launches("bsr")}
+
+
+def family_check(rec, failures) -> dict:
+    """Raise with the phase's failures and (on the card: on the CPU, where
+    calibrate_sharded_cpu.py runs the phases, nothing launches) launch
+    mismatches; else return ``rec``."""
+    if rec["device_type"] == "cuda" and rec["launches"] != rec["expected_launches"]:
+        failures.append(f"launches {rec['launches']} != expected {rec['expected_launches']}")
+    if failures:
+        raise AssertionError(f"{rec['phase']}, rank {rec['rank']}: " + "; ".join(failures))
+    return rec
+
+
+def begin_family() -> float:
+    from iterative_solver_torch.parallel import collectives
+
+    reset_launches()
+    collectives.reset_counters()
+    return time.perf_counter()
+
+
+def shifted_action(actions):
+    """(matvec, operand) of A + 3 I on this rank's slices: the "exact"
+    tier's ShardedSymmetric matvec (K1-f32 on each rank's pairs) plus the
+    shift on the rank's slice."""
+    matvec, op, _ = actions["exact"]
+
+    def shifted(x, operand):
+        return matvec(x, operand) + LINEAR_SHIFT * x
+
+    return shifted, op
+
+
+def shard_lbfgs(mesh, device, matrix, actions, inputs) -> dict:
+    """``solve_sharded_lbfgs``: FusedLBFGS at solve_lbfgs's settings on
+    1/2 xᵀ(A+3I)x − bᵀx with ``sharding=``, the gradient (A+3I)x − b from
+    the sharded K1-f32 action (one launch per evaluation on each rank, no
+    autograd), f all-reduced; the f64 error against np.linalg.solve (rank
+    0)."""
+    import torch
+
+    from iterative_solver_torch import FusedLBFGS
+    from iterative_solver_torch.parallel import block_sharding
+    from iterative_solver_torch.parallel.collectives import psum
+
+    sh = block_sharding(mesh)
+    n = matrix.shape[0]
+    b_loc = sh.shard(linear_rhs(n)[0], torch.float32)
+    matvec, op = shifted_action(actions)
+    evaluations = [0]
+
+    def value_and_grad(x, operand):
+        evaluations[0] += 1
+        g = matvec(x[None, :], operand)[0] - b_loc
+        # f = 1/2 x.(A+3I)x - b.x = 1/2 x.g - 1/2 b.x
+        return psum(0.5 * (torch.dot(x, g) - torch.dot(b_loc, x)), sh), g
+
+    solver = FusedLBFGS(value_and_grad, n, history=LBFGS_HISTORY, dtype=torch.float32,
+                        convergence_threshold=LBFGS_TOL, max_iter=LBFGS_MAX_ITER,
+                        operand=op, sharding=sh)
+    t0 = begin_family()
+    x, f, gnorm, iters = solver.run(np.zeros(n))
+    wall = time.perf_counter() - t0
+    rec = family_record(mesh, "solve_sharded_lbfgs", "lbfgs", iters, wall,
+                        family_launches("symm_f32"),
+                        {"action": evaluations[0], "chain": 0, "gram": 0, "bsr": 0},
+                        evaluations=evaluations[0], gnorm=gnorm, f=f, tol=LBFGS_TOL,
+                        evals=[float(f)], launch_key="symm_f32")
+    failures = [] if gnorm <= LBFGS_TOL else [f"gradient norm {gnorm:.3e} > {LBFGS_TOL}"]
+    if mesh.rank == 0:
+        rec["f64_solution_error"] = relative_error(x.cpu().numpy(), inputs["x_ref"])
+        rec["f64_solution_error_limit"] = LBFGS_ERR_LIMIT
+        if not rec["f64_solution_error"] <= LBFGS_ERR_LIMIT:
+            failures.append(f"f64 solution error {rec['f64_solution_error']:.3e}")
+    return family_check(rec, failures)
+
+
+def shard_diis(mesh, device, matrix, actions, inputs) -> dict:
+    """``solve_sharded_diis``: FusedDIIS at solve_fused_diis's settings on
+    (A+3I)x + 0.05 x∘x − b with ``sharding=``, one sharded K1-f32 launch
+    per residual on each rank; the f64 relative residual (rank 0)."""
+    import torch
+
+    from iterative_solver_torch import FusedDIIS
+    from iterative_solver_torch.parallel import block_sharding
+
+    sh = block_sharding(mesh)
+    n = matrix.shape[0]
+    b = linear_rhs(n)[0]
+    b_loc = sh.shard(b, torch.float32)
+    matvec, op = shifted_action(actions)
+
+    def residual(x, operand):
+        return matvec(x[None, :], operand)[0] + DIIS_EPS * x * x - b_loc
+
+    solver = FusedDIIS(residual, n, max_size_qspace=DIIS_M, dtype=torch.float32,
+                       convergence_threshold=DIIS_TOL, max_iter=DIIS_MAX_ITER, operand=op,
+                       diagonals=np.diagonal(matrix) + LINEAR_SHIFT, sharding=sh)
+    t0 = begin_family()
+    x, err, iters = solver.run(np.zeros(n))
+    wall = time.perf_counter() - t0
+    rec = family_record(mesh, "solve_sharded_diis", "diis", iters, wall,
+                        family_launches("symm_f32"),
+                        {"action": 1 + iters, "chain": 0, "gram": 0, "bsr": 0}, err=err,
+                        tol=DIIS_TOL, evals=[float(err)], launch_key="symm_f32")
+    failures = [] if err <= DIIS_TOL else [f"err {err:.3e} > {DIIS_TOL}"]
+    if mesh.rank == 0:
+        x = x.to("cpu", torch.float64).numpy()
+        res = float(np.linalg.norm(matrix @ x + LINEAR_SHIFT * x + DIIS_EPS * x * x - b)
+                    / np.linalg.norm(b))
+        rec.update(f64_relative_residual=res, f64_residual_limit=DIIS_RES_LIMIT)
+        if not res <= DIIS_RES_LIMIT:
+            failures.append(f"f64 relative residual {res:.3e} > {DIIS_RES_LIMIT}")
+    return family_check(rec, failures)
+
+
+def shard_refine(mesh, device, matrix, actions, inputs) -> dict:
+    """``refine_sharded``: EigenpairRefiner from the unsharded refinement's
+    input (the parent's precise solve) with ``sharding=``, the deflated CG
+    on the "precise" ShardedSymmetric matvec (K3 on each rank's pairs; the
+    CG init's action and one per CG iteration), the f64 action on the
+    rank's device: the 1e-8 bar and the eigenvalues within 1e-9."""
+    import torch
+
+    from iterative_solver_torch.parallel import block_sharding
+    from iterative_solver_torch.solvers.refine import EigenpairRefiner
+
+    matvec, op, _ = actions["precise"]
+    a64 = torch.as_tensor(matrix, dtype=torch.float64, device=device)
+
+    def action_f64(xs):
+        return (torch.as_tensor(xs, dtype=torch.float64, device=device) @ a64).cpu().numpy()
+
+    refiner = EigenpairRefiner(action_f64, matvec, op, np.diagonal(matrix), matrix.shape[0],
+                               NROOTS, dtype=torch.float32, sharding=block_sharding(mesh))
+    t0 = begin_family()
+    out = refiner.refine(inputs["refine_x0"], tol=REFINE_TOL)
+    wall = time.perf_counter() - t0
+    del a64
+    rq_err = float(np.max(np.abs(np.sort(out.eigenvalues)[:4] - REFERENCE_EIGENVALUES)))
+    rec = family_record(mesh, "refine_sharded", "refine", out.passes, wall,
+                        family_launches("symm_split"),
+                        {"action": sum(1 + it for it in refiner.cg_iterations), "chain": 0,
+                         "gram": 0, "bsr": 0},
+                        passes=out.passes, cg_iterations=refiner.cg_iterations,
+                        history=out.history, converged=out.converged,
+                        f64_max_residual=float(out.residual_norms.max()),
+                        f64_residual_limit=REFINE_TOL, rq_max_abs_err=rq_err,
+                        rq_limit=REFINE_RQ_LIMIT, launch_key="symm_split",
+                        evals=[float(e) for e in out.eigenvalues])
+    failures = []
+    if not out.converged or not out.residual_norms.max() <= REFINE_TOL:
+        failures.append(f"not refined to {REFINE_TOL}: history {out.history}")
+    if not rq_err <= REFINE_RQ_LIMIT:
+        failures.append(f"eigenvalues off by {rq_err:.3e} > {REFINE_RQ_LIMIT}")
+    return family_check(rec, failures)
+
+
+def shard_nonsym(mesh, device, matrix, actions, inputs) -> dict:
+    """``solve_sharded_nonsym``: leg_nonsym's operator (n = 8192) in the
+    int8_precise tier, rows sharded by ``DenseInt8Split.shard``, x
+    gathered and quantized over its full rows, ``torch._int_mm`` on the
+    rank's rows; FusedNonSymDavidson with rr "device" at solve_nonsym's
+    settings and limits (rank 0: the f64 residuals, the eigenvalues against
+    NONSYM_REFERENCE_EIGENVALUES); no kernel of the port launched."""
+    import torch
+
+    from iterative_solver_torch import FusedNonSymDavidson
+    from iterative_solver_torch.ops.kernels.dense_int8 import (
+        DenseInt8Split,
+        sharded_matvec_split,
+    )
+    from iterative_solver_torch.parallel import block_sharding
+
+    tol, res_limit, ev_limit, _ = NONSYM_TIERS["int8_precise"]
+    m = nonsym_matrix()
+    t0 = time.perf_counter()
+    tree = DenseInt8Split.from_dense(m, device="cpu").shard(mesh)
+    setup_s = time.perf_counter() - t0
+    solver = FusedNonSymDavidson(sharded_matvec_split(mesh), np.diag(m), NONSYM_N,
+                                 NONSYM_ROOTS, m_max=NONSYM_M_MAX, dtype=torch.float32,
+                                 convergence_threshold=tol, max_iter=NONSYM_MAX_ITER,
+                                 operand=tree, rr="device", sharding=block_sharding(mesh))
+    t0 = begin_family()
+    evals, x, errors, iters = solver.solve(guess(np.diag(m), NONSYM_ROOTS))
+    wall = time.perf_counter() - t0
+    launches = {**family_launches("symm_f32"), "all": sum(kernel_launches().values())}
+    rec = family_record(mesh, "solve_sharded_nonsym", "nonsym", iters, wall, launches,
+                        {"action": 0, "chain": 0, "gram": 0, "bsr": 0, "all": 0},
+                        nonsym_tier="int8_precise", rr="device", tol=tol,
+                        setup_seconds=setup_s,
+                        max_error=float(np.max(errors)), roots_returned=len(evals),
+                        evals=[float(e) for e in np.real(evals)])
+    failures = []
+    if not np.max(errors) <= tol or len(evals) != NONSYM_ROOTS:
+        failures.append(f"{len(evals)} roots, max error {np.max(errors):.3e} > {tol}")
+    if mesh.rank == 0:
+        a64 = torch.as_tensor(m, dtype=torch.float64, device=device)
+        rec.update(nonsym_quality(x, evals, a64), f64_residual_limit=res_limit,
+                   eigenvalue_max_abs_err=eigenvalue_error(evals, NONSYM_REFERENCE_EIGENVALUES),
+                   eigenvalue_limit=ev_limit)
+        del a64
+        if not rec["f64_max_residual"] <= res_limit:
+            failures.append(f"f64 residual {rec['f64_max_residual']:.3e} > {res_limit}")
+        if not rec["eigenvalue_max_abs_err"] <= ev_limit:
+            failures.append(f"eigenvalues {rec['eigenvalue_max_abs_err']:.3e} > {ev_limit}")
+    return family_check(rec, failures)
+
+
+def shard_banded(mesh, device, matrix, actions, inputs) -> dict:
+    """``solve_sharded_banded``: BandedEigensolver for the 32 lowest roots
+    in bands of 16, m_max 96, tol 5e-5 (the held device mode) with
+    ``sharding=``, the deflated sharded K1-f32 action; solve_banded's
+    limits (rank 0) and launches (init + iterations + restarts of each
+    band; no chain under sharding)."""
+    import torch
+
+    from iterative_solver_torch.parallel import block_sharding
+    from iterative_solver_torch.solvers import BandedEigensolver
+
+    matvec, op, _ = actions["exact"]
+    deflate, band, m_max, tol = BANDED_MODES["device"]
+    solver = BandedEigensolver(matvec, np.diagonal(matrix), matrix.shape[0], band=band,
+                               m_max=m_max, dtype=torch.float32, convergence_threshold=tol,
+                               max_iter=BANDED_MAX_ITER, operand=op, deflate=deflate,
+                               sharding=block_sharding(mesh))
+    t0 = begin_family()
+    vals, vecs, errs = solver.solve(BANDED_ROOTS)
+    wall = time.perf_counter() - t0
+    expected = {"action": k1_launches_of_solve(solver.runs, m_max, probe=False), "chain": 0,
+                "gram": 0, "bsr": 0}
+    rec = family_record(mesh, "solve_sharded_banded", "banded",
+                        sum(it for _, it in solver.runs), wall, family_launches("symm_f32"),
+                        expected, runs=solver.runs, band=band, m_max=m_max, tol=tol,
+                        n_locked=solver.n_locked, max_error=float(np.max(errs)),
+                        evals=[float(v) for v in vals], launch_key="symm_f32")
+    failures = []
+    if mesh.rank == 0:
+        q = many_root_quality(vals, vecs, matrix, BANDED_REFERENCE_EIGENVALUES)
+        res_limit, rq_limit = BANDED_LIMITS["device"]
+        rec.update(q, limits=[res_limit, rq_limit])
+        if not q["f64_max_residual"] <= res_limit:
+            failures.append(f"f64 residual {q['f64_max_residual']:.3e} > {res_limit}")
+        if not q["rq_max_abs_err"] <= rq_limit:
+            failures.append(f"Rayleigh quotients off by {q['rq_max_abs_err']:.3e}")
+        if not q["ortho_max"] <= BANDED_ORTHO_LIMIT:
+            failures.append(f"max|X X^T - I| = {q['ortho_max']:.3e}")
+    if solver.n_locked != BANDED_ROOTS:
+        failures.append(f"{solver.n_locked} rows locked, not {BANDED_ROOTS}")
+    return family_check(rec, failures)
+
+
+def shard_flat_operator(mesh, device, work_dir: str):
+    """The flat operator of solve_chebyshev: rank 0 builds it
+    (``flat_operator``) and saves its packed "exact" storage (host, float32)
+    and diagonal for the other ranks; returns (storage, diagonal, the f64
+    operator on rank 0's device or None, w)."""
+    import torch
+
+    from iterative_solver_torch.parallel.collectives import barrier
+
+    path = os.path.join(work_dir, "flat.pt")
+    a64 = None
+    if mesh.rank == 0:
+        a64, (_, fsym), w = flat_operator(N, device)
+        host = dataclasses.replace(fsym, **{
+            f.name: getattr(fsym, f.name).cpu() for f in dataclasses.fields(fsym)
+            if isinstance(getattr(fsym, f.name), torch.Tensor)})
+        torch.save((host, torch.diagonal(a64).cpu().numpy()), path)
+        del fsym
+    barrier(mesh)
+    host, fdiag = torch.load(path, weights_only=False)
+    return host, fdiag, a64, flat_spectrum(N)
+
+
+def shard_chebyshev(mesh, device, matrix, actions, inputs) -> dict:
+    """``solve_sharded_chebyshev``: make_chebyshev_davidson (degree 4, m_max
+    64, rr "full", 8 roots, tol 1e-4) on the flat-diagonal operator with
+    ``sharding=``: the Lanczos bounds sharded, the filter around the
+    sharded K1-f32 matvec; solve_chebyshev's flat limits (rank 0), the
+    matvec identity and the launches (bounds, probe, init, degree + 1 per
+    iteration, one per restart; no chain)."""
+    import torch
+
+    from iterative_solver_torch.parallel import block_sharding
+    from iterative_solver_torch.parallel.sharded_symm import ShardedSymmetric
+    from iterative_solver_torch.solvers import make_chebyshev_davidson
+
+    t0 = time.perf_counter()
+    host, fdiag, a64, w = shard_flat_operator(mesh, device, inputs["work_dir"])
+    matvec, op = ShardedSymmetric.from_symmetric(host, mesh).matvec_fn()
+    del host
+    setup_s = time.perf_counter() - t0
+    t0 = begin_family()
+    solver = make_chebyshev_davidson(matvec, fdiag, N, nroots=FLAT_ROOTS, degree=CHEB_DEGREE,
+                                     m_max=CHEB_M_MAX, rr="full", operand=op,
+                                     convergence_threshold=FLAT_TOL, max_iter=FLAT_MAX_ITER,
+                                     dtype=torch.float32, sharding=block_sharding(mesh))
+    evals, x, errors, iters = solver.run_on_device(guess(fdiag, FLAT_ROOTS))
+    wall = time.perf_counter() - t0
+    expected = {"action": k1_launches_of_solve([(FLAT_ROOTS, iters)], CHEB_M_MAX, probe=True,
+                                               per_iteration=CHEB_DEGREE + 1) + LANCZOS_ITERS,
+                "chain": 0, "gram": 0, "bsr": 0}
+    rec = family_record(mesh, "solve_sharded_chebyshev", "chebyshev", iters, wall,
+                        family_launches("symm_f32"), expected, setup_seconds=setup_s,
+                        matvecs=solver.matvecs,
+                        matvecs_identity=FLAT_ROOTS + iters * FLAT_ROOTS * CHEB_DEGREE,
+                        max_error=float(np.max(errors)), tol=FLAT_TOL,
+                        evals=[float(e) for e in evals], launch_key="symm_f32")
+    failures = []
+    if not np.max(errors) <= FLAT_TOL:
+        failures.append(f"not converged: max error {np.max(errors):.3e}")
+    if rec["matvecs"] != rec["matvecs_identity"]:
+        failures.append(f"matvecs {rec['matvecs']} != {rec['matvecs_identity']}")
+    if mesh.rank == 0:
+        xd = x.detach().to(device, torch.float64)
+        xd = xd / torch.linalg.vector_norm(xd, dim=1, keepdim=True)
+        ax = xd @ a64
+        rq = torch.sum(xd * ax, dim=1)
+        res = float(torch.linalg.vector_norm(ax - rq[:, None] * xd, dim=1).max())
+        rq_err = float(np.abs(np.sort(rq.cpu().numpy()) - w[:FLAT_ROOTS]).max())
+        res_limit, rq_limit = CHEB_LIMITS["flat"]
+        rec.update(f64_max_residual=res, rq_max_abs_err=rq_err, limits=[res_limit, rq_limit])
+        del a64, xd, ax
+        if not res <= res_limit:
+            failures.append(f"f64 residual {res:.3e} > {res_limit}")
+        if not rq_err <= rq_limit:
+            failures.append(f"Rayleigh quotients off by {rq_err:.3e} > {rq_limit}")
+    return family_check(rec, failures)
+
+
+def slice_problem(action=None, residual=None, diagonals=None):
+    """A parity ``Problem`` written per rank slice, counting its calls (one
+    sharded K1-f32 launch each): ``action(rows)``; or ``residual(x) ->
+    (global value, the rank's slice of the residual)``."""
+    import iterative_solver_torch as its
+
+    class SliceProblem(its.Problem):
+        calls = 0
+
+        def action(self, parameters):
+            SliceProblem.calls += 1
+            return action(parameters)
+
+        def residual(self, parameters):
+            SliceProblem.calls += 1
+            return residual(parameters)
+
+        def diagonals(self):
+            return diagonals
+
+    return SliceProblem()
+
+
+def shard_parity(mesh, device, matrix, actions, inputs) -> list:
+    """``solve_sharded_parity[rspt|bfgs|diis]``: the parity families with
+    ``sharding=`` in float32, each action or residual one sharded K1-f32
+    launch per rank: RSPT (create_linear_eigensystem(n, 1, "RSPT")) on the
+    bench matrix, its series' sum against the lowest eigenvalue;
+    create_optimize(n, "BFGS") on 1/2 (x − x*)ᵀ(A+3I)(x − x*), x* =
+    np.linalg.solve(A+3I, b); create_nonlinear_equations(n, "DIIS") on
+    (A+3I)x + 0.05 x∘x − b; the problems written per slice (global value,
+    the rank's slice of the gradient)."""
+    import torch
+
+    import iterative_solver_torch as its
+    from iterative_solver_torch.parallel import block_sharding
+    from iterative_solver_torch.parallel.collectives import psum
+
+    sh = block_sharding(mesh)
+    n = matrix.shape[0]
+    f32 = dict(dtype=torch.float32, sharding=sh)
+    matvec, op, _ = actions["exact"]
+    shifted, _ = shifted_action(actions)
+    diag = np.diagonal(matrix)
+    b_loc = sh.shard(linear_rhs(n)[0], torch.float32)
+    xref_loc = sh.shard(inputs["x_ref"], torch.float32)
+
+    def quadratic(x):
+        d = x - xref_loc
+        g = shifted(d[None, :], op)[0]
+        return float(psum(0.5 * torch.dot(d, g), sh)), g
+
+    def equations(x):
+        return 0.0, shifted(x[None, :], op)[0] + DIIS_EPS * x * x - b_loc
+
+    cases = {
+        "rspt": (lambda: its.create_linear_eigensystem(n, 1, "RSPT", SHARD_PARITY["rspt"][0],
+                                                       **f32),
+                 slice_problem(action=lambda p: matvec(p, op), diagonals=diag)),
+        "bfgs": (lambda: its.create_optimize(n, "BFGS", SHARD_PARITY["bfgs"][0], **f32),
+                 slice_problem(residual=quadratic, diagonals=diag + LINEAR_SHIFT)),
+        "diis": (lambda: its.create_nonlinear_equations(n, "DIIS", SHARD_PARITY["diis"][0],
+                                                        **f32),
+                 slice_problem(residual=equations, diagonals=diag + LINEAR_SHIFT)),
+    }
+    recs = []
+    for name in SHARD_PARITY:
+        make, problem = cases[name]
+        solver = make()
+        solver.verbosity = its.Verbosity.NONE
+        if SHARD_PARITY[name][1] is not None:
+            solver.convergence_threshold = SHARD_PARITY[name][1]
+        type(problem).calls = 0
+        t0 = begin_family()
+        converged, x, _ = solver.solve(np.zeros((1, n)), problem=problem,
+                                       generate_initial_guess=name == "rspt")
+        wall = time.perf_counter() - t0
+        calls = type(problem).calls
+        rec = family_record(mesh, f"solve_sharded_parity[{name}]", f"parity_{name}",
+                            solver.stats.iterations, wall, family_launches("symm_f32"),
+                            {"action": calls, "chain": 0, "gram": 0, "bsr": 0},
+                            converged=bool(converged), stats=str(solver.stats),
+                            options=SHARD_PARITY[name][0], launch_key="symm_f32",
+                            evals=[float(e) for e in (solver.rspt_values if name == "rspt"
+                                                      else solver.errors)])
+        failures = [] if converged else [f"not converged: errors {solver.errors}"]
+        limit = SHARD_PARITY_LIMITS[name]
+        check = 0.0
+        if name == "rspt":
+            rec["rspt_sum_error"] = abs(sum(solver.rspt_values) - REFERENCE_EIGENVALUES[0])
+            check = rec["rspt_sum_error"]
+        else:
+            # every rank takes part in the gather; rank 0 checks
+            xs = sh.gather(x[0], n).to("cpu", torch.float64).numpy()
+        if name == "bfgs" and mesh.rank == 0:
+            check = rec["max_abs_error"] = float(np.max(np.abs(xs - inputs["x_ref"])))
+        elif name == "diis" and mesh.rank == 0:
+            b = linear_rhs(n)[0]
+            check = rec["f64_relative_residual"] = float(
+                np.linalg.norm(matrix @ xs + LINEAR_SHIFT * xs + DIIS_EPS * xs * xs - b)
+                / np.linalg.norm(b))
+        rec["limit"] = limit
+        if not check <= limit:
+            failures.append(f"{check:.3e} > {limit}")
+        recs.append(family_check(rec, failures))
+    return recs
+
+
+def shard_offload(mesh, device, matrix, actions, inputs) -> list:
+    """``offload_sharded[host|streamed]``: the parity Davidson (4 roots,
+    tol 1e-5, float32) on the bench matrix through a sharded
+    OffloadBasisStore (host float64) and StreamedOffloadStore, each rank's
+    slice of each row in its own file; one sharded K1-f32 launch per
+    iteration; the parity phase's limits (rank 0)."""
+    import torch
+
+    import iterative_solver_torch as its
+    from iterative_solver_torch.parallel import block_sharding
+
+    sh = block_sharding(mesh)
+    n = matrix.shape[0]
+    matvec, op, _ = actions["exact"]
+    recs = []
+    for form, offload in SHARD_OFFLOAD_FORMS.items():
+        solver = its.create_linear_eigensystem(n, PARITY_ROOTS, "Davidson",
+                                               "convergence_threshold=1e-5", offload=offload,
+                                               dtype=torch.float32, sharding=sh)
+        solver.set_hermiticity(True)
+        solver.verbosity = its.Verbosity.NONE
+        problem = slice_problem(action=lambda p: matvec(p, op), diagonals=np.diagonal(matrix))
+        t0 = begin_family()
+        converged, _, _ = solver.solve(np.zeros((PARITY_ROOTS, n)), problem=problem,
+                                       generate_initial_guess=True)
+        wall = time.perf_counter() - t0
+        iters = solver.stats.iterations
+        rec = family_record(mesh, f"offload_sharded[{form}]", f"offload_{form}", iters, wall,
+                            family_launches("symm_f32"),
+                            {"action": iters, "chain": 0, "gram": 0, "bsr": 0},
+                            store=type(solver.xspace.store_v).__name__,
+                            converged=bool(converged), stats=str(solver.stats),
+                            launch_key="symm_f32",
+                            evals=[float(e) for e in solver.eigenvalues()])
+        failures = [] if converged else [f"not converged: errors {solver.errors}"]
+        params, _ = solver.solution(list(range(PARITY_ROOTS)))
+        params = sh.gather(params, n)
+        if mesh.rank == 0:
+            q = dense_quality(params, matrix, REFERENCE_EIGENVALUES[:PARITY_ROOTS])
+            rec.update({k: q[k] for k in ("f64_max_residual", "rq_max_abs_err")})
+            if not q["f64_max_residual"] <= 1e-4:
+                failures.append(f"f64 residual {q['f64_max_residual']:.3e} > 1e-4")
+            if not q["rq_max_abs_err"] <= 1e-8:
+                failures.append(f"Rayleigh quotients off by {q['rq_max_abs_err']:.3e}")
+        recs.append(family_check(rec, failures))
+        solver.xspace.store_v.close()
+        solver.xspace.store_a.close()
+    return recs
+
+
+SHARD_FAMILY_RUNNERS = {"lbfgs": shard_lbfgs, "diis": shard_diis, "refine": shard_refine,
+                        "nonsym": shard_nonsym, "banded": shard_banded,
+                        "chebyshev": shard_chebyshev, "parity": shard_parity,
+                        "offload": shard_offload}
+# the storages each family needs
+SHARD_FAMILY_TIERS = {"lbfgs": ("exact",), "diis": ("exact",), "refine": ("precise",),
+                      "banded": ("exact",), "parity": ("exact",), "offload": ("exact",)}
+
+
+SHARD_PHASES = ("kernels", "solves", "ppcg", "bsr") + SHARD_FAMILIES
 
 
 def shard_worker(rank: int, world: int, store: str, out_dir: str, device_kind: str,
@@ -4227,11 +5004,16 @@ def shard_worker(rank: int, world: int, store: str, out_dir: str, device_kind: s
     mesh = init_process_group(f"file://{store}", world, rank, backend="gloo", device=device)
     recs = [{"phase": "shard_rank", "rank": rank, "world": world, "backend": mesh.backend,
              "device": str(device), "staged": device.type == "cuda"}]
-    if {"kernels", "solves"} & set(phases):
+    families = [f for f in SHARD_FAMILIES if f in phases]
+    tiers = None if {"kernels", "solves"} & set(phases) else {
+        t for f in families for t in SHARD_FAMILY_TIERS.get(f, ())}
+    matrix, storages, actions = None, {}, {}
+    if tiers is None or tiers or families:
         t0 = time.perf_counter()
         matrix = bench_matrix(N)
-        storages = shard_storages(mesh, matrix, out_dir)
-        actions = shard_actions(mesh, storages)
+        if tiers is None or tiers:
+            storages = shard_storages(mesh, matrix, out_dir, tiers)
+            actions = shard_actions(mesh, storages)
         recs.append({"phase": "shard_setup", "rank": rank,
                      "seconds": time.perf_counter() - t0})
     flagship = None
@@ -4247,6 +5029,13 @@ def shard_worker(rank: int, world: int, store: str, out_dir: str, device_kind: s
         recs.append(shard_ppcg(mesh, device, flagship))
     if "bsr" in phases:
         recs.append(shard_bsr(mesh, device))
+    if families:
+        inputs = {"work_dir": out_dir}
+        with np.load(os.path.join(out_dir, "inputs.npz")) as z:
+            inputs.update({k: z[k] for k in z.files})
+        for family in families:
+            out = SHARD_FAMILY_RUNNERS[family](mesh, device, matrix, actions, inputs)
+            recs += out if isinstance(out, list) else [out]
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(recs, f)
     torch.distributed.destroy_process_group()
@@ -4254,11 +5043,13 @@ def shard_worker(rank: int, world: int, store: str, out_dir: str, device_kind: s
 
 def spawn_shards(phases, device_kind: str = "cuda", world: int = SHARD_WORLD,
                  flagship_n: int = FLAGSHIP_N, timeout: float = SHARD_TIMEOUT_S,
-                 flagship=None) -> list:
+                 flagship=None, inputs=None) -> list:
     """Run ``phases`` on ``world`` rank processes of this script; returns
     each rank's records. ``flagship``: the parent's flagship operator (host
-    tensors), saved for the ranks. Any rank that fails, or outlives
-    ``timeout``, fails the run; every process started is ended."""
+    tensors), saved for the ranks; ``inputs``: the parent's arrays the
+    family phases read ({"x_ref", "refine_x0"}), saved for the ranks.
+    Any rank that fails, or outlives ``timeout``,
+    fails the run; every process started is ended."""
     import tempfile
 
     import torch
@@ -4266,6 +5057,8 @@ def spawn_shards(phases, device_kind: str = "cuda", world: int = SHARD_WORLD,
     with tempfile.TemporaryDirectory() as tmp:
         if flagship is not None:
             torch.save(flagship, os.path.join(tmp, "flagship.pt"))
+        if inputs is not None:
+            np.savez(os.path.join(tmp, "inputs.npz"), **inputs)
         store = os.path.join(tmp, "store")
         cmd = [sys.executable, os.path.abspath(__file__), "--shard-worker"]
         procs = [subprocess.Popen(
@@ -4292,16 +5085,20 @@ def spawn_shards(phases, device_kind: str = "cuda", world: int = SHARD_WORLD,
         return ranks
 
 
-def run_sharded(device, unsharded_iters: dict, flagship, kernels) -> dict:
-    """Phases a-d on SHARD_WORLD ranks; emits one record per phase (rank
-    0's, with every rank's launches and times beside it) and checks that
-    every rank returned the same bits of the eigenvalues and that each
-    sharded solve took within SHARD_ITER_SLACK iterations of the unsharded
-    run ``unsharded_iters[tier]``; ``kernels`` are the kernel checks' records
-    (the unsharded device ms beside each rank's). Returns {kernel: per-rank
-    launches on the sharded solves} and the per-rank kernel times."""
+def run_sharded(device, unsharded_iters: dict, flagship, kernels, inputs=None) -> dict:
+    """Phases a-d and the family phases on SHARD_WORLD ranks; emits one
+    record per phase (rank 0's, with every rank's launches, times and
+    staged collectives beside it) and checks that every rank returned the
+    same bits of the eigenvalues and that each sharded solve took within
+    SHARD_ITER_SLACK iterations of the unsharded run (``unsharded_iters``
+    by tier or family key; SHARD_FAMILY_CPU_ITERATIONS where the card has
+    no unsharded twin); ``kernels`` are the kernel checks' records (the
+    unsharded device ms beside each rank's); ``inputs`` the family phases'
+    arrays. Returns {kernel: per-rank launches on the sharded solves} and
+    the per-rank kernel times."""
     t0 = time.perf_counter()
-    ranks = spawn_shards(SHARD_PHASES, flagship=flagship)
+    ranks = spawn_shards(SHARD_PHASES, flagship=flagship, inputs=inputs)
+    unsharded_iters = {**SHARD_FAMILY_CPU_ITERATIONS, **unsharded_iters}
     # the unsharded kernel check at each per-rank check's shape
     by_name = {k["name"]: k for k in kernels}
     emit({"phase": "sharded_ranks", "world": len(ranks), "seconds": time.perf_counter() - t0,
@@ -4327,9 +5124,11 @@ def run_sharded(device, unsharded_iters: dict, flagship, kernels) -> dict:
                          "seconds"):
                 if key_ in head:
                     head[key_] = [rec[key_] for rec in recs]
-            whole = by_name[SHARD_UNSHARDED.get(head["name"], head["name"])]
-            head["unsharded_device_ms"] = whole["kernel_device_ms"]
-            head["unsharded_ms"] = whole["ms"]
+            # (the family rows' checks have no unsharded timing beside them)
+            whole = by_name.get(SHARD_UNSHARDED.get(head["name"], head["name"]))
+            if whole is not None:
+                head["unsharded_device_ms"] = whole["kernel_device_ms"]
+                head["unsharded_ms"] = whole["ms"]
             if head["name"] in SHARD_LAUNCH_KEYS:
                 rank_ms[head["name"]] = head["rank_device_ms"]
             emit(head)
@@ -4340,6 +5139,21 @@ def run_sharded(device, unsharded_iters: dict, flagship, kernels) -> dict:
                                                     for rec in recs)
         if not head["evals_same_bits_on_every_rank"]:
             failures.append(f"{key}: the ranks returned different eigenvalues")
+        if "unsharded_key" in head:
+            # a family phase: its rank-0 record, every rank's staged
+            # collectives beside it
+            head["rank_staged_collectives"] = [rec["staged_collectives"] for rec in recs]
+            ukey = head["unsharded_key"]
+            head["unsharded_iterations"] = unsharded_iters.get(ukey)
+            if abs(head["iterations"] - unsharded_iters[ukey]) > SHARD_ITER_SLACK:
+                failures.append(f"{key}: {head['iterations']} iterations, the unsharded run "
+                                f"{unsharded_iters[ukey]}")
+            kname = {v: k for k, v in SHARD_LAUNCH_KEYS.items()}.get(head.get("launch_key"))
+            if kname is not None:
+                for r, rec in enumerate(recs):
+                    rank_launches[kname][r] += rec["launches"]["action"]
+            emit(head)
+            continue
         tier = head.get("tier")
         if tier in unsharded_iters:
             head["unsharded_iterations"] = unsharded_iters[tier]
@@ -4518,10 +5332,14 @@ def main() -> int:
     diis = solve_fused_diis(shifted, b[0], device)
     solve_parity_nonlinear(shifted, x_ref[0], device)
     implicit = solve_implicit_diff(matrix, device)
+    c_api = solve_c_api(matrix, device)
+    # the sharded family phases' inputs, made here once
+    family_inputs = {"x_ref": x_ref[0].copy()}
     del shifted, x_ref
     kernels.append(check_chain_raw(N, device))
     refine = refine_precise(matrix, device)
-    solve_nonsym_family(device)
+    family_inputs["refine_x0"] = refine.pop("x0")
+    nonsym = solve_nonsym_family(device)
     offload_stream(device)
     spill_op = spill_action(matrix, device)
     banded = solve_banded(matrix, device, spill_op)
@@ -4544,9 +5362,14 @@ def main() -> int:
     # other processes shared the card, this process's profiler windows
     # dropped device events), then NCCL, whose communicator lives in this
     # process
-    sharded = run_sharded(device, {rec["tier"]: rec["iterations"]
-                                   for rec in (fast, precise, exact, int8, int8_precise)},
-                          flagship, kernels)
+    unsharded = {rec["tier"]: rec["iterations"]
+                 for rec in (fast, precise, exact, int8, int8_precise)}
+    unsharded.update(lbfgs=lbfgs["iterations"], diis=diis["iterations"],
+                     refine=refine["passes"],
+                     nonsym=nonsym["int8_precise_device"]["iterations"],
+                     banded=banded["device"]["iterations"],
+                     chebyshev=cheb["flat_chebyshev"]["iterations"])
+    sharded = run_sharded(device, unsharded, flagship, kernels, family_inputs)
     del flagship
     nccl = nccl_world1(bench_matrix(N), device)
 
@@ -4559,14 +5382,14 @@ def main() -> int:
         {"launches": r["steady_launches"]} for r in cheb.values())
     offload_parity = tuple(offload_parity.values())
     solves = (davidson + linear_recs + gradients + spill + offload_parity
-              + (ppcg, ppcg_rr, parity, parity_linear, refine))
+              + (ppcg, ppcg_rr, parity, parity_linear, refine, c_api))
 
     def action(*recs):
         return sum(r["launches"]["action"] for r in recs)
 
     launches = {
         "K1-bf16": action(fast, linear["fast"]) + sum(r["action"] for r in resumable),
-        "K1-f32": action(exact, linear["exact"], nccl, *gradients, *spill),
+        "K1-f32": action(exact, linear["exact"], nccl, c_api, *gradients, *spill),
         "K3": action(precise, pspace, linear["precise"], refine),
         "K2": sum(p["launches"]["chain"] for p in davidson + linear_recs + spill)
         + sum(r["chain"] for r in resumable),

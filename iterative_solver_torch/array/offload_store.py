@@ -15,8 +15,13 @@ reference's DistrArrayFile-as-Qvector configuration keeps them
   ``block_rows`` rows streamed THROUGH it, so at most two blocks of
   history occupy device memory at once, however long the history is.
 
-``sharding=`` raises ``NotImplementedError``: the sharded store waits
-for ROADMAP.md Queue 1, item 6c.
+``sharding=`` (parallel/mesh.py; one process per shard of the vector
+axis) keeps each rank's slice of every row in the rank's own file (each
+``VecStore`` makes a private temporary file per process): every row and
+block goes in and comes out as the rank's slice; the inner
+products (``gram``, ``gram_block``, each step of ``mgs_sweep``) add the
+ranks' partial products in one all-reduce each (rank order, the same bits
+on every rank), and ``combine`` needs no communication.
 """
 
 from __future__ import annotations
@@ -29,10 +34,10 @@ import torch
 
 from .. import config as _config
 from ..native import VecStore
+from ..parallel.collectives import psum
+from ..parallel.mesh import check_sharding
 
 Tensor = torch.Tensor
-
-_SHARDING = "sharding is not ported yet (ROADMAP.md Queue 1, item 6c)"
 
 
 def _host64(x) -> np.ndarray:
@@ -46,19 +51,24 @@ class OffloadBasisStore:
     """The host-f64 tier: rows in the native file store, block numerics on
     the host in float64, results as tensors on ``device`` in ``dtype``
     (``None``: the CUDA device, raising without it; float32 there, float64
-    on the CPU)."""
+    on the CPU; under ``sharding`` the mesh's device and this rank's
+    slice of every row)."""
 
     def __init__(self, capacity: int, n: int, dtype=None, sharding=None,
                  name: str = "offload", device=None):
-        if sharding is not None:
-            raise NotImplementedError(_SHARDING)
         self.capacity = int(capacity)
         self.n = int(n)
-        self.device = _config.resolve_device(device)
+        self.sharding = check_sharding(sharding)
+        if self.sharding is not None:
+            self.device = self.sharding.mesh.device
+            lo, hi = self.sharding.local_range(self.n)
+            self.width = hi - lo
+        else:
+            self.device = _config.resolve_device(device)
+            self.width = self.n
         self.dtype = dtype if dtype is not None else _config.default_dtype(self.device)
-        self.sharding = None
         self.name = name
-        self._store = VecStore(self.capacity, self.n)
+        self._store = VecStore(self.capacity, self.width)
         self._free: List[int] = list(range(self.capacity - 1, -1, -1))
         # host-side validity mask: released slots are left out of
         # whole-capacity grams instead of paying an O(N) zero-write per erase
@@ -82,7 +92,7 @@ class OffloadBasisStore:
 
     def _grow(self) -> None:
         new_capacity = max(2 * self.capacity, 4)
-        new_store = VecStore(new_capacity, self.n)
+        new_store = VecStore(new_capacity, self.width)
         for slot in sorted(self._valid):  # only live rows move
             new_store.put(slot, self._store.get(slot))
         self._store.close()
@@ -91,6 +101,12 @@ class OffloadBasisStore:
         self.capacity = new_capacity
 
     # -- row access ------------------------------------------------------
+    def _psum(self, a: np.ndarray) -> np.ndarray:
+        """The ranks' host partial products added (one all-reduce)."""
+        if self.sharding is None:
+            return a
+        return _host64(psum(torch.as_tensor(a, device=self.device), self.sharding))
+
     def put(self, slot: int, vec) -> None:
         self._store.put(slot, _host64(vec))
         self._valid.add(slot)
@@ -104,7 +120,7 @@ class OffloadBasisStore:
         return self._to_device(self._store.get(slot))
 
     def fill(self, slot: int, value: float) -> None:
-        self._store.put(slot, np.full(self.n, float(value)))
+        self._store.put(slot, np.full(self.width, float(value)))
         self._valid.add(slot)
 
     def axpy(self, slot: int, alpha: float, vec) -> None:
@@ -115,7 +131,7 @@ class OffloadBasisStore:
 
     def rows(self, slots: Sequence[int]) -> Tensor:
         if len(slots) == 0:
-            return torch.zeros((0, self.n), dtype=self.dtype, device=self.device)
+            return torch.zeros((0, self.width), dtype=self.dtype, device=self.device)
         return self._to_device(np.stack([self._store.get(s) for s in slots]))
 
     # -- block numerics (streamed on the host) ---------------------------
@@ -126,13 +142,13 @@ class OffloadBasisStore:
         live = sorted(self._valid)
         out = np.zeros((xh.shape[0], self.capacity))
         if live:
-            out[:, live] = self._store.gram(xh, live)
+            out[:, live] = self._psum(self._store.gram(xh, live))
         return out
 
     def gram(self, x, slots: Sequence[int]) -> np.ndarray:
         if len(slots) == 0:
             return np.zeros((x.shape[0], 0))
-        return self._store.gram(_host64(x), list(slots))
+        return self._psum(self._store.gram(_host64(x), list(slots)))
 
     def combine(self, coeff: np.ndarray, slots: Sequence[int]) -> Tensor:
         coeff = np.atleast_2d(np.asarray(coeff, dtype=np.float64))
@@ -148,7 +164,7 @@ class OffloadBasisStore:
         rh = np.array(_host64(r))  # writable copy
         for logical, slot in enumerate(slots):
             xrow = self._store.get(slot)
-            dots = rh @ xrow
+            dots = self._psum(rh @ xrow)
             rh -= np.outer(dots * inv_norms[logical], xrow)
         return self._to_device(rh)
 
@@ -213,7 +229,7 @@ class StreamedOffloadStore(OffloadBasisStore):
         stream."""
         if self._staging is None:
             cuda = self.device.type == "cuda"
-            bufs = [torch.empty((self.block_rows, self.n), dtype=torch.float64,
+            bufs = [torch.empty((self.block_rows, self.width), dtype=torch.float64,
                                 pin_memory=cuda) for _ in range(2)]
             events = [torch.cuda.Event() for _ in range(2)] if cuda else None
             copy = torch.cuda.Stream(self.device) if cuda else None
@@ -282,7 +298,7 @@ class StreamedOffloadStore(OffloadBasisStore):
             return np.zeros((x.shape[0], 0))
         xd = self._to_device(x)
         parts = [torch.matmul(xd, blk.T) for _, _, blk in self._stream(slots, prefetch)]
-        return _host64(torch.cat(parts, dim=1))
+        return _host64(psum(torch.cat(parts, dim=1), self.sharding))
 
     def gram_block(self, x) -> np.ndarray:
         live = sorted(self._valid)
@@ -294,7 +310,7 @@ class StreamedOffloadStore(OffloadBasisStore):
     def combine(self, coeff: np.ndarray, slots: Sequence[int],
                 prefetch: bool = True) -> Tensor:
         coeff = np.atleast_2d(np.asarray(coeff, dtype=np.float64))
-        acc = torch.zeros((coeff.shape[0], self.n), dtype=self.dtype, device=self.device)
+        acc = torch.zeros((coeff.shape[0], self.width), dtype=self.dtype, device=self.device)
         cdev = self._to_device(coeff)
         for _, sl, blk in self._stream(slots, prefetch):
             acc = acc + torch.matmul(cdev[:, sl], blk)
@@ -304,5 +320,6 @@ class StreamedOffloadStore(OffloadBasisStore):
         rd = self._to_device(r)
         w = self._to_device(np.asarray(inv_norms, dtype=np.float64))
         for _, sl, blk in self._stream(slots):
-            rd = rd - torch.matmul(torch.matmul(rd, blk.T) * w[None, sl], blk)
+            rd = rd - torch.matmul(psum(torch.matmul(rd, blk.T), self.sharding) * w[None, sl],
+                                   blk)
         return rd

@@ -14,10 +14,11 @@ float32 matmuls run in full float32 (``config`` pins TF32 off), the
 counterpart of the JAX package's ``Precision.HIGHEST``.
 
 Sharded row blocks (``parallel/mesh.py``): each rank holds its slice of the
-vector axis, so ``gram``, ``gram_sym``, ``dots_rows`` and ``norms_rows``
-take ``sharding=`` and all-reduce their contraction over N (GSPMD's psum in
-the JAX package); ``reconstruct`` needs no communication. ``to_device``
-with ``sharding=`` keeps this rank's slice of a global array.
+vector axis, so ``gram``, ``gram_sym``, ``dots_rows``, ``norms_rows`` and
+``fused_dot`` take ``sharding=`` and all-reduce their contraction over N
+(GSPMD's psum in the JAX package), and ``select_max_dot`` merges the ranks'
+local top n; ``reconstruct`` needs no communication. ``to_device`` with
+``sharding=`` keeps this rank's slice of a global array.
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ import numpy as np
 import torch
 
 from .. import config as _config  # noqa: F401  (precision pins)
-from ..parallel.collectives import psum
+from ..parallel.collectives import all_gather, psum
 
 Tensor = torch.Tensor
 
@@ -103,10 +104,37 @@ def select_smallest(values: Tensor, n: int) -> Tuple[Tensor, Tensor]:
     return idx, -neg_vals
 
 
-def select_max_dot(x: Tensor, y: Tensor, n: int) -> Tuple[Tensor, Tensor]:
-    """Indices and values of the n largest |x_i * y_i| (util/select_max_dot.h)."""
-    vals, idx = torch.topk(torch.abs(x * y), n)
-    return idx, vals
+def select_max_dot(x: Tensor, y: Tensor, n: int, sharding=None) -> Tuple[Tensor, Tensor]:
+    """Indices and values of the n largest |x_i * y_i| (util/select_max_dot.h).
+
+    ``sharding``: x and y are this rank's slices of (N,) vectors; each rank
+    takes its local top n, the candidates are all-gathered and merged
+    (ties to the lower global index, as ``DistrArray``'s selections do),
+    and every rank returns the same global indices and values."""
+    prod = torch.abs(x * y)
+    if sharding is None:
+        vals, idx = torch.topk(prod, n)
+        return idx, vals
+    width = prod.shape[-1]
+    k = min(n, width)
+    # rows: value, local position, this rank's width (the chunk of the
+    # layout is the widest rank's, so rank r's slice starts at r * chunk)
+    cand = torch.full((3, n), -float("inf"), dtype=torch.float64, device=x.device)
+    cand[2] = float(width)
+    if k:
+        top, pos = torch.topk(prod.to(torch.float64), k)
+        cand[0, :k] = top
+        cand[1, :k] = pos.to(torch.float64)
+    cand = all_gather(cand, sharding.mesh, dim=1)
+    chunk = torch.max(cand[2])
+    owner = torch.arange(cand.shape[1], device=x.device) // n
+    live = cand[1] > -float("inf")
+    key = cand[0][live]
+    gidx = (owner[live].to(torch.float64) * chunk + cand[1][live]).to(torch.long)
+    # descending value, then ascending index: stable sorts, index first
+    order = torch.sort(gidx, stable=True).indices
+    order = order[torch.sort(key[order], descending=True, stable=True).indices][:n]
+    return gidx[order], key[order].to(x.dtype)
 
 
 def fused_axpy(alphas: Tensor, xs: Tensor, y: Tensor) -> Tensor:
@@ -115,9 +143,11 @@ def fused_axpy(alphas: Tensor, xs: Tensor, y: Tensor) -> Tensor:
     return y + torch.einsum("k,kn->n", alphas, xs)
 
 
-def fused_dot(x: Tensor, ys: Tensor) -> Tensor:
-    """All <x, ys[k]> in one pass (LazyHandle fused_dot)."""
-    return torch.matmul(ys, x)
+def fused_dot(x: Tensor, ys: Tensor, sharding=None) -> Tensor:
+    """All <x, ys[k]> in one pass (LazyHandle fused_dot); one all-reduce
+    under ``sharding``."""
+    return psum(torch.matmul(ys, x), sharding)
+
 
 
 def mgs_project(r: Tensor, xblock: Tensor, inv_norms: Tensor, sharding=None) -> Tensor:

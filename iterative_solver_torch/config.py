@@ -20,7 +20,9 @@ names and precedence: ``set_option``, then environment variables prefixed
 - ``GEMM_BUFFERS``    prefetch depth of the native vecstore pipeline (2);
 - ``PROFILER_DEPTH``  max region nesting recorded by utils.Profiler (0 = off);
 - ``PROFILER_OUTPUT``, ``PROFILER_DOTGRAPH``, ``PROFILER_THRESHOLD``: where
-  a parity solver writes its profile tree at teardown.
+  a parity solver writes its profile tree at teardown;
+- ``DEVICE``          where the C ABI's solvers run (bindings/c_api.py):
+  "cpu" or "cuda"; empty (the default) is the CUDA card.
 
 The JAX package's ``COMPILE_CACHE`` (XLA's persistent cache) has no
 counterpart: PyTorch runs eagerly and the kernels cache their own builds.
@@ -44,6 +46,7 @@ _DEFAULTS: Dict[str, Any] = {
     "PROFILER_OUTPUT": "",
     "PROFILER_DOTGRAPH": "",
     "PROFILER_THRESHOLD": 0.01,
+    "DEVICE": "",
 }
 
 _overrides: Dict[str, Any] = {}

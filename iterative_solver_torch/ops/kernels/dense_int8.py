@@ -28,6 +28,16 @@ the result does not depend on the library's order of sums. The host
 packing is numpy and byte-identical to the JAX package's. Under
 ``torch.func.vmap`` (the batched non-hermitian solves) ``_int_mm`` has no
 batching rule and runs once per batch element.
+
+Sharding (one process per shard of the vector axis, ``parallel/mesh.py``):
+``shard(mesh)`` returns the tree of this rank's rows of the plane(s), with
+its slices of ``gr`` and ``d`` and the whole ``gc`` (dense_int8.py:92-107
+of the JAX package). ``sharded_matvec(mesh)`` / ``sharded_matvec_split``
+map the rank's slice of x to its slice of y: x is all-gathered first and
+quantized over its FULL rows, as the unsharded action does (the per-row
+activation scale reduces over the whole row), then ``_int_mm`` runs on the
+rank's rows. The int32 accumulator is exact, so a rank's y equals the
+matching columns of the unsharded y bit for bit.
 """
 
 from __future__ import annotations
@@ -42,7 +52,6 @@ from .symm_int8 import _check_acc_headroom, quantize_rows, quantize_rows_split
 
 Tensor = torch.Tensor
 
-_SHARD = "sharding is not ported yet (ROADMAP.md Queue 1, item 6c)"
 # rows of x the card's torch._int_mm takes at least (more than 16, a
 # multiple of 8)
 INT_MM_ROWS = 32
@@ -100,7 +109,9 @@ class DenseInt8:
         return (self.q, self.gr, self.gc, self.d)
 
     def shard(self, mesh, axis: str = "data"):
-        raise NotImplementedError(_SHARD)
+        """This rank's ``(q rows, gr, gc whole, d)`` on the mesh's device:
+        the operand of ``sharded_matvec(mesh)``."""
+        return _shard_tree(mesh, (self.q,), self.gr, self.gc, self.d)
 
 
 @dataclass
@@ -137,7 +148,22 @@ class DenseInt8Split:
         return (self.q1, self.q2, self.gr, self.gc, self.d)
 
     def shard(self, mesh, axis: str = "data"):
-        raise NotImplementedError(_SHARD)
+        """Two-plane analogue of ``DenseInt8.shard``: the operand of
+        ``sharded_matvec_split(mesh)``."""
+        return _shard_tree(mesh, (self.q1, self.q2), self.gr, self.gc, self.d)
+
+
+def _shard_tree(mesh, planes, gr, gc, d) -> tuple:
+    """The rank's rows of each plane, its slices of gr and d, gc whole (it
+    scales the activation's contraction axis, which is gathered)."""
+    from ...parallel.mesh import Mesh, matrix_row_sharding, vector_sharding
+
+    if not isinstance(mesh, Mesh):
+        raise TypeError(f"shard takes a parallel.mesh.Mesh (e.g. init_process_group's), "
+                        f"got {type(mesh).__name__}")
+    rows, vec = matrix_row_sharding(mesh), vector_sharding(mesh)
+    return (tuple(rows.shard(q) for q in planes)
+            + (vec.shard(gr), gc.to(mesh.device), vec.shard(d)))
 
 
 def _int8_dot(a: Tensor, b: Tensor) -> Tensor:
@@ -157,29 +183,62 @@ def _int8_dot(a: Tensor, b: Tensor) -> Tensor:
     return torch._int_mm(a, b.T)[:m]
 
 
+def _couplings(xf: Tensor, gr: Tensor, gc: Tensor, q: Tensor) -> Tensor:
+    """The quantized couplings' part of y for float32 rows xf: u = xf gc,
+    one activation scale per row of u, the int8 product, dequantized."""
+    qx, sx = quantize_rows(xf * gc[None, :])
+    acc = _int8_dot(qx, q)
+    return acc.to(torch.float32) * (sx / 127.0) * gr[None, :]
+
+
+def _couplings_split(xf: Tensor, gr: Tensor, gc: Tensor, q1: Tensor, q2: Tensor) -> Tensor:
+    """Two planes, operator (q1 + q2/254)/127, activations sx (p1 +
+    p2/254): hi = p1 q1, lo = p1 q2 + p2 q1 (p2 q2 / 254² ~ 2^-16 is
+    dropped, below the tier's floor)."""
+    p1, p2, sx = quantize_rows_split(xf * gc[None, :])
+    hi = _int8_dot(p1, q1)
+    lo = _int8_dot(p1, q2) + _int8_dot(p2, q1)
+    y = hi.to(torch.float32) + lo.to(torch.float32) / 254.0
+    return y * (sx / 127.0) * gr[None, :]
+
+
 def dense_int8_matvec(x: Tensor, op) -> Tensor:
     """y = x Aᵀ through the one-plane quantized operator; ``op`` is the
     ``(q, gr, gc, d)`` tree (``DenseInt8.tree()``). The arithmetic is f32
     whatever x's dtype; y comes back in x's dtype."""
     q, gr, gc, d = op
     xf = x.to(torch.float32)
-    qx, sx = quantize_rows(xf * gc[None, :])
-    acc = _int8_dot(qx, q)
-    y = acc.to(torch.float32) * (sx / 127.0) * gr[None, :]
-    y = y + xf * d[None, :]
-    return y.to(x.dtype)
+    return (_couplings(xf, gr, gc, q) + xf * d[None, :]).to(x.dtype)
 
 
 def dense_int8_matvec_split(x: Tensor, op) -> Tensor:
-    """Two-plane action: operator (q1 + q2/254)/127, activations
-    sx (p1 + p2/254); hi = p1 q1, lo = p1 q2 + p2 q1 (p2 q2 / 254² ~ 2^-16
-    is dropped, below the tier's floor)."""
+    """The two-plane action (``DenseInt8Split.tree()``)."""
     q1, q2, gr, gc, d = op
     xf = x.to(torch.float32)
-    p1, p2, sx = quantize_rows_split(xf * gc[None, :])
-    hi = _int8_dot(p1, q1)
-    lo = _int8_dot(p1, q2) + _int8_dot(p2, q1)
-    y = hi.to(torch.float32) + lo.to(torch.float32) / 254.0
-    y = y * (sx / 127.0) * gr[None, :]
-    y = y + xf * d[None, :]
-    return y.to(x.dtype)
+    return (_couplings_split(xf, gr, gc, q1, q2) + xf * d[None, :]).to(x.dtype)
+
+
+def _sharded(mesh, couplings):
+    """``matvec(x_local, tree)`` over a sharded tree: x gathered and
+    quantized over its full rows, the couplings on the rank's rows, the
+    exact diagonal on the rank's slice."""
+    from ...parallel.collectives import all_gather
+
+    def matvec(x: Tensor, op) -> Tensor:
+        *planes, gr, gc, d = op
+        xf = x.to(torch.float32)
+        xg = all_gather(xf, mesh, dim=1, n=gc.shape[0])
+        return (couplings(xg, gr, gc, *planes) + xf * d[None, :]).to(x.dtype)
+
+    return matvec
+
+
+def sharded_matvec(mesh):
+    """``matvec(x, op)`` for ``DenseInt8.shard(mesh)``'s tree: this rank's
+    (m, N_local) slice of x to its slice of y."""
+    return _sharded(mesh, _couplings)
+
+
+def sharded_matvec_split(mesh):
+    """The two-plane ``sharded_matvec``, for ``DenseInt8Split.shard``."""
+    return _sharded(mesh, _couplings_split)

@@ -15,17 +15,24 @@ sqrt(N) eps_f32 ||A||. Two tools push past that floor:
    warm-start an f64 block Davidson on the host, which reaches the
    reference's 1e-8 bands in a few cheap iterations from a start that is
    already about 1e-5 accurate.
+
+``SplitOperator.from_dense(sharding=)`` keeps this rank's rows of hi and
+lo (``matrix_row_sharding``'s layout; one process per shard, as in
+``parallel/mesh.py``): ``precise_matmat`` and ``precise_matvec_fn`` then
+all-gather the rank's slice of x once and return its slice of y, the
+contraction and its chunks unchanged.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from .. import config
+from ..parallel.mesh import check_sharding, matrix_row_sharding
 
 Tensor = torch.Tensor
 
@@ -34,18 +41,20 @@ Tensor = torch.Tensor
 class SplitOperator:
     """Double-float32 dense operator: hi + lo sum to the f64 matrix."""
 
-    hi: Tensor          # (N, N) f32
-    lo: Tensor          # (N, N) f32 residual (A - hi)
+    hi: Tensor          # (N, N) f32; under sharding the rank's (N_local, N) rows
+    lo: Tensor          # (N, N) f32 residual (A - hi), rows as hi's
     n_chunks: int
     diagonal: np.ndarray
+    sharding: Optional[object] = None   # the row sharding, or None
 
     @classmethod
     def from_dense(cls, matrix: np.ndarray, n_chunks: int = 64, sharding=None,
                    device=None) -> "SplitOperator":
-        """``device=None`` is the CUDA device (raises without it)."""
-        if sharding is not None:
-            raise NotImplementedError("sharding is not ported yet (ROADMAP.md Queue 1, item 6c)")
-        device = config.resolve_device(device)
+        """``device=None`` is the CUDA device (raises without it); under
+        ``sharding`` the mesh's, with this rank's rows."""
+        sharding = check_sharding(sharding)
+        device = (sharding.mesh.device if sharding is not None
+                  else config.resolve_device(device))
         matrix = np.asarray(matrix, dtype=np.float64)
         n = matrix.shape[1]
         if n % n_chunks != 0:
@@ -53,8 +62,12 @@ class SplitOperator:
             n_chunks = max(k for k in range(1, min(n_chunks, n) + 1) if n % k == 0)
         hi = matrix.astype(np.float32)
         lo = (matrix - hi.astype(np.float64)).astype(np.float32)
-        return cls(torch.as_tensor(hi, device=device), torch.as_tensor(lo, device=device),
-                   n_chunks, np.diagonal(matrix).copy())
+        if sharding is None:
+            return cls(torch.as_tensor(hi, device=device), torch.as_tensor(lo, device=device),
+                       n_chunks, np.diagonal(matrix).copy())
+        rows = matrix_row_sharding(sharding.mesh)
+        return cls(rows.shard(hi), rows.shard(lo), n_chunks, np.diagonal(matrix).copy(),
+                   rows)
 
     def operand(self) -> Tuple[Tensor, Tensor]:
         return (self.hi, self.lo)
@@ -82,17 +95,32 @@ def _precise_matmat(x: Tensor, hi: Tensor, lo: Tensor, n_chunks: int) -> Tensor:
     return s + c
 
 
+def _gathered(x: Tensor, sharding, n: int) -> Tensor:
+    """The whole (m, n) rows of x, from this rank's slice under
+    ``sharding``."""
+    if sharding is None:
+        return x
+    from ..parallel.collectives import all_gather
+
+    return all_gather(x, sharding.mesh, dim=1, n=n)
+
+
 def precise_matmat(x: Tensor, op: SplitOperator) -> Tensor:
-    return _precise_matmat(x, op.hi, op.lo, op.n_chunks)
+    """x @ (hi + lo)^T; under the operator's sharding x is this rank's
+    slice, gathered once, and y the rank's slice."""
+    return _precise_matmat(_gathered(x, op.sharding, op.hi.shape[1]), op.hi, op.lo,
+                           op.n_chunks)
 
 
 def precise_matvec_fn(op: SplitOperator):
-    """matvec(x, operand) for FusedDavidson with operand=(hi, lo)."""
-    n_chunks = op.n_chunks
+    """matvec(x, operand) for FusedDavidson with operand=(hi, lo); under
+    the operator's sharding it maps the rank's slice of x to its slice of
+    y."""
+    n_chunks, sharding = op.n_chunks, op.sharding
 
     def matvec(x, operand):
         hi, lo = operand
-        return _precise_matmat(x, hi, lo, n_chunks)
+        return _precise_matmat(_gathered(x, sharding, hi.shape[1]), hi, lo, n_chunks)
 
     return matvec
 

@@ -23,7 +23,9 @@ from a second one; ``STAGED`` counts the calls, the bytes copied each way
 and the host milliseconds of the whole staged collective. With NCCL the
 tensors stay on the card. ``TRAFFIC`` counts every collective and the bytes
 of its global operand (an all-gather's output, a reduce-scatter's input, an
-all-reduce's tensor).
+all-reduce's tensor), and ``exchange_bytes``, the bytes a rank sends and
+receives in all (what gloo with CUDA tensors stages, so a run on host
+tensors predicts the staging of the same run on the card).
 """
 
 from __future__ import annotations
@@ -39,7 +41,8 @@ from .mesh import Mesh
 Tensor = torch.Tensor
 
 STAGED = {"calls": 0, "bytes": 0, "ms": 0.0}
-TRAFFIC = {"all_gather": 0, "reduce_scatter": 0, "all_reduce": 0, "bytes": 0}
+TRAFFIC = {"all_gather": 0, "reduce_scatter": 0, "all_reduce": 0, "bytes": 0,
+           "exchange_bytes": 0}
 
 # one pinned host buffer each way, grown on demand
 _PINNED: Dict[tuple, Tensor] = {}
@@ -47,7 +50,7 @@ _PINNED: Dict[tuple, Tensor] = {}
 
 def reset_counters() -> None:
     STAGED.update(calls=0, bytes=0, ms=0.0)
-    TRAFFIC.update(all_gather=0, reduce_scatter=0, all_reduce=0, bytes=0)
+    TRAFFIC.update(all_gather=0, reduce_scatter=0, all_reduce=0, bytes=0, exchange_bytes=0)
 
 
 def _host_buffer(way: str, shape, dtype) -> Tensor:
@@ -66,6 +69,10 @@ def _run(mesh: Mesh, send: Tensor, recv_shape, body: Callable[[Tensor, Tensor], 
     tensors, or (gloo with CUDA tensors) the pinned host buffers, with the
     result copied back to the device."""
     send = send.contiguous()
+    numel = 1
+    for d in recv_shape:
+        numel *= int(d)
+    TRAFFIC["exchange_bytes"] += (send.numel() + numel) * send.element_size()
     if not mesh.staged(send):
         recv = torch.empty(recv_shape, dtype=send.dtype, device=send.device)
         body(send, recv)

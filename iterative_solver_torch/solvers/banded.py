@@ -31,6 +31,14 @@ history spilled, streamed only at band and sweep boundaries.
 ``dtype=None`` is float32 on CUDA and float64 on the CPU (the JAX package
 reads ``jax_enable_x64``). The deflation's four thin products are
 ``torch.matmul`` in full float32 or float64 (TF32 is off, config.py).
+
+``sharding=`` (parallel/mesh.py, e.g. ``block_sharding(mesh)``) runs every
+band's fused solve one process per shard of the vector axis: the matvec
+maps a rank's slice of x to its slice of y, the locked block on the device
+is the rank's slice (its three projections all-reduced), the streamed
+mode's store keeps each rank's slice of each locked row in the rank's own
+file, and the host's guesses, purges and f64 checks see whole rows
+(gathered), the same on every rank. ``solve`` returns whole vectors.
 """
 
 from __future__ import annotations
@@ -42,26 +50,30 @@ import torch
 
 from .. import config
 from ..array.offload_store import StreamedOffloadStore, _host64
-from .fused_davidson import _SHARDING, FusedDavidson
+from ..array.vector_ops import to_device
+from ..parallel.collectives import psum
+from ..parallel.mesh import check_sharding
+from .fused_davidson import FusedDavidson
 
 Tensor = torch.Tensor
 
 
-def make_deflated_davidson_matvec(matvec, sigma: float):
+def make_deflated_davidson_matvec(matvec, sigma: float, sharding=None):
     """A' = P A P + sigma (I - P) with operand = (inner_operand, x_locked).
 
     x_locked is (L, N) orthonormal; L may be 0 (no-op). Symmetric, the same
     spectrum as A on span(X_l)^perp, the locked roots moved to sigma. Zero
-    rows of x_locked are exact no-ops."""
+    rows of x_locked are exact no-ops. ``sharding``: v and x_locked are
+    this rank's slices and the projections are all-reduced."""
 
     def wrapped(v, packed):
         op, xl = packed
         if xl.shape[0] == 0:
             return matvec(v, op)
-        coef = torch.matmul(v, xl.T)
+        coef = psum(torch.matmul(v, xl.T), sharding)
         pv = v - torch.matmul(coef, xl)
         av = matvec(pv, op)
-        pav = av - torch.matmul(torch.matmul(av, xl.T), xl)
+        pav = av - torch.matmul(psum(torch.matmul(av, xl.T), sharding), xl)
         return pav + sigma * torch.matmul(coef, xl)
 
     return wrapped
@@ -87,9 +99,9 @@ class BandedEigensolver:
         store_block_rows: int = 64,
         device=None,
     ):
-        if sharding is not None:
-            raise NotImplementedError(_SHARDING)
-        self.device = config.resolve_device(device)
+        self.sharding = check_sharding(sharding)
+        self.device = (self.sharding.mesh.device if self.sharding is not None
+                       else config.resolve_device(device))
         if dtype is None:
             dtype = config.default_dtype(self.device)
         if deflate not in ("device", "streamed"):
@@ -99,7 +111,6 @@ class BandedEigensolver:
         self.band = int(band)
         self.m_max = m_max if m_max is not None else max(4 * band, min(n, 24))
         self.dtype = dtype
-        self.sharding = None
         self.tol = convergence_threshold
         self.max_iter = max_iter
         self.operand = operand
@@ -111,8 +122,8 @@ class BandedEigensolver:
             2.0 * np.max(np.abs(self.diag)) + 1.0)
         if store is None and deflate == "streamed":
             store = StreamedOffloadStore(
-                capacity=max(2 * self.band, 8), n=n, dtype=dtype, name="locked",
-                block_rows=store_block_rows, device=self.device)
+                capacity=max(2 * self.band, 8), n=n, dtype=dtype, sharding=self.sharding,
+                name="locked", block_rows=store_block_rows, device=self.device)
         self.store = store
         self._locked_slots: list = []
         self._locked_dense = np.zeros((0, n))
@@ -133,19 +144,47 @@ class BandedEigensolver:
         if not self._locked_slots:
             return np.zeros((0, self.n))
         if self.store is not None:
-            return np.stack([_host64(self.store.get(s)) for s in self._locked_slots])
+            return _host64(self._global(self.store.rows(self._locked_slots)))
         return self._locked_dense
 
     def _lock(self, x: np.ndarray) -> None:
         if self.store is not None:
             for row in x:
-                self._locked_slots.append(self.store.append(row))
+                self._locked_slots.append(self.store.append(self._rank_slice(row)))
         else:
             self._locked_dense = np.concatenate([self._locked_dense, x], axis=0)
             self._locked_slots = list(range(self._locked_dense.shape[0]))
 
     def _device(self, x) -> Tensor:
-        return torch.as_tensor(np.asarray(x), dtype=self.dtype, device=self.device)
+        """A global (rows, N) host block on the device: this rank's slice
+        under sharding."""
+        return to_device(np.asarray(x), self.dtype, self.device, self.sharding)
+
+    def _rank_slice(self, x):
+        """A global host row or block as the store takes it: this rank's
+        slice (float64, on the mesh's device) under sharding."""
+        return x if self.sharding is None else self.sharding.shard(x)
+
+    def _global(self, x: Tensor) -> Tensor:
+        return x if self.sharding is None else self.sharding.gather(x, self.n)
+
+    def _purge(self, x: np.ndarray) -> np.ndarray:
+        """The rows of x projected off the stored locked history (one
+        streamed sweep), whole on the host."""
+        return _host64(self._global(self.store.mgs_sweep(
+            self._rank_slice(x), self._locked_slots, np.ones(self.n_locked))))
+
+    def _fused(self, r: int, max_iter: int, xl: Tensor) -> FusedDavidson:
+        """A fused Davidson of ``r`` roots on the deflated operator with the
+        locked block ``xl`` on the device."""
+        return FusedDavidson(
+            make_deflated_davidson_matvec(self.matvec, self.sigma, self.sharding),
+            self.diag, self.n, r, m_max=self.m_max, dtype=self.dtype,
+            sharding=self.sharding, convergence_threshold=self.tol, max_iter=max_iter,
+            operand=(self.operand, xl), rr=self.rr,
+            check_symmetric=False,  # the wrapper is symmetric by construction
+            device=self.device,
+        )
 
     # -- solve ----------------------------------------------------------
     def solve(self, nroots: int):
@@ -184,8 +223,7 @@ class BandedEigensolver:
             v0[row, i] = 1.0
         if self.n_locked:
             if self.deflate == "streamed":
-                v0 = _host64(self.store.mgs_sweep(
-                    v0, self._locked_slots, np.ones(self.n_locked)))
+                v0 = self._purge(v0)
             else:
                 xl = self.locked_rows()
                 v0 = v0 - (v0 @ xl.T) @ xl
@@ -193,15 +231,7 @@ class BandedEigensolver:
         return np.ascontiguousarray(q.T)
 
     def _solve_band_device(self, r: int, v0: np.ndarray):
-        xl = self._device(self.locked_rows())
-        wrapped = make_deflated_davidson_matvec(self.matvec, self.sigma)
-        solver = FusedDavidson(
-            wrapped, self.diag, self.n, r, m_max=self.m_max, dtype=self.dtype,
-            convergence_threshold=self.tol, max_iter=self.max_iter,
-            operand=(self.operand, xl), rr=self.rr,
-            check_symmetric=False,  # the wrapper is symmetric by construction
-            device=self.device,
-        )
+        solver = self._fused(r, self.max_iter, self._device(self.locked_rows()))
         evals, x, errs, it = solver.run_on_device(v0)
         self.runs.append((r, int(it)))
         return np.asarray(evals), _host64(x), np.asarray(errs)
@@ -240,7 +270,6 @@ class BandedEigensolver:
         #    preconditioned residual re-amplifies, and they are always
         #    inside the window. Older history keeps the streamed purge.
         W = self.band
-        wrapped = make_deflated_davidson_matvec(self.matvec, self.sigma)
 
         def recent_window() -> Tensor:
             xl = np.zeros((W, self.n))
@@ -260,12 +289,7 @@ class BandedEigensolver:
             ra = active.shape[0]
             solver = self._stream_solvers.get((ra, inner))
             if solver is None:
-                solver = FusedDavidson(
-                    wrapped, self.diag, self.n, ra, m_max=self.m_max,
-                    dtype=self.dtype, convergence_threshold=self.tol,
-                    max_iter=inner, operand=(self.operand, recent_window()),
-                    rr=self.rr, check_symmetric=False, device=self.device,
-                )
+                solver = self._fused(ra, inner, recent_window())
                 self._stream_solvers[(ra, inner)] = solver
             solver.operand = (self.operand, recent_window())
             evals, x, errs, it = solver.run_on_device(active)
@@ -273,8 +297,7 @@ class BandedEigensolver:
             total_iter += max(int(it), 1)
             x = _host64(x)
             if self._locked_slots:
-                x = _host64(self.store.mgs_sweep(
-                    x, self._locked_slots, np.ones(len(self._locked_slots))))
+                x = self._purge(x)
             q, _ = np.linalg.qr(x.T)
             x = np.ascontiguousarray(q.T)
             # accept on the f64 residual of the PURGED rows against the real
@@ -288,7 +311,7 @@ class BandedEigensolver:
                     done_vals.append(rq[i])
                     done_vecs.append(x[i])
                     done_res.append(res[i])
-                    self._locked_slots.append(self.store.append(x[i]))
+                    self._locked_slots.append(self.store.append(self._rank_slice(x[i])))
                     self._recent.append(x[i])
                 else:
                     keep.append(i)
@@ -304,7 +327,7 @@ class BandedEigensolver:
                 done_vals.append(rq[i])
                 done_vecs.append(active[i])
                 done_res.append(res[i])
-                self._locked_slots.append(self.store.append(active[i]))
+                self._locked_slots.append(self.store.append(self._rank_slice(active[i])))
                 self._recent.append(active[i])
             self._recent = self._recent[-W:]
         order = np.argsort(done_vals)
@@ -315,7 +338,7 @@ class BandedEigensolver:
     def _f64_check(self, x: np.ndarray):
         """Rayleigh quotients and residual norms through the device matvec,
         read to the host (one action per sweep boundary)."""
-        ax = _host64(self.matvec(self._device(x), self.operand))
+        ax = _host64(self._global(self.matvec(self._device(x), self.operand)))
         rq = np.einsum("in,in->i", x, ax)
         res = np.linalg.norm(ax - rq[:, None] * x, axis=1)
         return rq, res

@@ -22,6 +22,12 @@ hook the fused chain (K2) runs in raw mode.
 
 ``dtype=None`` is float32 on CUDA and float64 on the CPU (the JAX package
 reads ``jax_enable_x64``); ``device=None`` is the CUDA device.
+
+Under ``sharding=`` (passed through to ``FusedDavidson``, one process per
+shard of the vector axis) the filter is elementwise around the matvec,
+which maps a rank's slice to its slice, and needs nothing more; the Lanczos
+bounds build the same seeded global start vector on every rank, keep its
+slice and all-reduce their dots.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ import numpy as np
 import torch
 
 from .. import config
+from ..parallel.mesh import check_sharding
 from .fused_davidson import FusedDavidson, _dots
 
 Tensor = torch.Tensor
@@ -46,6 +53,7 @@ def estimate_spectral_bounds(
     seed: int = 0,
     safety: float = 1.05,
     device=None,
+    sharding=None,
 ) -> Tuple[float, float]:
     """Estimate (lambda_min, lambda_max) of the operator with a short Lanczos
     run, padded by the final Lanczos residual norm so that the returned
@@ -57,23 +65,28 @@ def estimate_spectral_bounds(
     ``iters`` steps issues the same operations with no host read until the
     tridiagonal eigvalsh. The matvec is called on a ``(1, n)`` row block,
     the solver's convention. The start vector comes from
-    ``np.random.default_rng(seed)``, as in the JAX package."""
-    device = config.resolve_device(device)
+    ``np.random.default_rng(seed)``, as in the JAX package. ``sharding``:
+    the matvec maps a rank's slice to its slice; every rank keeps its
+    slice of the same start vector and the dots are all-reduced."""
+    sh = check_sharding(sharding)
+    device = sh.mesh.device if sh is not None else config.resolve_device(device)
     if dtype is None:
         dtype = config.default_dtype(device)
     k = int(iters)
     rng = np.random.default_rng(seed)
-    v = torch.as_tensor(rng.standard_normal((1, n)), dtype=dtype, device=device)
-    v = v / torch.sqrt(_dots(v, v))[:, None]
+    v = rng.standard_normal((1, n))
+    v = (sh.shard(v, dtype) if sh is not None
+         else torch.as_tensor(v, dtype=dtype, device=device))
+    v = v / torch.sqrt(_dots(v, v, sh))[:, None]
     v_prev = torch.zeros_like(v)
     beta = torch.zeros((), dtype=dtype, device=device)
     alphas = torch.zeros((k,), dtype=dtype, device=device)
     betas = torch.zeros((k,), dtype=dtype, device=device)
     for i in range(k):
         w = matvec(v, operand) - beta * v_prev
-        alpha = _dots(w, v)[0]
+        alpha = _dots(w, v, sh)[0]
         w = w - alpha * v
-        beta_new = torch.sqrt(torch.abs(_dots(w, w)))[0]
+        beta_new = torch.sqrt(torch.abs(_dots(w, w, sh)))[0]
         v_next = w / torch.where(beta_new > 0, beta_new, torch.ones_like(beta_new))
         alphas[i] = alpha
         betas[i] = beta_new
@@ -169,7 +182,7 @@ def make_chebyshev_davidson(
     """A :class:`FusedDavidson` whose expansion step is the
     degree-``degree`` Chebyshev filter. The spectral bounds are estimated by
     Lanczos (on ``kwargs``' device and dtype) when ``lambda_max`` is not
-    given."""
+    given; under ``sharding`` in kwargs, sharded as the solver is."""
     if kwargs.get("rr", "full") != "full":
         # the filter's lower edge is the top resolved Ritz value of the FULL
         # subspace; the window RR exposes only its 2r/3r window values
@@ -177,7 +190,8 @@ def make_chebyshev_davidson(
     if lambda_max is None:
         lo, hi = estimate_spectral_bounds(matvec, n, operand=operand,
                                           dtype=kwargs.get("dtype"),
-                                          device=kwargs.get("device"))
+                                          device=kwargs.get("device"),
+                                          sharding=kwargs.get("sharding"))
         lambda_max = hi
         if lambda_min is None:
             lambda_min = lo

@@ -15,14 +15,15 @@ return ``(m, N)`` row-blocks instead of mutating VecRef views.
 CUDA and float64 on the CPU. ``offload=`` moves the basis history to the
 host/disk spill tier (array/offload_store.py).
 
-``sharding=`` (parallel/mesh.py, ``block_sharding(mesh)``) runs the
-Davidson families one process per shard of the vector axis (SPMD): the
-basis stores hold each rank's slice, every overlap and norm over N is
-all-reduced, the caller's blocks and the problem's vectors are each rank's
-slices (a global numpy block is cut to the rank's slice), and the host's
-subspace work sees the same all-reduced numbers on every rank. Families
-whose sharding is not ported (``shardable = False``) raise
-``NotImplementedError`` naming ROADMAP.md Queue 1, item 6c.
+``sharding=`` (parallel/mesh.py, ``block_sharding(mesh)``) runs every
+family one process per shard of the vector axis (SPMD): the basis stores
+(the device ``BasisStore`` or an ``offload=`` store) hold each rank's
+slice, every overlap, dot and norm over N is all-reduced, the caller's
+blocks and the problem's vectors are each rank's slices (a global numpy
+block is cut to the rank's slice), and the host's subspace work sees the
+same all-reduced numbers on every rank. A nonlinear family's
+``Problem.residual`` then takes the rank's slice and returns the GLOBAL
+value with the rank's slice of the residual.
 """
 
 from __future__ import annotations
@@ -35,15 +36,13 @@ import torch
 from .. import config
 from ..array import vector_ops as vops
 from ..array.basis_store import _host
+from ..parallel.collectives import psum
 from ..parallel.mesh import check_sharding
 from ..problem import Problem
 from ..subspace.xspace import XSpace
 from ..utils import Logger, Profiler, Statistics, null_profiler
 
 Tensor = torch.Tensor
-
-_SHARDING = "sharding is not ported yet (ROADMAP.md Queue 1, item 6c)"
-
 
 def _rows(x) -> Tensor:
     """``x`` as a 2-D row block (a vector becomes one row)."""
@@ -81,7 +80,6 @@ class Verbosity:
 class IterativeSolverTemplate:
     nonlinear: bool = False
     linear_eigensystem: bool = False
-    shardable: bool = False
 
     def __init__(
         self,
@@ -95,8 +93,6 @@ class IterativeSolverTemplate:
         offload=False,
         device=None,
     ):
-        if sharding is not None and not self.shardable:
-            raise NotImplementedError(_SHARDING)
         self.sharding = check_sharding(sharding)
         self.device = (self.sharding.mesh.device if self.sharding is not None
                        else config.resolve_device(device))
@@ -587,7 +583,7 @@ class IterativeSolverTemplate:
             v0 = problem.test_parameters(0)
             if v0 is None:
                 return True
-            v0 = vops.to_device(v0, self.dtype, self.device)
+            v0 = self._vector(v0)
             value0, res0 = problem.residual(v0)
             parameters0, residual0 = v0, res0
             instance = 1
@@ -595,11 +591,11 @@ class IterativeSolverTemplate:
                 v1 = problem.test_parameters(instance)
                 if v1 is None:
                     break
-                v1 = vops.to_device(v1, self.dtype, self.device)
+                v1 = self._vector(v1)
                 value1, res1 = problem.residual(v1)
                 mean_res = 0.5 * (res1 + residual0)
                 step = v1 - parameters0
-                dv_analytic = float(torch.dot(mean_res, step))
+                dv_analytic = float(psum(torch.dot(mean_res, step), self.sharding))
                 ok = abs(dv_analytic - (value1 - value0)) < threshold
                 success = success and ok
                 if verbosity > 0 or not ok:
@@ -611,13 +607,13 @@ class IterativeSolverTemplate:
                 v0 = problem.test_parameters(instance)
                 if v0 is None:
                     break
-                v0 = _rows(vops.to_device(v0, self.dtype, self.device))
+                v0 = self._block(v0)
                 a0 = problem.action(v0)
-                norm2_residual = float(torch.sqrt(torch.sum(a0 * a0)))
+                norm2_residual = float(torch.sqrt(psum(torch.sum(a0 * a0), self.sharding)))
                 scale = 10.0
                 a1 = problem.action(v0 * scale)
                 defect = a1 - scale * a0
-                norm2 = float(torch.sqrt(torch.sum(defect * defect)))
+                norm2 = float(torch.sqrt(psum(torch.sum(defect * defect), self.sharding)))
                 ok = abs(norm2 / norm2_residual) < threshold
                 success = success and ok
                 if verbosity > 0 or not ok:

@@ -66,9 +66,6 @@ from ._finite import check_finite
 
 Tensor = torch.Tensor
 
-# the message of the entry points whose sharding waits for its ROADMAP item
-_SHARDING = "sharding is not ported yet (ROADMAP.md Queue 1, item 6c)"
-
 
 class DavidsonState(NamedTuple):
     v: Tensor        # (m_max, N) basis stack (rows orthonormal where mask)

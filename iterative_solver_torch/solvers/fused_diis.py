@@ -20,6 +20,16 @@ The design is the JAX package's:
   coefficients' sum collapses.
 - x <- x_interp - precondition(r_interp), the default preconditioner the
   sign-preserving Jacobi inverse of the diagonals, identity without them.
+
+``sharding=`` (parallel/mesh.py, e.g. ``block_sharding(mesh)``) runs one
+process per shard of the vector axis: x, r, the rings and the diagonals
+are each rank's slices; the Pulay row (the Gram of the residual history
+against the new residual), the error norm and the diagonal's largest
+magnitude are all-reduced (``psum`` / ``pmax``, the ranks' parts in rank
+order), and the bordered eigh runs on the replicated (m+1)² matrix on
+every rank. ``residual_fn`` then maps the rank's slice of x to the rank's
+slice of g(x); ``run`` takes the global x0 on every rank and returns x
+gathered.
 """
 
 from __future__ import annotations
@@ -30,11 +40,15 @@ import torch
 
 from .. import config
 from ..array import vector_ops as vops
+from ..parallel.collectives import pmax, psum
+from ..parallel.mesh import check_sharding
 from ._finite import check_finite
 
 Tensor = torch.Tensor
 
-_SHARDING = "sharding is not ported yet (ROADMAP.md Queue 1, item 6c)"
+
+def _norm(r: Tensor, sharding) -> Tensor:
+    return torch.sqrt(torch.abs(psum(torch.matmul(r, r), sharding)))
 
 
 class DIISState(NamedTuple):
@@ -103,13 +117,15 @@ def make_diis_solve(
     m: int,
     svd_thresh: Optional[float] = None,
     precondition: Optional[Callable[[Tensor, Tensor], Tensor]] = None,
+    sharding=None,
 ):
     """The solve loop (fused_diis.py:131-187). ``residual_fn(x, operand)``
     returns the residual g(x); ``precondition(r, dinv)`` (default: the
     Jacobi multiply r * dinv) maps the interpolated residual to the step.
     Returns ``solve(state, operand, dinv, tol, max_iter) -> (state,
     iterations)``, which steps while ``it < max_iter``, ``err > tol`` and
-    ``err`` is finite."""
+    ``err`` is finite. ``sharding``: the state's vectors are this rank's
+    slices; the Pulay row and the norm are all-reduced."""
 
     if precondition is None:
         def precondition(r, dinv):
@@ -124,7 +140,7 @@ def make_diis_solve(
         count = min(state.count + 1, m)
         valid = torch.arange(m, device=x_hist.device) < count
         # incremental overlap row/col <r_new, r_i> over valid slots
-        row = _where(valid, torch.matmul(r_hist, state.r), 0.0)
+        row = _where(valid, psum(torch.matmul(r_hist, state.r), sharding), 0.0)
         bmat = state.b.clone()
         bmat[head, :] = row
         bmat[:, head] = row
@@ -134,7 +150,7 @@ def make_diis_solve(
         r_interp = torch.matmul(c, r_hist)
         x_new = x_interp - precondition(r_interp, dinv)
         r_new = residual_fn(x_new, operand)
-        err = torch.sqrt(torch.abs(torch.matmul(r_new, r_new)))
+        err = _norm(r_new, sharding)
         return DIISState(x_new, r_new, x_hist, r_hist, bmat, (head + 1) % m, count, err)
 
     def solve(state: DIISState, operand, dinv, tol_, max_iter_):
@@ -157,7 +173,8 @@ class FusedDIIS:
 
     ``device=None`` is the CUDA device and raises where CUDA is absent; pass
     ``device="cpu"`` for the host (the tests do). ``dtype=None`` is float32
-    on CUDA and float64 on the CPU."""
+    on CUDA and float64 on the CPU. Under ``sharding`` the device is the
+    mesh's and ``residual_fn`` and ``diagonals`` follow the module note."""
 
     def __init__(
         self,
@@ -174,11 +191,11 @@ class FusedDIIS:
         precondition: Optional[Callable[[Tensor, Tensor], Tensor]] = None,
         device=None,
     ):
-        if sharding is not None:
-            raise NotImplementedError(_SHARDING)
         if max_size_qspace < 2:
             raise ValueError("max_size_qspace must be >= 2 for DIIS extrapolation")
-        self.device = config.resolve_device(device)
+        self.sharding = check_sharding(sharding, 1)
+        self.device = (self.sharding.mesh.device if self.sharding is not None
+                       else config.resolve_device(device))
         if dtype is None:
             dtype = config.default_dtype(self.device)
         self.n = n
@@ -188,34 +205,40 @@ class FusedDIIS:
         self.convergence_threshold = convergence_threshold
         self.max_iter = max_iter
         if diagonals is not None:
-            d = vops.to_device(diagonals, dtype, self.device)
+            d = vops.to_device(diagonals, dtype, self.device, self.sharding)
             # Sign-preserving magnitude regularisation: the reference's flat
             # ``d + 1e-15`` (precondition_default, IterativeSolver.h:34-44)
             # blows up for a diagonal entry near -1e-15*max|d| and leaves
             # negative entries unregularised; clamping |d| from below keeps
             # the inverse bounded for indefinite diagonals.
-            scale = torch.max(torch.abs(d))
+            scale = pmax(torch.max(torch.abs(d)), self.sharding)
             sgn = torch.where(d >= 0, torch.ones_like(d), -torch.ones_like(d))
             self._dinv = sgn / torch.maximum(torch.abs(d), 1e-15 * scale + 1e-300)
         else:
             self._dinv = torch.ones((), dtype=dtype, device=self.device)
-        self._solve = make_diis_solve(residual_fn, self.m, svd_thresh, precondition)
+        self._solve = make_diis_solve(residual_fn, self.m, svd_thresh, precondition,
+                                      self.sharding)
         self._residual_fn = residual_fn
 
     def run(self, x0):
         """Returns ``(x, err, iterations)``: ``x`` a tensor on the solver's
-        device, ``err`` = ||g(x)||. Raises FloatingPointError when the
-        residual norm is not finite."""
+        device (gathered under sharding, from the global ``x0``), ``err`` =
+        ||g(x)||. Raises FloatingPointError when the residual norm is not
+        finite."""
         x0 = vops.to_device(x0, self.dtype, self.device).reshape(self.n)
+        if self.sharding is not None:
+            x0 = self.sharding.shard(x0)
         r0 = self._residual_fn(x0, self.operand)
-        err0 = torch.sqrt(torch.abs(torch.matmul(r0, r0)))
+        err0 = _norm(r0, self.sharding)
+        width = x0.shape[-1]
         like = dict(dtype=self.dtype, device=self.device)
         state = DIISState(
-            x0, r0, torch.zeros((self.m, self.n), **like), torch.zeros((self.m, self.n), **like),
+            x0, r0, torch.zeros((self.m, width), **like), torch.zeros((self.m, width), **like),
             torch.zeros((self.m, self.m), **like), 0, 0, err0,
         )
         final, iters = self._solve(state, self.operand, self._dinv,
                                    self.convergence_threshold, self.max_iter)
         err = float(final.err)
         check_finite(err, "FusedDIIS")
-        return final.x, err, int(iters)
+        x = final.x if self.sharding is None else self.sharding.gather(final.x, self.n)
+        return x, err, int(iters)

@@ -13,6 +13,16 @@ ring update; ring index and count are host ints.
 for black-box callbacks.) ``value_and_grad(x, operand) -> (f, g)`` returns
 tensors; g may come from ``torch.autograd.grad``, as the smoke run's does
 through ``ops.kernels.symm.make_differentiable_symm_action``.
+
+``sharding=`` (parallel/mesh.py, e.g. ``block_sharding(mesh)``) runs one
+process per shard of the vector axis: x, g and the (s, y) rings are each
+rank's slices, and every dot of the two-loop recursion, the Armijo test's
+directional derivative, the curvature test and the gradient norm is
+all-reduced (``psum``, the ranks' parts added in rank order, so every rank
+takes the same branch). ``value_and_grad`` then receives the rank's slice
+of x and returns the GLOBAL f (the same on every rank) and the rank's
+slice of g; ``run`` takes the global x0 on every rank and returns x
+gathered.
 """
 
 from __future__ import annotations
@@ -23,11 +33,15 @@ import torch
 
 from .. import config
 from ..array import vector_ops as vops
+from ..parallel.collectives import psum
+from ..parallel.mesh import check_sharding
 from ._finite import check_finite
 
 Tensor = torch.Tensor
 
-_SHARDING = "sharding is not ported yet (ROADMAP.md Queue 1, item 6c)"
+
+def _dot(a: Tensor, b: Tensor, sharding) -> Tensor:
+    return psum(torch.dot(a, b), sharding)
 
 
 class LBFGSState(NamedTuple):
@@ -49,10 +63,13 @@ def make_lbfgs_solve(
     max_iter: int,
     max_ls: int = 20,
     c1: float = 1e-4,
+    sharding=None,
 ):
     """The solve loop (fused_lbfgs.py:40-131): ``solve(state, operand) ->
     (state, iterations)``, stepping while ``it < max_iter`` and ``gnorm >
-    tol``."""
+    tol``. ``sharding``: the state's vectors are this rank's slices and
+    every dot is all-reduced."""
+    sh = sharding
 
     m = history
 
@@ -64,14 +81,14 @@ def make_lbfgs_solve(
         alphas = {}
         for i in range(count):
             idx = (head - 1 - i) % m
-            alphas[idx] = rho[idx] * torch.dot(s_hist[idx], q)
+            alphas[idx] = rho[idx] * _dot(s_hist[idx], q, sh)
             q = q - alphas[idx] * y_hist[idx]
         if count == 0:
             r = q  # gamma = 1
         else:
             # initial Hessian scale gamma = s.y / y.y of the newest pair
             newest = (head - 1) % m
-            yy = torch.dot(y_hist[newest], y_hist[newest])
+            yy = _dot(y_hist[newest], y_hist[newest], sh)
             rn = rho[newest]
             sy = torch.where(rn != 0, 1.0 / torch.where(rn != 0, rn, torch.ones_like(rn)),
                              torch.ones_like(rn))
@@ -80,17 +97,17 @@ def make_lbfgs_solve(
             r = gamma * q
         for i in range(count):
             idx = (head - count + i) % m
-            beta = rho[idx] * torch.dot(y_hist[idx], r)
+            beta = rho[idx] * _dot(y_hist[idx], r, sh)
             r = r + (alphas[idx] - beta) * s_hist[idx]
         return r
 
     def step(state: LBFGSState, operand) -> LBFGSState:
         d = -two_loop(state.g, state.s_hist, state.y_hist, state.rho, state.head, state.count)
-        gd = torch.dot(state.g, d)
+        gd = _dot(state.g, d, sh)
         # fall back to steepest descent if not a descent direction
         descent = gd < 0
         d = torch.where(descent, d, -state.g)
-        gd = torch.where(descent, gd, -torch.dot(state.g, state.g))
+        gd = torch.where(descent, gd, -_dot(state.g, state.g, sh))
 
         # backtracking Armijo line search: one host read per trial
         alpha = torch.ones((), dtype=state.x.dtype, device=state.x.device)
@@ -103,8 +120,10 @@ def make_lbfgs_solve(
 
         s = alpha * d
         y = g_new - state.g
-        sy = torch.dot(s, y)
-        good = sy > 1e-12 * torch.sqrt(torch.dot(s, s) * torch.dot(y, y))
+        # s.y, s.s and y.y in one reduction
+        sy, ss, yy = psum(torch.stack([torch.dot(s, y), torch.dot(s, s), torch.dot(y, y)]),
+                          sh).unbind(0)
+        good = sy > 1e-12 * torch.sqrt(ss * yy)
         head, count = state.head, state.count
         if bool(good):
             # the rings are the solve's own: write the new pair in place
@@ -112,7 +131,7 @@ def make_lbfgs_solve(
             state.y_hist[head] = y
             state.rho[head] = 1.0 / sy
             head, count = (head + 1) % m, min(count + 1, m)
-        gnorm = torch.sqrt(torch.dot(g_new, g_new))
+        gnorm = torch.sqrt(_dot(g_new, g_new, sh))
         return LBFGSState(state.x + s, f_new, g_new, state.s_hist, state.y_hist, state.rho,
                           head, count, gnorm)
 
@@ -133,7 +152,8 @@ class FusedLBFGS:
 
     ``device=None`` is the CUDA device and raises where CUDA is absent; pass
     ``device="cpu"`` for the host (the tests do). ``dtype=None`` is float32
-    on CUDA and float64 on the CPU."""
+    on CUDA and float64 on the CPU. Under ``sharding`` the device is the
+    mesh's and ``value_and_grad`` follows the module note's contract."""
 
     def __init__(
         self,
@@ -147,31 +167,35 @@ class FusedLBFGS:
         operand=None,
         device=None,
     ):
-        if sharding is not None:
-            raise NotImplementedError(_SHARDING)
-        self.device = config.resolve_device(device)
+        self.sharding = check_sharding(sharding, 1)
+        self.device = (self.sharding.mesh.device if self.sharding is not None
+                       else config.resolve_device(device))
         if dtype is None:
             dtype = config.default_dtype(self.device)
         self.n = n
         self.history = history
         self.dtype = dtype
         self.operand = operand
-        self._solve = make_lbfgs_solve(value_and_grad, history, convergence_threshold, max_iter)
+        self._solve = make_lbfgs_solve(value_and_grad, history, convergence_threshold, max_iter,
+                                       sharding=self.sharding)
         self._vg = value_and_grad
 
     def run(self, x0):
         """Returns ``(x, f, gnorm, iterations)``: ``x`` a tensor on the
-        solver's device. Raises FloatingPointError when f or the gradient
-        norm is not finite."""
-        x0 = vops.to_device(x0, self.dtype, self.device)
+        solver's device (gathered under sharding, from the global ``x0``).
+        Raises FloatingPointError when f or the gradient norm is not
+        finite."""
+        x0 = vops.to_device(x0, self.dtype, self.device, self.sharding)
         f0, g0 = self._vg(x0, self.operand)
         m = self.history
+        width = x0.shape[-1]
         like = dict(dtype=self.dtype, device=self.device)
         state = LBFGSState(
-            x0, f0, g0, torch.zeros((m, self.n), **like), torch.zeros((m, self.n), **like),
-            torch.zeros((m,), **like), 0, 0, torch.sqrt(torch.dot(g0, g0)),
+            x0, f0, g0, torch.zeros((m, width), **like), torch.zeros((m, width), **like),
+            torch.zeros((m,), **like), 0, 0, torch.sqrt(_dot(g0, g0, self.sharding)),
         )
         final, iters = self._solve(state, self.operand)
         f, gnorm = float(final.f), float(final.gnorm)
         check_finite([f, gnorm], "FusedLBFGS")
-        return final.x, f, gnorm, int(iters)
+        x = final.x if self.sharding is None else self.sharding.gather(final.x, self.n)
+        return x, f, gnorm, int(iters)

@@ -38,8 +38,19 @@ Differences from the JAX package, each kept to the same semantics:
 - The "fast" dense tier stores bf16 and rounds x to bf16 with f32 sums, as
   the TPU's default-precision matmul does (JAX's CPU path keeps x in f32).
 
-Sharding is not ported yet and raises ``NotImplementedError`` naming its
-ROADMAP item.
+Sharding (``sharding=``, parallel/mesh.py) runs both families one process
+per shard of the vector axis (SPMD): the stacks, blocks, diagonal and
+right-hand sides are each rank's slices, the matvec maps a rank's slice of
+x to its slice of y (``dense_int8.sharded_matvec``, ``ShardedSymmetric``,
+``collectives.row_sharded_matvec``), and every contraction over N is
+all-reduced where GSPMD inserts a psum in the JAX package: the two
+Gram-Schmidt projections and row norms of the append, the whitening and
+orthonormalisation Grams, the projected matrix H and the RHS projection,
+the residual norms and the device loop's residual Gram, the P-space
+projections and the diagonal's largest magnitude. The small (m, m) work,
+the host eig and the device refinement run replicated, the ranks' sums in
+rank order so every rank takes the same branches; the solutions come back
+gathered. The batched makers stay single-process.
 """
 
 from __future__ import annotations
@@ -50,14 +61,16 @@ import numpy as np
 import torch
 
 from .. import config
-from ..array.vector_ops import chol_jitter
+from ..array.vector_ops import chol_jitter, to_device
+from ..array.vector_ops import dots_rows as _dots
+from ..array.vector_ops import gram as _gram
 from ..ops.kernels.chain import _cholesky_nan, whiten_after_chain
+from ..parallel.collectives import barrier, pmax
+from ..parallel.mesh import check_sharding
 from ._finite import check_finite
 from .fused_davidson import validate_p_inputs
 
 Tensor = torch.Tensor
-
-_SHARDING = "sharding is not ported yet (ROADMAP.md Queue 1, item 6c)"
 
 
 class NonSymDeviceState(NamedTuple):
@@ -175,8 +188,8 @@ def ritz_nonsym(h: np.ndarray, nroots: int):
 # device stages shared by both families
 
 
-def _dots(a: Tensor, b: Tensor) -> Tensor:
-    return torch.einsum("in,in->i", a, b)
+def _absmax(d: Tensor, sh=None) -> Tensor:
+    return pmax(torch.max(torch.abs(d)), sh)
 
 
 def _eye(n: int, like: Tensor) -> Tensor:
@@ -207,21 +220,21 @@ def _lower_solve(l: Tensor, x: Tensor) -> Tensor:
     return torch.linalg.solve_triangular(l, x, upper=False)
 
 
-def _make_append(matvec: Callable, r: int, m_max: int, null_thresh: float):
+def _make_append(matvec: Callable, r: int, m_max: int, null_thresh: float, sh=None):
     """Append stage of both families: two-pass classical Gram-Schmidt
     against the live basis, null-drop and Cholesky whitening, stack append,
     operator application, mask update (fused_nonsym.py:175-203). ``k`` is a
-    host int."""
+    host int; ``sh`` the sharding or None (module note)."""
 
     def append(v, w, mask, k: int, t, operand):
         vm = v * mask[:, None]
-        n0_2 = _dots(t, t)
+        n0_2 = _dots(t, t, sh)
         tt = t
         for _ in range(2):
-            proj = torch.matmul(tt, vm.T)
+            proj = _gram(tt, vm, sh)
             tt = tt - torch.matmul(proj, vm)
-        n2 = _dots(tt, tt)
-        tt, keep = whiten_after_chain(tt, n0_2, n2, r, null_thresh)
+        n2 = _dots(tt, tt, sh)
+        tt, keep = whiten_after_chain(tt, n0_2, n2, r, null_thresh, sharding=sh)
         w_rows = matvec(tt, operand).to(w.dtype)
         v_new = _put_rows(v, k, tt)
         w_new = _put_rows(w, k, w_rows)
@@ -234,7 +247,7 @@ def _make_append(matvec: Callable, r: int, m_max: int, null_thresh: float):
     return append
 
 
-def _incremental_update(h, v, w, mask, k0: int, rows: int):
+def _incremental_update(h, v, w, mask, k0: int, rows: int, sh=None):
     """Only the ``rows`` appended slots change (old rows are append-only):
     two (rows, m_max) products replace the full recompute of H. Returns
     ``(h, new_v)``; new_v lets the linear twin update its RHS projection."""
@@ -242,16 +255,16 @@ def _incremental_update(h, v, w, mask, k0: int, rows: int):
     wm2 = w * mask[:, None]
     new_v = vm2[k0:k0 + rows]
     new_w = wm2[k0:k0 + rows]
-    h = _put_rows(h, k0, torch.matmul(new_v, wm2.T))
-    h = _put_cols(h, k0, torch.matmul(vm2, new_w.T))
+    h = _put_rows(h, k0, _gram(new_v, wm2, sh))
+    h = _put_cols(h, k0, _gram(vm2, new_w, sh))
     return h, new_v
 
 
-def _orthonormal_block(x: Tensor):
+def _orthonormal_block(x: Tensor, sh=None):
     """(t, live): the (r, N) block orthonormalised by a Cholesky of its
     Gram, rows below 1e-12 of the largest squared norm kept dead (zero)."""
     r = x.shape[0]
-    g = torch.matmul(x, x.T)
+    g = _gram(x, x, sh)
     g = 0.5 * (g + g.T)
     gd = torch.diagonal(g)
     live = gd > 1e-12 * torch.clamp(torch.max(gd), min=1e-300)
@@ -260,30 +273,31 @@ def _orthonormal_block(x: Tensor):
     return t * live[:, None].to(t.dtype), live
 
 
-def _reset_core(matvec: Callable, r: int, m_max: int, x, operand):
+def _reset_core(matvec: Callable, r: int, m_max: int, x, operand, sh=None):
     """Shared init/restart core: orthonormalise an (r, N) block with zero
     rows kept DEAD (a straddling-pair window returns fewer rows; a live
     zero row would put a spurious eigenvalue 0 into H), apply the operator,
     lay out fresh stacks. Returns (v, w, mask, h)."""
-    t, live = _orthonormal_block(x)
+    t, live = _orthonormal_block(x, sh)
     w_rows = matvec(t, operand).to(x.dtype)
     pad = _zeros((m_max - r, x.shape[1]), x)
     v = torch.cat([t, pad])
     w = torch.cat([w_rows, pad])
     mask = torch.cat([live.to(x.dtype), _zeros((m_max - r,), x)])
-    h = torch.matmul(v * mask[:, None], (w * mask[:, None]).T)
+    h = _gram(v * mask[:, None], w * mask[:, None], sh)
     return v, w, mask, h
 
 
 def make_nonsym_chunk(matvec: Callable, nroots: int, m_max: int,
-                      null_thresh: float = 1e-10, inner: int = 1):
+                      null_thresh: float = 1e-10, inner: int = 1, sharding=None):
     """``inner`` appends' worth of O(N) work between two host stages.
 
     Append 1 expands the Jacobi-preconditioned residual at the host-given
     Ritz data; appends 2..inner are frozen-shift Krylov enrichment: the new
     block's residual proxy (A - shift) t reuses the action the append
     already paid for (fused_nonsym.py:250-289)."""
-    append = _make_append(matvec, nroots, m_max, null_thresh)
+    sh = sharding
+    append = _make_append(matvec, nroots, m_max, null_thresh, sh)
 
     def chunk(v, w, mask, k: int, h, coeff, lam, shifts, operand, diag):
         vm = v * mask[:, None]
@@ -291,10 +305,10 @@ def make_nonsym_chunk(matvec: Callable, nroots: int, m_max: int,
         x = torch.matmul(coeff, vm)
         ax = torch.matmul(coeff, wm)
         r_blk = ax - torch.matmul(lam, x)
-        errors = torch.sqrt(torch.abs(_dots(r_blk, r_blk)))
+        errors = torch.sqrt(torch.abs(_dots(r_blk, r_blk, sh)))
         # Jacobi preconditioner at the Ritz real parts (IterativeSolver.h:
         # 34-44), regulariser relative to the spectrum's scale
-        scale_est = torch.max(torch.abs(diag)) + torch.max(torch.abs(shifts))
+        scale_est = _absmax(diag, sh) + torch.max(torch.abs(shifts))
         denom = diag[None, :] - shifts[:, None] + 1e-15 * scale_est + 1e-300
         k0 = k
         t = r_blk / denom
@@ -302,18 +316,18 @@ def make_nonsym_chunk(matvec: Callable, nroots: int, m_max: int,
         for _ in range(inner - 1):
             t = (w_rows - shifts[:, None] * t_app) / denom
             v, w, mask, k, t_app, w_rows = append(v, w, mask, k, t, operand)
-        h, _ = _incremental_update(h, v, w, mask, k0, inner * nroots)
+        h, _ = _incremental_update(h, v, w, mask, k0, inner * nroots, sh)
         return v, w, mask, k, h, x, errors
 
     return chunk
 
 
-def make_nonsym_reset(matvec: Callable, nroots: int, m_max: int):
+def make_nonsym_reset(matvec: Callable, nroots: int, m_max: int, sharding=None):
     """Init/restart: orthonormalise an (r, N) block, apply the operator,
     lay out fresh (m_max, N) stacks and the projected matrix."""
 
     def reset(x, operand):
-        v, w, mask, h = _reset_core(matvec, nroots, m_max, x, operand)
+        v, w, mask, h = _reset_core(matvec, nroots, m_max, x, operand, sharding)
         return v, w, mask, nroots, h
 
     return reset
@@ -347,11 +361,11 @@ def _check_live_p_guess(p_dense, v0, r, n_p, what):
             "return a fabricated zero eigenvalue)")
 
 
-def _whiten_p(p, wp, use_actions, matvec, operand, n_p):
+def _whiten_p(p, wp, use_actions, matvec, operand, n_p, sh=None):
     """Whiten the P block by a Cholesky of its Gram with a dtype-aware
     jitter; the user's action rows (if given) through the same transform,
     else the operator's."""
-    gp = torch.matmul(p, p.T)
+    gp = _gram(p, p, sh)
     gp = gp + chol_jitter(gp.dtype) * _eye(n_p, gp)
     lp = _cholesky_nan(gp)
     pv = _lower_solve(lp, p)
@@ -368,22 +382,22 @@ def _live_one_hot(mask, r):
     return (pos[None, :] == ranks[:, None]).to(mask.dtype)
 
 
-def _reset_core_p(matvec: Callable, r: int, m_max: int, x, operand, pv, pw):
+def _reset_core_p(matvec: Callable, r: int, m_max: int, x, operand, pv, pw, sh=None):
     """P-preserving init/collapse core: the frozen P slots [0, n_p) keep
     their basis AND action rows, the (r, N) block is Gram-Schmidted against
     them and orthonormalised with dead rows kept dead. Returns (v, w, mask,
     h, t)."""
     n_p = pv.shape[0]
     for _ in range(2):
-        x = x - torch.matmul(torch.matmul(x, pv.T), pv)
-    t, live = _orthonormal_block(x)
+        x = x - torch.matmul(_gram(x, pv, sh), pv)
+    t, live = _orthonormal_block(x, sh)
     w_rows = matvec(t, operand) * live[:, None].to(t.dtype)
     pad = _zeros((m_max - n_p - r, x.shape[1]), x)
     v = torch.cat([pv.to(x.dtype), t, pad])
     w = torch.cat([pw.to(x.dtype), w_rows.to(x.dtype), pad])
     mask = torch.cat([torch.ones(n_p, dtype=x.dtype, device=x.device), live.to(x.dtype),
                       _zeros((m_max - n_p - r,), x)])
-    h = torch.matmul(v * mask[:, None], (w * mask[:, None]).T)
+    h = _gram(v * mask[:, None], w * mask[:, None], sh)
     return v, w, mask, h, t
 
 
@@ -439,11 +453,11 @@ def _make_refine(r: int, m_max: int, rr_steps: int):
 
 
 def _make_nonsym_iterate(matvec: Callable, r: int, m_max: int,
-                         null_thresh: float, rr_steps: int):
+                         null_thresh: float, rr_steps: int, sh=None):
     """One device-RR Davidson iteration (refine, Ritz block, residual Gram,
     best snapshot, preconditioned append, incremental H), no restart:
     shared by the single loop and the batched solve."""
-    append = _make_append(matvec, r, m_max, null_thresh)
+    append = _make_append(matvec, r, m_max, null_thresh, sh)
     refine = _make_refine(r, m_max, rr_steps)
 
     def iterate(v, w, mask, k: int, h, C, best_err, bx, bG, bR, operand, diag,
@@ -456,7 +470,7 @@ def _make_nonsym_iterate(matvec: Callable, r: int, m_max: int,
         rblk = ax - torch.matmul(G, x)
         # (r, r) residual Gram: its diagonal gives the row errors, and the
         # final host eig rotates it with no O(N) fetch
-        r_gram = torch.matmul(rblk, rblk.T)
+        r_gram = _gram(rblk, rblk, sh)
         errs = torch.sqrt(torch.abs(torch.diagonal(r_gram)))
         maxe = torch.max(errs)
         better = maxe < best_err
@@ -464,18 +478,18 @@ def _make_nonsym_iterate(matvec: Callable, r: int, m_max: int,
         bx = torch.where(better, x, bx)
         bG = torch.where(better, G, bG)
         bR = torch.where(better, r_gram, bR)
-        scale_est = torch.max(torch.abs(diag)) + torch.max(torch.abs(shifts))
+        scale_est = _absmax(diag, sh) + torch.max(torch.abs(shifts))
         denom = diag[None, :] - shifts[:, None] + 1e-15 * scale_est + 1e-300
         t = rblk / denom
         k0 = k
         v, w, mask, k, _t_app, _w_rows = append(v, w, mask, k, t, operand)
-        h, _ = _incremental_update(h, v, w, mask, k0, r)
+        h, _ = _incremental_update(h, v, w, mask, k0, r, sh)
         return v, w, mask, k, h, C, x, errs, best_err, bx, bG, bR
 
     return iterate
 
 
-def _make_nonsym_collapse(matvec: Callable, r: int, m_max: int, n_p: int = 0):
+def _make_nonsym_collapse(matvec: Callable, r: int, m_max: int, n_p: int = 0, sh=None):
     """Restart: collapse onto the Ritz block x; the operator re-anchors AX
     exactly. With ``n_p > 0`` the frozen P slots survive and C keeps the
     EXACT coordinates of the outgoing block in the fresh basis."""
@@ -483,15 +497,15 @@ def _make_nonsym_collapse(matvec: Callable, r: int, m_max: int, n_p: int = 0):
     def collapse(x, k: int, operand, v, w):
         if n_p:
             pv = v[:n_p]
-            pc = torch.matmul(x, pv.T)                       # (r, n_p)
+            pc = _gram(x, pv, sh)                            # (r, n_p)
             rv, rw, rmask, rh, t = _reset_core_p(matvec, r, m_max, x, operand, pv,
-                                                 w[:n_p])
+                                                 w[:n_p], sh)
             xs = x - torch.matmul(pc, pv)
-            cx = torch.matmul(xs, t.T)                       # (r, r)
+            cx = _gram(xs, t, sh)                            # (r, r)
             rC = torch.cat([pc.to(x.dtype), cx.to(x.dtype),
                             _zeros((r, m_max - n_p - r), x)], dim=1)
             return rv, rw, rmask, n_p + r, rh, rC
-        rv, rw, rmask, rh = _reset_core(matvec, r, m_max, x, operand)
+        rv, rw, rmask, rh = _reset_core(matvec, r, m_max, x, operand, sh)
         rC = torch.cat([_eye(r, x), _zeros((r, m_max - r), x)], dim=1)
         return rv, rw, rmask, r, rh, rC
 
@@ -507,7 +521,7 @@ def _thresholds(tol: float, dtype) -> tuple:
 
 def make_nonsym_device_loop(matvec: Callable, r: int, m_max: int,
                             null_thresh: float = 1e-10, rr_steps: int = 1,
-                            n_p: int = 0, p_actions: bool = False):
+                            n_p: int = 0, p_actions: bool = False, sharding=None):
     """The device-RR non-hermitian Davidson loop (fused_nonsym.py:545-660):
     no eigendecomposition inside. With basis rows V, action rows W and H =
     V Wᵀ, inverse subspace iteration C' = (H - sigma I)⁻¹ Cᵀ, C =
@@ -518,8 +532,9 @@ def make_nonsym_device_loop(matvec: Callable, r: int, m_max: int,
     Returns ``(run_init, run_cont)``; each returns the loop's state ``(v,
     w, mask, k, h, C, x, errs, it, best_err, bx, bG, bR, restarts)``, with
     k, it and restarts host ints. Each iteration reads one scalar."""
-    iterate = _make_nonsym_iterate(matvec, r, m_max, null_thresh, rr_steps)
-    collapse = _make_nonsym_collapse(matvec, r, m_max, n_p)
+    sh = sharding
+    iterate = _make_nonsym_iterate(matvec, r, m_max, null_thresh, rr_steps, sh)
+    collapse = _make_nonsym_collapse(matvec, r, m_max, n_p, sh)
 
     def _loop(v, w, mask, k, h, C, tol, it0, it_end, best_err, bx, bG, bR, operand,
               diag):
@@ -548,7 +563,7 @@ def make_nonsym_device_loop(matvec: Callable, r: int, m_max: int,
 
     def run_init(x0, operand, diag, tol, it_end):
         """Init (orthonormalise, apply, lay out) and the loop."""
-        v, w, mask, h = _reset_core(matvec, r, m_max, x0, operand)
+        v, w, mask, h = _reset_core(matvec, r, m_max, x0, operand, sh)
         C = torch.cat([_eye(r, x0), _zeros((r, m_max - r), x0)], dim=1)
         best_err, z, zr = _fresh(x0)
         return _loop(v, w, mask, r, h, C, tol, 0, it_end, best_err, z, zr, zr,
@@ -559,8 +574,8 @@ def make_nonsym_device_loop(matvec: Callable, r: int, m_max: int,
         rows through the same whitening, or the operator's), GS the guess
         block against it, then the loop; C spans every masked slot, so the
         refinement needs no further P logic."""
-        pv, pw = _whiten_p(p, wp, p_actions, matvec, operand, n_p)
-        v, w, mask, h, _t = _reset_core_p(matvec, r, m_max, x0, operand, pv, pw)
+        pv, pw = _whiten_p(p, wp, p_actions, matvec, operand, n_p, sh)
+        v, w, mask, h, _t = _reset_core_p(matvec, r, m_max, x0, operand, pv, pw, sh)
         C = _live_one_hot(mask, r).to(x0.dtype)
         best_err, z, zr = _fresh(x0)
         return _loop(v, w, mask, n_p + r, h, C, tol, 0, it_end, best_err, z, zr, zr,
@@ -853,8 +868,6 @@ class _NonSymBase:
     def _setup(self, matvec, diagonals, n, r, m_max, dtype, sharding, tol, max_iter,
                operand, null_thresh, inner, rr, chunk_iters, p_space, p_actions, device,
                default_m_max):
-        if sharding is not None:
-            raise NotImplementedError(_SHARDING)
         if rr not in ("host", "device"):
             raise ValueError(f"rr must be 'host' or 'device', got {rr!r}")
         self.p_dense, self.n_p, self.p_action_rows = validate_p_inputs(p_space, p_actions, n)
@@ -863,7 +876,9 @@ class _NonSymBase:
                 "P space on the non-hermitian fused family runs on the "
                 "device tier — pass rr='device' (the host-driven parity "
                 "solvers carry the host-loop P path)")
-        self.device = config.resolve_device(device)
+        self.sharding = check_sharding(sharding)
+        self.device = (self.sharding.mesh.device if self.sharding is not None
+                       else config.resolve_device(device))
         self.dtype = dtype or config.default_dtype(self.device)
         self.matvec = matvec
         self.n = n
@@ -872,12 +887,10 @@ class _NonSymBase:
             raise ValueError(f"m_max must be >= 2*{self._what} + n_p")
         if max_iter < 1:
             raise ValueError("max_iter must be >= 1")
-        self.sharding = None
         self.tol = tol
         self.max_iter = max_iter
         self.operand = operand
-        self.diag = torch.as_tensor(_host_array(diagonals), dtype=self.dtype,
-                                    device=self.device)
+        self.diag = self._put_block(_host_array(diagonals))
         self.inner = max(1, int(inner))
         self.rr = rr
         self.chunk_iters = max(1, int(chunk_iters))
@@ -887,9 +900,46 @@ class _NonSymBase:
         self.matvecs = 0
 
     def _put_block(self, x) -> Tensor:
+        """A global (..., N) array on the device: this rank's slice under
+        sharding."""
         if isinstance(x, torch.Tensor):
-            return x.detach().to(device=self.device, dtype=self.dtype).contiguous()
+            x = x.detach()
+        return to_device(x, self.dtype, self.device, self.sharding).contiguous()
+
+    def _put_small(self, x) -> Tensor:
+        """A small replicated array (the host's coefficients) on the
+        device."""
         return torch.as_tensor(np.asarray(x), dtype=self.dtype, device=self.device)
+
+    def _global(self, x: Tensor) -> Tensor:
+        """A (..., N) block whole: gathered under sharding."""
+        return x if self.sharding is None else self.sharding.gather(x, self.n)
+
+    def _save(self, state, path: str, **meta) -> None:
+        """Save a device-tier state; under sharding its (rows, N) fields are
+        gathered, rank 0 writes the file and every rank waits for it
+        (utils/checkpoint.py's sharded layout)."""
+        from ..utils.checkpoint import save_fused_state
+
+        if self.sharding is not None:
+            state = state._replace(**{f: self._global(getattr(state, f))
+                                      for f in ("v", "w", "bx")})
+        if self.sharding is None or self.sharding.mesh.rank == 0:
+            save_fused_state(state, path, **meta)
+        if self.sharding is not None:
+            barrier(self.sharding.mesh)
+
+    def _load(self, path: str, cls):
+        from ..utils.checkpoint import load_named_state
+
+        st, meta = load_named_state(path, cls, sharding=self.sharding, dtype=self.dtype,
+                                    device=self.device, shard_fields=("v", "w", "bx"))
+        if tuple(st.v.shape) != (self.m_max, self.diag.shape[-1]):
+            raise ValueError(
+                f"checkpoint stacks are {tuple(st.v.shape)} but this solver "
+                f"is configured (m_max={self.m_max}, n={self.n}) — resume "
+                "with the same capacity and dimension")
+        return st, meta
 
     def _p_blocks(self):
         p = self._put_block(self.p_dense)
@@ -946,7 +996,7 @@ class FusedNonSymDavidson(_NonSymBase):
         # rr_steps_active reports what the last solve ended on
         self.rr_steps_active = self.rr_steps
         self._device_loops = {}
-        self._reset = make_nonsym_reset(matvec, nroots, self.m_max)
+        self._reset = make_nonsym_reset(matvec, nroots, self.m_max, self.sharding)
         # (iteration, max residual) pairs: per eig cycle in host mode, per
         # chunk in device mode
         self.history = []
@@ -969,7 +1019,7 @@ class FusedNonSymDavidson(_NonSymBase):
         fn = self._chunks.get(inner)
         if fn is None:
             fn = make_nonsym_chunk(self.matvec, self.nroots, self.m_max, self._null_thresh,
-                                   inner=inner)
+                                   inner=inner, sharding=self.sharding)
             self._chunks[inner] = fn
         return fn
 
@@ -1040,8 +1090,8 @@ class FusedNonSymDavidson(_NonSymBase):
             # keep one residual-driven append before the next restart
             inner_now = max(1, min(self.inner, room - 1 if room > 1 else 1))
             v, w, mask, k, h, x, errs_dev = self._chunk_fn(inner_now)(
-                v, w, mask, k, h, self._put_block(coeff), self._put_block(lam_full),
-                self._put_block(shifts_full), self.operand, self.diag)
+                v, w, mask, k, h, self._put_small(coeff), self._put_small(lam_full),
+                self._put_small(shifts_full), self.operand, self.diag)
             self.iterations += inner_now
             self.matvecs += inner_now * r
             x_out = x
@@ -1055,7 +1105,7 @@ class FusedNonSymDavidson(_NonSymBase):
         if best is not None and best[0] < errors.max():
             _, evals, x_out, errors, r_eff = best
         check_finite(errors, "FusedNonSymDavidson")
-        return evals[:r_eff], x_out[:r_eff], errors, self.iterations
+        return evals[:r_eff], self._global(x_out[:r_eff]), errors, self.iterations
 
     def _loops(self, steps: Optional[int] = None):
         """(run_init, run_cont) for ``steps`` refinement passes (default the
@@ -1065,7 +1115,8 @@ class FusedNonSymDavidson(_NonSymBase):
         if loop is None:
             loop = make_nonsym_device_loop(
                 self.matvec, self.nroots, self.m_max, self._null_thresh, steps,
-                n_p=self.n_p, p_actions=self.p_action_rows is not None)
+                n_p=self.n_p, p_actions=self.p_action_rows is not None,
+                sharding=self.sharding)
             self._device_loops[steps] = loop
         return loop
 
@@ -1093,15 +1144,7 @@ class FusedNonSymDavidson(_NonSymBase):
         ``solve(..., checkpoint_path=...)``, the JAX package's included; by
         default keeps writing to the same path, and restores the matvec
         count."""
-        from ..utils.checkpoint import load_named_state
-
-        st, meta = load_named_state(checkpoint_path, NonSymDeviceState, dtype=self.dtype,
-                                    device=self.device)
-        if tuple(st.v.shape) != (self.m_max, self.n):
-            raise ValueError(
-                f"checkpoint stacks are {tuple(st.v.shape)} but this solver "
-                f"is configured (m_max={self.m_max}, n={self.n}) — resume "
-                "with the same capacity and dimension")
+        st, meta = self._load(checkpoint_path, NonSymDeviceState)
         if st.C.shape[0] != self.nroots:
             raise ValueError(
                 f"checkpoint tracks {st.C.shape[0]} roots, solver wants {self.nroots}")
@@ -1143,9 +1186,7 @@ class FusedNonSymDavidson(_NonSymBase):
             self.history.append((it_host, float(errors.max())))
             chunks_done += 1
             if checkpoint_path is not None and chunks_done % max(1, checkpoint_every) == 0:
-                from ..utils.checkpoint import save_fused_state
-
-                save_fused_state(
+                self._save(
                     NonSymDeviceState(v, w, mask, k, h, C, best_err, bx, bG, bR, it_host),
                     checkpoint_path, iterations=it_host, matvecs=self.matvecs,
                     tol=float(self.tol), nroots=self.nroots, n_p=self.n_p,
@@ -1191,26 +1232,26 @@ class FusedNonSymDavidson(_NonSymBase):
         errors = errors_rot
         coeff_full = np.zeros((r, r))
         coeff_full[:r_eff] = coeff
-        x_out = _rotate_x(bx, self._put_block(coeff_full))
+        x_out = _rotate_x(bx, self._put_small(coeff_full))
         check_finite(errors, "FusedNonSymDavidson")
-        return evals[:r_eff], x_out[:r_eff], errors, self.iterations
+        return evals[:r_eff], self._global(x_out[:r_eff]), errors, self.iterations
 
 
 # ---------------------------------------------------------------------------
 # linear equations
 
 
-def _lineq_denominator(diag):
+def _lineq_denominator(diag, sh=None):
     d = diag if diag.ndim == 2 else diag[None, :]
-    return d + 1e-15 * torch.max(torch.abs(d)) + 1e-300
+    return d + 1e-15 * _absmax(d, sh) + 1e-300
 
 
-def _make_lineq_iterate(matvec, nrhs, m_max, null_thresh, refine_passes):
+def _make_lineq_iterate(matvec, nrhs, m_max, null_thresh, refine_passes, sh=None):
     """One Petrov-Galerkin Davidson iteration of the linear device tier
     (fused_nonsym.py:1336-1382): projected LU solve with ``refine_passes``
     rounds of iterative refinement, solution block, relative residuals,
     best snapshot, preconditioned append, incremental H and beta."""
-    append = _make_append(matvec, nrhs, m_max, null_thresh)
+    append = _make_append(matvec, nrhs, m_max, null_thresh, sh)
 
     def proj_solve(hm, beta):
         lu, piv, _ = torch.linalg.lu_factor_ex(hm)
@@ -1232,23 +1273,23 @@ def _make_lineq_iterate(matvec, nrhs, m_max, null_thresh, refine_passes):
         x = torch.matmul(coeff, vm)
         ax = torch.matmul(coeff, wm)
         rblk = ax - b
-        errs = torch.sqrt(torch.abs(_dots(rblk, rblk))) / b_norm
+        errs = torch.sqrt(torch.abs(_dots(rblk, rblk, sh))) / b_norm
         maxe = torch.max(errs)
         better = maxe < best_err
         best_err = torch.where(better, maxe, best_err)
         bx = torch.where(better, x, bx)
         berrs = torch.where(better, errs, berrs)
-        t = rblk / _lineq_denominator(diag)
+        t = rblk / _lineq_denominator(diag, sh)
         k0 = k
         v, w, mask, k, _t_app, _w_rows = append(v, w, mask, k, t, operand)
-        h, new_v = _incremental_update(h, v, w, mask, k0, nrhs)
-        beta = _put_rows(beta, k0, torch.matmul(new_v, b.T))
+        h, new_v = _incremental_update(h, v, w, mask, k0, nrhs, sh)
+        beta = _put_rows(beta, k0, _gram(new_v, b, sh))
         return v, w, mask, k, h, beta, x, errs, best_err, bx, berrs
 
     return iterate
 
 
-def _make_lineq_collapse(matvec, nrhs, m_max, n_p: int = 0):
+def _make_lineq_collapse(matvec, nrhs, m_max, n_p: int = 0, sh=None):
     """Restart of the linear device tier: collapse onto the solution block,
     re-anchor the action, recompute the RHS projection; frozen P slots
     survive."""
@@ -1256,11 +1297,11 @@ def _make_lineq_collapse(matvec, nrhs, m_max, n_p: int = 0):
     def collapse(x, k: int, operand, b, v, w):
         if n_p:
             rv, rw, rmask, rh, _t = _reset_core_p(matvec, nrhs, m_max, x, operand, v[:n_p],
-                                                  w[:n_p])
-            rbeta = torch.matmul(rv * rmask[:, None], b.T)
+                                                  w[:n_p], sh)
+            rbeta = _gram(rv * rmask[:, None], b, sh)
             return rv, rw, rmask, n_p + nrhs, rh, rbeta
-        rv, rw, rmask, rh = _reset_core(matvec, nrhs, m_max, x, operand)
-        rbeta = torch.matmul(rv * rmask[:, None], b.T)
+        rv, rw, rmask, rh = _reset_core(matvec, nrhs, m_max, x, operand, sh)
+        rbeta = _gram(rv * rmask[:, None], b, sh)
         return rv, rw, rmask, nrhs, rh, rbeta
 
     return collapse
@@ -1268,7 +1309,7 @@ def _make_lineq_collapse(matvec, nrhs, m_max, n_p: int = 0):
 
 def make_nonsym_lineq_device_loop(matvec: Callable, nrhs: int, m_max: int,
                                   null_thresh: float = 1e-10, refine_passes: int = 2,
-                                  n_p: int = 0, p_actions: bool = False):
+                                  n_p: int = 0, p_actions: bool = False, sharding=None):
     """Non-symmetric A X = B, the whole Petrov-Galerkin Davidson loop on the
     device with no host stage (fused_nonsym.py:1408-1499): the projected
     (m, m) solve by LU with iterative refinement, dead slots decoupled by a
@@ -1276,8 +1317,9 @@ def make_nonsym_lineq_device_loop(matvec: Callable, nrhs: int, m_max: int,
     best snapshot carried. One scalar read per iteration. Returns
     ``(run_init, run_cont)``; each returns the loop's state ``(v, w, mask,
     k, h, beta, x, errs, it, best_err, bx, berrs, restarts)``."""
-    iterate = _make_lineq_iterate(matvec, nrhs, m_max, null_thresh, refine_passes)
-    collapse = _make_lineq_collapse(matvec, nrhs, m_max, n_p)
+    sh = sharding
+    iterate = _make_lineq_iterate(matvec, nrhs, m_max, null_thresh, refine_passes, sh)
+    collapse = _make_lineq_collapse(matvec, nrhs, m_max, n_p, sh)
 
     def _loop(v, w, mask, k, h, beta, tol, it0, it_end, best_err, bx, berrs, operand,
               diag, b, b_norm):
@@ -1300,17 +1342,17 @@ def make_nonsym_lineq_device_loop(matvec: Callable, nrhs: int, m_max: int,
                 torch.full((nrhs,), float("inf"), dtype=x0.dtype, device=x0.device))
 
     def run_init(x0, operand, diag, b, b_norm, tol, it_end):
-        v, w, mask, h = _reset_core(matvec, nrhs, m_max, x0, operand)
-        beta = torch.matmul(v * mask[:, None], b.T)
+        v, w, mask, h = _reset_core(matvec, nrhs, m_max, x0, operand, sh)
+        beta = _gram(v * mask[:, None], b, sh)
         return _loop(v, w, mask, nrhs, h, beta, tol, 0, it_end, *_fresh(x0), operand,
                      diag, b, b_norm)
 
     def run_init_p(x0, operand, diag, b, b_norm, tol, it_end, p, wp):
         """P-space init: whiten and freeze P into slots [0, n_p), GS the
         guess block against it."""
-        pv, pw = _whiten_p(p, wp, p_actions, matvec, operand, n_p)
-        v, w, mask, h, _t = _reset_core_p(matvec, nrhs, m_max, x0, operand, pv, pw)
-        beta = torch.matmul(v * mask[:, None], b.T)
+        pv, pw = _whiten_p(p, wp, p_actions, matvec, operand, n_p, sh)
+        v, w, mask, h, _t = _reset_core_p(matvec, nrhs, m_max, x0, operand, pv, pw, sh)
+        beta = _gram(v * mask[:, None], b, sh)
         return _loop(v, w, mask, n_p + nrhs, h, beta, tol, 0, it_end, *_fresh(x0),
                      operand, diag, b, b_norm)
 
@@ -1425,12 +1467,13 @@ def make_batched_nonsym_lineq_solve(matvec: Callable, nrhs: int, m_max: int,
 
 
 def make_nonsym_lineq_chunk(matvec: Callable, nrhs: int, m_max: int,
-                            null_thresh: float = 1e-10, inner: int = 1):
+                            null_thresh: float = 1e-10, inner: int = 1, sharding=None):
     """Linear twin of make_nonsym_chunk (fused_nonsym.py:1593-1629): the
     solution block, residual, preconditioned expansion, GS and whitening,
     append, and the incremental projected matrix and RHS projection; the
     projected solve itself runs on the host in f64."""
-    append = _make_append(matvec, nrhs, m_max, null_thresh)
+    sh = sharding
+    append = _make_append(matvec, nrhs, m_max, null_thresh, sh)
 
     def chunk(v, w, mask, k: int, h, beta, coeff, operand, diag, b, b_norm):
         vm = v * mask[:, None]
@@ -1438,24 +1481,24 @@ def make_nonsym_lineq_chunk(matvec: Callable, nrhs: int, m_max: int,
         x = torch.matmul(coeff, vm)
         ax = torch.matmul(coeff, wm)
         r = ax - b
-        errors = torch.sqrt(torch.abs(_dots(r, r))) / b_norm
-        denom = _lineq_denominator(diag)
+        errors = torch.sqrt(torch.abs(_dots(r, r, sh))) / b_norm
+        denom = _lineq_denominator(diag, sh)
         k0 = k
         v, w, mask, k, t_app, w_rows = append(v, w, mask, k, r / denom, operand)
         for _ in range(inner - 1):
             # Krylov enrichment: precondition the appended block's image
             v, w, mask, k, t_app, w_rows = append(v, w, mask, k, w_rows / denom, operand)
-        h, new_v = _incremental_update(h, v, w, mask, k0, inner * nrhs)
-        beta = _put_rows(beta, k0, torch.matmul(new_v, b.T))
+        h, new_v = _incremental_update(h, v, w, mask, k0, inner * nrhs, sh)
+        beta = _put_rows(beta, k0, _gram(new_v, b, sh))
         return v, w, mask, k, h, beta, x, errors
 
     return chunk
 
 
-def make_nonsym_lineq_reset(matvec: Callable, nrhs: int, m_max: int):
+def make_nonsym_lineq_reset(matvec: Callable, nrhs: int, m_max: int, sharding=None):
     def reset(x, operand, b):
-        v, w, mask, h = _reset_core(matvec, nrhs, m_max, x, operand)
-        return v, w, mask, nrhs, h, torch.matmul(v * mask[:, None], b.T)
+        v, w, mask, h = _reset_core(matvec, nrhs, m_max, x, operand, sharding)
+        return v, w, mask, nrhs, h, _gram(v * mask[:, None], b, sharding)
 
     return reset
 
@@ -1501,7 +1544,7 @@ class FusedNonSymLinearEquations(_NonSymBase):
                     chunk_iters, p_space, p_actions, device, max(4 * nrhs, min(n, 24)))
         self.refine_passes = max(0, int(refine_passes))
         self._device_loop = None
-        self._reset = make_nonsym_lineq_reset(matvec, nrhs, self.m_max)
+        self._reset = make_nonsym_lineq_reset(matvec, nrhs, self.m_max, self.sharding)
 
     @classmethod
     def from_dense(cls, matrix, nrhs: int, tier: str = "precise", device=None, **kwargs):
@@ -1517,7 +1560,8 @@ class FusedNonSymLinearEquations(_NonSymBase):
         fn = self._chunks.get(inner)
         if fn is None:
             fn = make_nonsym_lineq_chunk(self.matvec, self.nrhs, self.m_max,
-                                         self._null_thresh, inner=inner)
+                                         self._null_thresh, inner=inner,
+                                         sharding=self.sharding)
             self._chunks[inner] = fn
         return fn
 
@@ -1530,7 +1574,7 @@ class FusedNonSymLinearEquations(_NonSymBase):
         :meth:`resume` (pass the SAME ``b``)."""
         b_host, b_dev, b_norm = self._prep_b(b)
         if x0 is None:
-            d = _host_arrays(self.diag)[0]
+            d = _host_array(self._global(self.diag))
             # diag may be (N,) shared or (nrhs, N) per RHS
             d2 = d if d.ndim == 2 else d[None, :]
             x0 = b_host / np.where(np.abs(d2) > 1e-12, d2, 1.0)
@@ -1574,7 +1618,7 @@ class FusedNonSymLinearEquations(_NonSymBase):
             room = (self.m_max - k) // nrhs
             inner_now = max(1, min(self.inner, room - 1 if room > 1 else 1))
             v, w, mask, k, h, beta, x, errs_dev = self._chunk_fn(inner_now)(
-                v, w, mask, k, h, beta, self._put_block(coeff), self.operand, self.diag,
+                v, w, mask, k, h, beta, self._put_small(coeff), self.operand, self.diag,
                 b_dev, b_norm)
             self.iterations += inner_now
             self.matvecs += inner_now * nrhs
@@ -1588,21 +1632,21 @@ class FusedNonSymLinearEquations(_NonSymBase):
         if best is not None and best[0] < errors.max():
             _, x_out, errors = best
         check_finite(errors, "FusedNonSymLinearEquations")
-        return x_out, errors, self.iterations
+        return self._global(x_out), errors, self.iterations
 
     def _loops(self):
         if self._device_loop is None:
             self._device_loop = make_nonsym_lineq_device_loop(
                 self.matvec, self.nrhs, self.m_max, self._null_thresh, self.refine_passes,
-                n_p=self.n_p, p_actions=self.p_action_rows is not None)
+                n_p=self.n_p, p_actions=self.p_action_rows is not None,
+                sharding=self.sharding)
         return self._device_loop
 
     def _prep_b(self, b):
         b_host = np.atleast_2d(_host_array(b))
         b_dev = self._put_block(b_host)
         b_norm_host = np.linalg.norm(b_host, axis=1)
-        b_norm = torch.as_tensor(np.where(b_norm_host > 0, b_norm_host, 1.0),
-                                 dtype=self.dtype, device=self.device)
+        b_norm = self._put_small(np.where(b_norm_host > 0, b_norm_host, 1.0))
         # fingerprint for resume: another b would mix old beta projections
         # with new ones (a stall or a wrong answer, not an error)
         self._b_fp = [float(x) for x in b_norm_host] + [
@@ -1615,16 +1659,8 @@ class FusedNonSymLinearEquations(_NonSymBase):
         checkpoints included); ``b`` must be the RHS block the original
         solve used. Keeps writing checkpoints to the same path by default;
         restores the matvec count."""
-        from ..utils.checkpoint import load_named_state
-
         _b_host, b_dev, b_norm = self._prep_b(b)
-        st, meta = load_named_state(checkpoint_path, LineqDeviceState, dtype=self.dtype,
-                                    device=self.device)
-        if tuple(st.v.shape) != (self.m_max, self.n):
-            raise ValueError(
-                f"checkpoint stacks are {tuple(st.v.shape)} but this solver "
-                f"is configured (m_max={self.m_max}, n={self.n}) — resume "
-                "with the same capacity and dimension")
+        st, meta = self._load(checkpoint_path, LineqDeviceState)
         if st.bx.shape[0] != self.nrhs:
             raise ValueError(
                 f"checkpoint tracks {st.bx.shape[0]} RHS, solver wants {self.nrhs}")
@@ -1691,9 +1727,7 @@ class FusedNonSymLinearEquations(_NonSymBase):
             self.matvecs += n_iters * nrhs + restarts * nrhs
             chunks_done += 1
             if checkpoint_path is not None and chunks_done % max(1, checkpoint_every) == 0:
-                from ..utils.checkpoint import save_fused_state
-
-                save_fused_state(
+                self._save(
                     LineqDeviceState(v, w, mask, k, h, beta, best_err, bx, berrs, it_host),
                     checkpoint_path, iterations=it_host, matvecs=self.matvecs,
                     tol=float(self.tol), nrhs=self.nrhs, n_p=self.n_p,
@@ -1710,4 +1744,4 @@ class FusedNonSymLinearEquations(_NonSymBase):
             state = run_cont(v, w, mask, k, h, beta, self.operand, self.diag, b_dev, b_norm,
                              self.tol, it_host, it_end, best_err, bx, berrs)
         check_finite(berrs_h, "FusedNonSymLinearEquations")
-        return bx, berrs_h, self.iterations
+        return self._global(bx), berrs_h, self.iterations

@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from ..array import vector_ops as vops
+from ..parallel.collectives import psum
 from ..subspace.solvers import SubspaceSolverLinEig, SubspaceSolverRSPT
 from .core import IterativeSolverTemplate
 from .propose_rspace import DSpaceResetter, propose_rspace
@@ -26,7 +27,6 @@ class LinearEigensystemDavidson(IterativeSolverTemplate):
 
     nonlinear = False
     linear_eigensystem = True
-    shardable = True
 
     def __init__(self, n: int, nroots: int = 1, **kwargs):
         hermitian = kwargs.pop("hermitian", False)
@@ -149,7 +149,7 @@ class LinearEigensystemRSPT(IterativeSolverTemplate):
         if n == 1:
             self.rspt_values = [0.0]
         psi_last = self.xspace.store_v.get(q_slots[n - 1])
-        self.rspt_values.append(float(torch.dot(psi_last, hc)))
+        self.rspt_values.append(float(psum(torch.dot(psi_last, hc), self.sharding)))
         hc = hc - self.rspt_values[0] * c
         for k in range(n):
             qk = self.xspace.store_v.get(q_slots[n - k - 1])

@@ -24,7 +24,6 @@ Tensor = torch.Tensor
 class LinearEquationsDavidson(IterativeSolverTemplate):
     nonlinear = False
     linear_eigensystem = False
-    shardable = True
 
     def __init__(self, n: int, nroots: int = 1, **kwargs):
         hermitian = kwargs.pop("hermitian", True)

@@ -14,6 +14,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..parallel.collectives import psum
 from ..subspace.solvers import SubspaceSolverDIIS
 from .core import IterativeSolverTemplate, _rows
 from .optimize import _with_row
@@ -54,7 +55,8 @@ class NonLinearEquationsDIIS(IterativeSolverTemplate):
     def add_vector(self, parameters: Tensor, actions: Tensor, value: Optional[float] = None):
         parameters = _rows(parameters)
         actions = _rows(actions)
-        error = float(torch.sqrt(torch.abs(torch.dot(actions[0], actions[0]))))
+        error = float(torch.sqrt(torch.abs(psum(torch.dot(actions[0], actions[0]),
+                                                  self.sharding))))
         self.subspace_solver.converged = error < self.convergence_threshold
 
         while True:

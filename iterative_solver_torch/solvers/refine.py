@@ -24,6 +24,16 @@ device operator's representation error. The correction equation follows
 Jacobi-Davidson (Sleijpen & van der Vorst 1996); the deflation weight c
 keeps the wrapped operator SPD instead of restricting CG to the
 complement.
+
+``sharding=`` (parallel/mesh.py, e.g. ``block_sharding(mesh)``) runs the
+correction solves one process per shard of the vector axis: the device
+matvec maps the rank's slice of x to its slice of y (``ShardedSymmetric``,
+whose precise tier runs K3 on the rank's pairs), the CG's diagonal and the
+deflated block are the rank's slices, and both projections onto the
+locked block are all-reduced. The f64 Rayleigh-Ritz stays global: every
+rank runs it on the host on the same whole X, as the JAX package runs it
+on ``np.asarray`` of the global array, so every rank returns the same
+bits.
 """
 
 from __future__ import annotations
@@ -34,7 +44,8 @@ import numpy as np
 import torch
 
 from .. import config
-from .fused_davidson import _SHARDING
+from ..parallel.collectives import psum
+from ..parallel.mesh import check_sharding
 
 Tensor = torch.Tensor
 
@@ -53,18 +64,20 @@ def _orthonormalize_rows(x: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(q.T)
 
 
-def make_deflated_matvec(matvec: Callable[..., Tensor], cw: float):
+def make_deflated_matvec(matvec: Callable[..., Tensor], cw: float, sharding=None):
     """Wrap a device matvec into the SPD correction operator.
 
     operand = (inner_operand, x_defl (r, N) orthonormal, lam (r,)). Row i
-    of the output applies P(A - lam_i)P + cw (I - P) to row i of v."""
+    of the output applies P(A - lam_i)P + cw (I - P) to row i of v.
+    ``sharding``: v and x_defl are this rank's slices and both projections
+    are all-reduced."""
 
     def wrapped(v, packed):
         op, xd, lam = packed
-        coef = torch.matmul(v, xd.T)
+        coef = psum(torch.matmul(v, xd.T), sharding)
         pv = v - torch.matmul(coef, xd)
         av = matvec(pv, op)
-        acoef = torch.matmul(av, xd.T)
+        acoef = psum(torch.matmul(av, xd.T), sharding)
         apv = av - torch.matmul(acoef, xd)
         return apv - lam[:, None] * pv + cw * torch.matmul(coef, xd)
 
@@ -93,7 +106,11 @@ class EigenpairRefiner:
     deflation_weight:
         the c in M = P(A-lam)P + c(I-P); default max(1, max|diag|).
     device:
-        where the correction solves run (``None``: the CUDA device).
+        where the correction solves run (``None``: the CUDA device; the
+        mesh's under ``sharding``).
+    sharding:
+        the correction solves' vector axis over a mesh (the module note);
+        ``matvec`` then maps a rank's slice to its slice.
 
     ``cg_iterations`` lists the iteration count of each correction solve,
     across every ``refine`` call, in order.
@@ -116,9 +133,9 @@ class EigenpairRefiner:
     ):
         from .fused_cg import FusedBlockCG
 
-        if sharding is not None:
-            raise NotImplementedError(_SHARDING)
-        self.device = config.resolve_device(device)
+        self.sharding = check_sharding(sharding)
+        self.device = (self.sharding.mesh.device if self.sharding is not None
+                       else config.resolve_device(device))
         if dtype is None:
             dtype = config.default_dtype(self.device)
         self.action_f64 = action_f64
@@ -129,7 +146,7 @@ class EigenpairRefiner:
         self.diag = np.asarray(diagonals, dtype=np.float64)
         cw0 = deflation_weight if deflation_weight is not None else max(
             1.0, float(np.max(np.abs(self.diag))))
-        self._wrapped = make_deflated_matvec(matvec, cw0)
+        self._wrapped = make_deflated_matvec(matvec, cw0, self.sharding)
         # one CG for every pass: its operand and diagonal are replaced per
         # pass
         self._cg = FusedBlockCG(
@@ -138,6 +155,7 @@ class EigenpairRefiner:
             n,
             nrhs=nroots,
             dtype=dtype,
+            sharding=self.sharding,
             convergence_threshold=inner_tol,
             max_iter=cg_max_iter,
             operand=None,
@@ -190,8 +208,8 @@ class EigenpairRefiner:
             # CG preconditioner must stay SPD where d crosses lambda
             scale = float(np.max(np.abs(self.diag))) + 1e-300
             dshift = np.maximum(np.abs(self.diag[None, :] - lam[:, None]), 1e-3 * scale)
-            self._cg.diag = self._tensor(dshift)
-            self._cg.operand = (self._operand, self._tensor(x), self._tensor(lam))
+            self._cg.diag = self._cg._tensor(dshift)
+            self._cg.operand = (self._operand, self._cg._tensor(x), self._tensor(lam))
             delta, _, cg_iters = self._cg.solve(-rp)
             self.cg_iterations.append(cg_iters)
             x = _orthonormalize_rows(x + delta.detach().cpu().numpy().astype(np.float64))

@@ -155,5 +155,7 @@ def test_defaults_match_jax():
     assert port.dtype == torch.float64
     with pytest.raises(ValueError, match="deflate"):
         BandedEigensolver(torch_matvec, np.diag(m), 40, deflate="disk", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6"):
+    # sharding= is ported (tests/test_torch_sharded_families.py) and takes a
+    # parallel.mesh.Sharding
+    with pytest.raises(TypeError, match="Sharding"):
         BandedEigensolver(torch_matvec, np.diag(m), 40, sharding=object(), device="cpu")

@@ -6,7 +6,8 @@ Tolerances: the spectral bounds within 1e-10 of JAX's (the same Lanczos
 start vector from ``default_rng(seed)``; sums in another order); the
 filtered block within 1e-10 of JAX's relative to its size; equal iteration
 and matvec counts, eigenvalues within 1e-10 of JAX's and 1e-8 of eigvalsh.
-The JAX file's sharded-mesh case waits for ROADMAP.md Queue 1, item 6c.
+The JAX file's sharded-mesh case is held in
+tests/test_torch_sharded_families.py.
 """
 
 import jax

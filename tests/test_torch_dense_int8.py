@@ -121,7 +121,9 @@ def test_refusals():
         _check_acc_headroom(100000, 100000, 2, "DenseInt8Split")
     with pytest.raises(ValueError, match="square"):
         TD.DenseInt8.from_dense(np.ones((4, 5)), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6"):
+    # shard() is ported (tests/test_torch_sharded_families.py) and takes a
+    # parallel.mesh.Mesh
+    with pytest.raises(TypeError, match="Mesh"):
         TD.DenseInt8Split.from_dense(np.eye(8), device="cpu").shard(None)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):

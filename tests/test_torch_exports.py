@@ -14,7 +14,7 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 SUBPACKAGES = ("solvers", "array", "subspace", "native", "ops", "ops.kernels", "models",
-               "utils", "parallel")
+               "utils", "parallel", "bindings")
 # JAX name -> the port's name for it (None: waits for its ROADMAP item)
 NOT_EXPORTED = {
     "ops.kernels": {"bsr_matmat_pallas": "bsr_matmat_kernel",
@@ -78,6 +78,8 @@ def test_importing_the_subpackages_builds_nothing_and_needs_no_card():
         "import iterative_solver_torch.solvers, iterative_solver_torch.array\n"
         "import iterative_solver_torch.subspace, iterative_solver_torch.native\n"
         "import iterative_solver_torch.parallel\n"
+        "import iterative_solver_torch.bindings.build_embedded\n"
+        "assert 'cffi' not in sys.modules\n"
         "import iterative_solver_torch.ops.kernels\n"
         "from iterative_solver_torch.ops.kernels import _build\n"
         "from iterative_solver_torch.native import vecstore\n"

@@ -149,7 +149,9 @@ def test_nan_residual_raises():
 def test_rejects_tiny_history_and_sharding():
     with pytest.raises(ValueError, match=">= 2"):
         TDIIS(_trig_t, 4, max_size_qspace=1, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6"):
+    # sharding= is ported (tests/test_torch_sharded_families.py) and takes a
+    # parallel.mesh.Sharding
+    with pytest.raises(TypeError, match="Sharding"):
         TDIIS(_trig_t, 4, sharding=object(), device="cpu")
 
 

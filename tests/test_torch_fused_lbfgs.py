@@ -158,5 +158,7 @@ def test_gradient_through_differentiable_packed_action():
 
 
 def test_sharding_refused():
-    with pytest.raises(NotImplementedError, match="item 6"):
+    # sharding= is ported (tests/test_torch_sharded_families.py) and takes a
+    # parallel.mesh.Sharding
+    with pytest.raises(TypeError, match="Sharding"):
         TLBFGS(_rosen_vg_t, 4, sharding=object(), device="cpu")

@@ -396,7 +396,9 @@ def test_too_few_live_directions_raises():
 
 
 def test_sharding_and_card_default_raise():
-    with pytest.raises(NotImplementedError, match="item 6"):
+    # sharding= is ported (tests/test_torch_sharded_families.py) and takes a
+    # parallel.mesh.Sharding
+    with pytest.raises(TypeError, match="Sharding"):
         T.FusedNonSymDavidson(tmv, np.ones(8), 8, 2, sharding=object(), device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -43,7 +43,8 @@ def test_port_files_found():
             "calibrate_nonsym_cpu.py", "offload_store.py", "banded.py", "chebyshev.py",
             "calibrate_spill_cpu.py", "distribution.py", "distr_array.py", "mesh.py",
             "collectives.py", "sharded_symm.py", "sharded_bsr.py",
-            "calibrate_sharded_cpu.py", "torch_shard_worker.py"} <= names
+            "calibrate_sharded_cpu.py", "torch_shard_worker.py", "c_api.py",
+            "build_embedded.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -116,6 +117,9 @@ import iterative_solver_torch.parallel.mesh
 import iterative_solver_torch.parallel.collectives
 import iterative_solver_torch.parallel.sharded_symm
 import iterative_solver_torch.parallel.sharded_bsr
+import iterative_solver_torch.bindings
+import iterative_solver_torch.bindings.c_api
+import iterative_solver_torch.bindings.build_embedded
 import chip_smoke
 import calibrate_sharded_cpu
 sys.path.insert(0, "tests")

@@ -213,18 +213,18 @@ def test_unknown_method_raises_as_jax():
 
 def test_unported_entry_points_name_their_item():
     # linear equations (ROADMAP item 3) and the nonlinear families (item 4)
-    # are ported; the Davidson families' sharding is too (item 6b, held
-    # against JAX in tests/test_torch_sharded_solvers.py) and takes a
-    # parallel.mesh.Sharding; the nonlinear families' waits for item 6c
+    # are ported; every family's sharding is too (items 6b and 6c, held
+    # against JAX in tests/test_torch_sharded_solvers.py and
+    # _sharded_families.py) and takes a parallel.mesh.Sharding
     with pytest.raises(TypeError, match="Sharding"):
         T.create_linear_equations(8, 1, sharding=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match=r"item 6c\)"):
+    with pytest.raises(TypeError, match="Sharding"):
         T.create_optimize(8, "BFGS", sharding=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match=r"item 6c\)"):
+    with pytest.raises(TypeError, match="Sharding"):
         T.create_nonlinear_equations(8, sharding=object(), device="cpu")
     with pytest.raises(TypeError, match="Sharding"):
         T.create_linear_eigensystem(8, 1, sharding=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match=r"item 6c\)"):
+    with pytest.raises(TypeError, match="Sharding"):
         T.create_linear_eigensystem(8, 1, "RSPT", sharding=object(), device="cpu")
     # the offload store (item 6a) is ported: offload=True now builds it
     from iterative_solver_torch.array.offload_store import OffloadBasisStore

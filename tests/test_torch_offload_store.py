@@ -68,8 +68,9 @@ def test_interface_matches_device_store_and_jax():
 def test_store_defaults_and_refusals():
     store = OffloadBasisStore(4, 8, device=CPU)
     assert store.dtype == torch.float64 and store.device.type == "cpu"
-    # the offload stores' sharding waits for ROADMAP item 6c
-    with pytest.raises(NotImplementedError, match="item 6c"):
+    # the offload stores' sharding is ported (tests/test_torch_sharded_families.py)
+    # and takes a parallel.mesh.Sharding
+    with pytest.raises(TypeError, match="Sharding"):
         OffloadBasisStore(4, 8, sharding=object(), device=CPU)
     store.close()
 

@@ -708,6 +708,489 @@ def parity_lineq(mesh):
             "errors": np.asarray(solver.errors), "stats": _stats(solver)}
 
 
+# -- the remaining families under sharding (tests/test_torch_sharded_families.py)
+
+def spd_hessian(n, seed=0):
+    """test_fused_families.py's make_spd."""
+    rng = np.random.default_rng(seed)
+    a = rng.standard_normal((n, n)) * 0.1
+    return a + a.T + np.diag(np.linspace(3.0, 30.0, n))
+
+
+def quad_operand(n, seed=1):
+    """test_fused_diis.py's _quad_operand (eps 0.05)."""
+    rng = np.random.default_rng(seed)
+    a = rng.standard_normal((n, n)) * 0.1
+    mat = a + a.T + np.diag(np.arange(2.0, n + 2.0))
+    return mat, rng.standard_normal(n)
+
+
+def nonsym_op(n, strength=0.15, seed=0):
+    """test_dense_int8.py's make_op."""
+    rng = np.random.default_rng(seed)
+    a = rng.standard_normal((n, n)) * (0.05 / np.sqrt(n))
+    m = a + a.T + np.diag(np.linspace(1.0, 20.0, n))
+    m[np.tril_indices(n, -1)] *= 1.0 - strength
+    return m
+
+
+def banded_matrix(n, nlow=16, seed=0):
+    """test_banded.py's make_matrix."""
+    rng = np.random.default_rng(seed)
+    a = rng.standard_normal((n, n)) * (0.02 / np.sqrt(n))
+    d = np.concatenate([np.linspace(-3.0, 0.0, nlow), np.linspace(2.0, 20.0, n - nlow)])
+    return a + a.T + np.diag(d)
+
+
+def optimize_hessian(n, rho=0.1):
+    """test_optimize.py's make_hessian."""
+    i = np.arange(n)[:, None]
+    j = np.arange(n)[None, :]
+    return np.where(i == j, i + 1.0, rho * (1.0 / (1.0 + abs(i - j))))
+
+
+def rspt_matrix(n, lam=0.05):
+    rng = np.random.default_rng(0)
+    v = rng.standard_normal((n, n)) * 0.2
+    return np.diag(np.arange(1.0, n + 1.0)) + lam * (v + v.T)
+
+
+def refine_start(mat, nroots, seed=2, noise=1e-4):
+    """The lowest eigenvectors of ``mat``, perturbed: a device-converged
+    start for the refiner."""
+    _, vecs = np.linalg.eigh(mat)
+    rng = np.random.default_rng(seed)
+    return vecs[:, :nroots].T + noise * rng.standard_normal((nroots, mat.shape[0]))
+
+
+def _cpu_matvec(x, op):
+    return x @ op.T
+
+
+@case
+def family_lbfgs(mesh):
+    """FusedLBFGS on 0.5 (x-b)ᵀH(x-b): sharded (the GLOBAL f, the rank's
+    slice of g) and unsharded on the rank."""
+    import torch
+
+    from iterative_solver_torch.parallel import block_sharding, matrix_row_sharding
+    from iterative_solver_torch.parallel.collectives import psum
+    from iterative_solver_torch.solvers.fused_lbfgs import FusedLBFGS
+
+    n = 64
+    hess = spd_hessian(n, seed=4)
+    b = np.linspace(0.5, 1.5, n)
+    sh = block_sharding(mesh)
+    b_loc = sh.shard(b)
+
+    def vg_sharded(x, rows):
+        d = x - b_loc
+        g = rows @ sh.gather(d, n)
+        return 0.5 * psum(torch.dot(d, g), sh), g
+
+    def vg_single(x, h):
+        d = x - torch.as_tensor(b)
+        g = h @ d
+        return 0.5 * torch.dot(d, g), g
+
+    out = {}
+    for tag, solver in (
+            ("sharded", FusedLBFGS(vg_sharded, n, operand=matrix_row_sharding(mesh).shard(hess),
+                                   sharding=sh, convergence_threshold=1e-6)),
+            ("single", FusedLBFGS(vg_single, n, operand=torch.as_tensor(hess),
+                                  convergence_threshold=1e-6, device="cpu"))):
+        x, f, gnorm, iters = solver.run(np.zeros(n))
+        out.update({f"{tag}_x": x.numpy(), f"{tag}_f": np.array([f]),
+                    f"{tag}_gnorm": np.array([gnorm]), f"{tag}_iters": np.array([iters])})
+    return out
+
+
+@case
+def family_diis(mesh):
+    """test_fused_diis.py::test_sharded_matches_single_device with the
+    rank's rows of the matrix."""
+    import torch
+
+    from iterative_solver_torch.parallel import block_sharding, matrix_row_sharding
+    from iterative_solver_torch.solvers.fused_diis import FusedDIIS
+
+    n = 256
+    mat, b = quad_operand(n, seed=11)
+    sh = block_sharding(mesh)
+
+    def residual_sharded(x, op):
+        rows, b_loc = op
+        return rows @ sh.gather(x, n) + 0.05 * x**2 - b_loc
+
+    def residual_single(x, op):
+        m, bb = op
+        return m @ x + 0.05 * x**2 - bb
+
+    out = {}
+    for tag, solver in (
+            ("sharded", FusedDIIS(residual_sharded, n, diagonals=np.diag(mat), sharding=sh,
+                                  operand=(matrix_row_sharding(mesh).shard(mat), sh.shard(b)),
+                                  convergence_threshold=1e-10)),
+            ("single", FusedDIIS(residual_single, n, diagonals=np.diag(mat), device="cpu",
+                                 operand=(torch.as_tensor(mat), torch.as_tensor(b)),
+                                 convergence_threshold=1e-10))):
+        x, err, iters = solver.run(np.zeros(n))
+        out.update({f"{tag}_x": x.numpy(), f"{tag}_err": np.array([err]),
+                    f"{tag}_iters": np.array([iters])})
+    return out
+
+
+@case
+def family_refine(mesh):
+    """EigenpairRefiner over a sharded SplitOperator (precise_matvec_fn:
+    x gathered once, the rank's rows)."""
+    from iterative_solver_torch.ops.precise import (
+        SplitOperator,
+        precise_matmat,
+        precise_matvec_fn,
+    )
+    from iterative_solver_torch.parallel import block_sharding
+    from iterative_solver_torch.solvers.refine import EigenpairRefiner
+
+    n, nroots = 128, 3
+    mat = davidson_matrix(n, seed=8)
+    op = SplitOperator.from_dense(mat, n_chunks=8, sharding=block_sharding(mesh))
+    ref = EigenpairRefiner(lambda x: x @ mat.T, precise_matvec_fn(op), op.operand(),
+                           np.diag(mat), n, nroots, sharding=block_sharding(mesh))
+    res = ref.refine(refine_start(mat, nroots), tol=1e-11)
+    xs = np.random.default_rng(3).standard_normal((2, n))
+    y = block_sharding(mesh).gather(precise_matmat(block_sharding(mesh).shard(xs), op), n)
+    return {"evals": res.eigenvalues, "resn": res.residual_norms,
+            "passes": np.array([res.passes]), "converged": np.array([res.converged]),
+            "history": np.array(res.history), "cg": np.array(ref.cg_iterations),
+            "x": res.x, "hi_rows": np.array(op.hi.shape), "y": y.numpy()}
+
+
+def _nonsym_result(tag, evals, x, errors, iters):
+    return {f"{tag}_evals_re": np.real(evals), f"{tag}_evals_im": np.imag(evals),
+            f"{tag}_x": x.double().numpy(), f"{tag}_errors": np.asarray(errors),
+            f"{tag}_iters": np.array([iters])}
+
+
+@case
+def family_nonsym_int8(mesh):
+    """test_dense_int8.py::test_sharded_int8_device_rr_solve: the two-plane
+    tier row-sharded by DenseInt8Split.shard, the device-RR solve in
+    float32, against the unsharded tree on the rank; the sharded action
+    against the unsharded one, bit for bit."""
+    import torch
+
+    from iterative_solver_torch.ops.kernels.dense_int8 import (
+        DenseInt8,
+        DenseInt8Split,
+        dense_int8_matvec,
+        dense_int8_matvec_split,
+        sharded_matvec,
+        sharded_matvec_split,
+    )
+    from iterative_solver_torch.parallel import block_sharding
+    from iterative_solver_torch.solvers.fused_nonsym import FusedNonSymDavidson
+
+    m = nonsym_op(512, seed=9)
+    n, r = m.shape[0], 3
+    sh = block_sharding(mesh)
+    v0 = unit_guess(np.diag(m), r)
+    op = DenseInt8Split.from_dense(m, device="cpu")
+    out = {}
+    for tag, mv, operand, kw in (
+            ("sharded", sharded_matvec_split(mesh), op.shard(mesh), dict(sharding=sh)),
+            ("single", dense_int8_matvec_split, op.tree(), dict(device="cpu"))):
+        sol = FusedNonSymDavidson(mv, np.diag(m), n, r, m_max=12, operand=operand,
+                                  convergence_threshold=5e-5, max_iter=100, rr="device",
+                                  dtype=torch.float32, **kw)
+        out.update(_nonsym_result(tag, *sol.solve(v0)))
+    x = np.random.default_rng(4).standard_normal((3, n)).astype(np.float32)
+    one = DenseInt8.from_dense(m, device="cpu")
+    for tag, q, single, sharded in (("one", one, dense_int8_matvec, sharded_matvec),
+                                    ("two", op, dense_int8_matvec_split, sharded_matvec_split)):
+        out[f"{tag}_y"] = sh.gather(sharded(mesh)(sh.shard(x), q.shard(mesh)), n).numpy()
+        out[f"{tag}_y_single"] = single(torch.as_tensor(x), q.tree()).numpy()
+    return out
+
+
+@case
+def family_nonsym(mesh):
+    """FusedNonSymDavidson (host and device RR) and FusedNonSymLinearEquations
+    (host and device) in float64 on a row-sharded dense operator, and a
+    sharded device-tier checkpoint resumed by a sharded solver."""
+    import os as _os
+
+    from iterative_solver_torch.parallel import block_sharding, matrix_row_sharding
+    from iterative_solver_torch.parallel.collectives import row_sharded_matvec
+    from iterative_solver_torch.solvers.fused_nonsym import (
+        FusedNonSymDavidson,
+        FusedNonSymLinearEquations,
+    )
+
+    m = nonsym_op(128, seed=3)
+    n, r = m.shape[0], 3
+    sh = block_sharding(mesh)
+    rows = matrix_row_sharding(mesh).shard(m)
+    mv = row_sharded_matvec(mesh)
+    v0 = unit_guess(np.diag(m), r)
+    b = np.random.default_rng(5).standard_normal((2, n))
+    out = {}
+    for rr in ("host", "device"):
+        sol = FusedNonSymDavidson(mv, np.diag(m), n, r, m_max=16, operand=rows, sharding=sh,
+                                  convergence_threshold=1e-9, rr=rr)
+        out.update(_nonsym_result(f"eig_{rr}", *sol.solve(v0)))
+        lin = FusedNonSymLinearEquations(mv, np.diag(m), n, 2, m_max=12, operand=rows,
+                                         sharding=sh, convergence_threshold=1e-9, rr=rr)
+        x, errors, iters = lin.solve(b)
+        out.update({f"lin_{rr}_x": x.numpy(), f"lin_{rr}_errors": np.asarray(errors),
+                    f"lin_{rr}_iters": np.array([iters])})
+    path = _os.path.join(_os.environ["SHARD_OUT"], "nonsym_ck.npz")
+    first = FusedNonSymDavidson(mv, np.diag(m), n, r, m_max=16, operand=rows, sharding=sh,
+                                convergence_threshold=1e-9, rr="device", chunk_iters=3,
+                                max_iter=3)
+    first.solve(v0, checkpoint_path=path)
+    resumed = FusedNonSymDavidson(mv, np.diag(m), n, r, m_max=16, operand=rows, sharding=sh,
+                                  convergence_threshold=1e-9, rr="device", chunk_iters=3)
+    out.update(_nonsym_result("resumed", *resumed.resume(path, keep_checkpointing=False)))
+    return out
+
+
+def _slice_problem(its, sh, n, value_grad, diag):
+    """A parity Problem written per slice: residual takes the rank's slice
+    and returns the GLOBAL value with the rank's slice of the gradient."""
+
+    class SliceProblem(its.Problem):
+        def __init__(self):
+            super().__init__()
+            self.dimension = n
+
+        def residual(self, parameters):
+            return value_grad(parameters)
+
+        def diagonals(self):
+            return diag
+
+    return SliceProblem()
+
+
+def _parity_run(solver, problem, n):
+    import torch
+
+    solver.verbosity = 0
+    conv, x, _ = solver.solve(np.zeros((1, n)), problem=problem)
+    x = x if isinstance(x, torch.Tensor) else torch.as_tensor(x)
+    return conv, x
+
+
+@case
+def family_parity(mesh):
+    """RSPT, OptimizeBFGS, OptimizeSD and NonLinearEquationsDIIS under
+    sharding (tests/test_torch_linear_eigensystem.py::test_rspt,
+    _optimize.py::test_quadratic_matches_jax, _nonlinear_diis.py's
+    quadratic), the problems written per slice."""
+    import torch
+
+    import iterative_solver_torch as its
+    from iterative_solver_torch.parallel import block_sharding, matrix_row_sharding
+    from iterative_solver_torch.parallel.collectives import psum
+
+    sh = block_sharding(mesh)
+    rowsh = matrix_row_sharding(mesh)
+    out = {}
+    # RSPT
+    n = 16
+    h = rspt_matrix(n)
+    rspt = its.create_linear_eigensystem(n, 1, "RSPT", "convergence_threshold=1e-12,max_iter=40",
+                                         sharding=sh)
+    rspt.verbosity = 0
+    conv, _, _ = rspt.solve(np.zeros((1, n)), problem=its.models.MatrixProblem(h, sharding=rowsh),
+                            generate_initial_guess=True)
+    out.update(rspt_conv=np.array([bool(conv)]), rspt_values=np.array(rspt.rspt_values),
+               rspt_stats=_stats(rspt))
+    # the optimisers
+    n = 32
+    for method in ("BFGS", "SD"):
+        hess = optimize_hessian(n, 0.1 if method == "BFGS" else 0.01)
+        b = np.linspace(0.5, 1.5, n)
+        rows, b_loc = rowsh.shard(hess), sh.shard(b)
+
+        def value_grad(x, rows=rows, b_loc=b_loc):
+            d = x - b_loc
+            g = rows @ sh.gather(d, n)
+            return float(0.5 * psum(torch.dot(d, g), sh)), g
+
+        opt = its.create_optimize(n, method, "max_size_qspace=8" if method == "BFGS" else "",
+                                  sharding=sh)
+        opt.convergence_threshold = 1e-10
+        opt.max_iter = 300
+        conv, x = _parity_run(opt, _slice_problem(its, sh, n, value_grad,
+                                                  np.diag(hess).copy()), n)
+        out.update({f"{method}_conv": np.array([bool(conv)]), f"{method}_stats": _stats(opt),
+                    f"{method}_ls": np.array([opt.stats.line_searches,
+                                              opt.stats.line_search_steps]),
+                    f"{method}_x": sh.gather(x, n).numpy(), f"{method}_value": np.array([opt.value])})
+    # DIIS on r = A x + eps x^2 - b
+    rng = np.random.default_rng(1)
+    a = rng.standard_normal((n, n)) * 0.1
+    mat = a + a.T + np.diag(np.arange(2.0, n + 2.0))
+    b = rng.standard_normal(n)
+    rows, b_loc = rowsh.shard(mat), sh.shard(b)
+
+    def residual(x):
+        return 0.0, rows @ sh.gather(x, n) + 0.05 * x**2 - b_loc
+
+    diis = its.create_nonlinear_equations(n, "DIIS", sharding=sh)
+    diis.convergence_threshold = 1e-8
+    conv, x = _parity_run(diis, _slice_problem(its, sh, n, residual, np.diag(mat).copy()), n)
+    out.update(diis_conv=np.array([bool(conv)]), diis_stats=_stats(diis),
+               diis_x=sh.gather(x, n).numpy(), diis_nq=np.array([diis.xspace.dimensions.nQ]))
+    return out
+
+
+@case
+def family_banded(mesh):
+    """BandedEigensolver in both deflation modes on a row-sharded dense
+    matvec, against the unsharded solver on the rank."""
+    import torch
+
+    from iterative_solver_torch.parallel import block_sharding, matrix_row_sharding
+    from iterative_solver_torch.parallel.collectives import row_sharded_matvec
+    from iterative_solver_torch.solvers.banded import BandedEigensolver
+
+    n = 128
+    m = banded_matrix(n, nlow=12, seed=3)
+    sh = block_sharding(mesh)
+    out = {}
+    for mode in ("device", "streamed"):
+        for tag, kw in (("sharded", dict(matvec=row_sharded_matvec(mesh), sharding=sh,
+                                         operand=matrix_row_sharding(mesh).shard(m))),
+                        ("single", dict(matvec=_cpu_matvec, operand=torch.as_tensor(m),
+                                        device="cpu"))):
+            solver = BandedEigensolver(diagonals=np.diag(m), n=n, band=4, m_max=16,
+                                       convergence_threshold=1e-9, deflate=mode,
+                                       store_block_rows=3, **kw)
+            vals, vecs, errs = solver.solve(8)
+            out.update({f"{mode}_{tag}_vals": vals, f"{mode}_{tag}_errs": errs,
+                        f"{mode}_{tag}_vecs": vecs, f"{mode}_{tag}_runs": np.array(solver.runs)})
+    return out
+
+
+@case
+def family_chebyshev(mesh):
+    """test_chebyshev.py::test_chebyshev_sharded_mesh, and the Lanczos
+    bounds sharded against unsharded on the rank."""
+    import torch
+
+    from iterative_solver_torch.parallel import block_sharding, matrix_row_sharding
+    from iterative_solver_torch.parallel.collectives import row_sharded_matvec
+    from iterative_solver_torch.solvers.chebyshev import (
+        estimate_spectral_bounds,
+        make_chebyshev_davidson,
+    )
+
+    n = 128
+    rng = np.random.default_rng(6)
+    a = rng.standard_normal((n, n)) * 0.01
+    m = a + a.T + np.diag(np.linspace(1.0, 10.0, n))
+    sh = block_sharding(mesh)
+    rows = matrix_row_sharding(mesh).shard(m)
+    solver = make_chebyshev_davidson(row_sharded_matvec(mesh), np.diag(m), n, nroots=2,
+                                     degree=3, m_max=14, operand=rows, sharding=sh)
+    out = _davidson_result(solver, unit_guess(np.diag(m), 2))
+    out["bounds"] = np.array(estimate_spectral_bounds(row_sharded_matvec(mesh), n, rows,
+                                                      sharding=sh))
+    out["bounds_single"] = np.array(estimate_spectral_bounds(_cpu_matvec, n, torch.as_tensor(m),
+                                                             device="cpu"))
+    return out
+
+
+@case
+def family_offload(mesh):
+    """The parity Davidson through sharded offload stores (host f64 and
+    streamed, small blocks), and the stores' block numerics against an
+    unsharded store on the rank."""
+    import torch
+
+    import iterative_solver_torch as its
+    from iterative_solver_torch.array.offload_store import OffloadBasisStore, StreamedOffloadStore
+    from iterative_solver_torch.parallel import block_sharding, matrix_row_sharding
+
+    n = 64
+    m = davidson_matrix(n, seed=4)
+    sh = block_sharding(mesh)
+    out = {}
+    for tag, offload in (
+            ("host", True),
+            ("streamed", lambda capacity, nn, dtype, sharding, name="params", device=None:
+             StreamedOffloadStore(capacity, nn, dtype=dtype, sharding=sharding, name=name,
+                                  block_rows=3, device=device))):
+        solver = its.LinearEigensystemDavidson(n, 2, sharding=sh, offload=offload)
+        solver.set_hermiticity(True)
+        solver.verbosity = 0
+        conv, _, _ = solver.solve(np.zeros((2, n)),
+                                  problem=its.models.MatrixProblem(m, sharding=matrix_row_sharding(mesh)),
+                                  generate_initial_guess=True)
+        out.update({f"{tag}_conv": np.array([bool(conv)]),
+                    f"{tag}_evals": np.asarray(solver.eigenvalues()),
+                    f"{tag}_errors": np.asarray(solver.errors), f"{tag}_stats": _stats(solver)})
+    rng = np.random.default_rng(7)
+    rows = np.linalg.qr(rng.standard_normal((n, 5)))[0].T
+    x = rng.standard_normal((2, n))
+    coeff = rng.standard_normal((2, 5))
+    for tag, cls in (("hoststore", OffloadBasisStore), ("streamstore", StreamedOffloadStore)):
+        kw = dict(block_rows=2) if cls is StreamedOffloadStore else {}
+        for where, store in (("sharded", cls(4, n, sharding=sh, **kw)),
+                             ("single", cls(4, n, device="cpu", **kw))):
+            # the sharded store takes and returns the rank's slices
+            local = sh.shard if where == "sharded" else torch.as_tensor
+            part = (lambda t: sh.gather(t, n)) if where == "sharded" else (lambda t: t)
+            slots = [store.append(local(row)) for row in rows]
+            out[f"{tag}_{where}_gram_block"] = store.gram_block(local(x))
+            out[f"{tag}_{where}_mgs"] = part(store.mgs_sweep(local(x), slots,
+                                                             np.ones(5))).numpy()
+            out[f"{tag}_{where}_combine"] = part(store.combine(coeff, slots)).numpy()
+            out[f"{tag}_{where}_rows"] = part(store.rows(slots[:2])).numpy()
+            store.close()
+    return out
+
+
+@case
+def family_vector_ops(mesh):
+    """select_max_dot (uneven chunks included), fused_dot and the parity
+    optimiser's two-loop dots under sharding against the same calls on the
+    whole vectors."""
+    import torch
+
+    from iterative_solver_torch.array import vector_ops as vops
+    from iterative_solver_torch.parallel import block_sharding
+    from iterative_solver_torch.solvers.optimize import _bfgs_backward, _bfgs_forward
+
+    sh = block_sharding(mesh)
+    out = {}
+    for n in (32, 30):
+        rng = np.random.default_rng(n)
+        x, y = rng.standard_normal(n), rng.standard_normal(n)
+        y[3] = x[3] = 2.0   # a tie of two products, at indices 3 and 17
+        x[17], y[17] = 4.0, 1.0
+        idx, vals = vops.select_max_dot(sh.shard(x), sh.shard(y), 5, sharding=sh)
+        out[f"smd{n}_idx"], out[f"smd{n}_vals"] = idx.numpy(), vals.numpy()
+    n = 32
+    rng = np.random.default_rng(9)
+    x, ys = rng.standard_normal(n), rng.standard_normal((4, n))
+    out["fused_dot"] = vops.fused_dot(sh.shard(x), sh.shard(ys), sharding=sh).numpy()
+    out["fused_dot_single"] = vops.fused_dot(torch.as_tensor(x), torch.as_tensor(ys)).numpy()
+    q, u = rng.standard_normal((4, n)), rng.standard_normal((4, n))
+    r = rng.standard_normal(n)
+    denom = torch.as_tensor(rng.uniform(1.0, 2.0, 3))
+    rs, al = _bfgs_forward(sh.shard(r), sh.shard(q), sh.shard(u), denom, sh)
+    r1, al1 = _bfgs_forward(torch.as_tensor(r), torch.as_tensor(q), torch.as_tensor(u), denom)
+    zs = _bfgs_backward(sh.shard(r), sh.shard(q), sh.shard(u), denom, al, sh)
+    z1 = _bfgs_backward(torch.as_tensor(r), torch.as_tensor(q), torch.as_tensor(u), denom, al1)
+    out.update(fwd=sh.gather(rs, n).numpy(), fwd_single=r1.numpy(), alphas=al.numpy(),
+               alphas_single=al1.numpy(), bwd=sh.gather(zs, n).numpy(), bwd_single=z1.numpy())
+    return out
+
+
 def main() -> None:
     rank, world, store, out_dir = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4]
     sys.path.insert(0, ROOT)
