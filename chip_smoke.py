@@ -36,7 +36,10 @@ Phases, one JSON line each:
    partial sums and round the epilogue in the plain version's order, so y
    must be bit-identical; K4's and K5's rows also count their reds per
    call (``flush_atomics``) and the int32 sums they carry (``flush_sums``),
-   and their ``torch._int_mm`` yardstick reads its device ms too.
+   and their ``torch._int_mm`` yardstick (one call per int8 product against
+   the dense int8 plane the tiles imply, column-major as cuBLASLt's int8
+   path takes it, and row-major beside it; each equal to the plain
+   accumulator bit for bit) reads its device ms too.
    Times from CUDA events, kernel and plain timed in turns (plain, kernel,
    kernel, plain);
 4. the headline solve: tier "fast", rr "window", fused chain, tol 2e-4;
@@ -296,6 +299,26 @@ Phases, one JSON line each:
     embedded library (bindings/build_embedded.py, cffi) built and
     examples/c/linear_eigensystem_c.c compiled against
     include/iterative_solver_c.h and run with the device unset (the card).
+
+22. after the phenol solve (15) and before the sharded phases (20), the
+    examples: every twin in examples_torch/ of an examples/*.py script,
+    through its ``main(["--device", "cuda", ...])`` in this process
+    (EXAMPLES: the kernel-bearing twins at n = 8192, packed_symmetric_davidson
+    with tiles of 512 (K1-f32, K3, K2), refine_to_1e8 on the split action
+    (K3 in the solve and the refiner's CG, K2), quantized_screening (K4,
+    K5 and K5 in the refiner's CG, K2), hybrid_precision (K2); the batched
+    scan at 8 x 1024; the rest at their examples' sizes, the distributed
+    twin on its own 2 gloo ranks), each printing one record with its
+    seconds: its own assertions, its iteration counts against the CPU run's
+    at the same arguments (EXAMPLE_CPU_ITERATIONS, from
+    calibrate_examples_cpu.py: equal in float64, within 2 in float32, within
+    5% for ppcg_hard_spectrum's Davidson stalls), and its kernel launches
+    (init + probe + iterations + restarts per fused solve, one K2 per
+    iteration, the CG init and one per CG iteration of each refinement
+    pass, none on the other twins, K7 never); then linear_eigensystem again
+    as ``python3 examples_torch/linear_eigensystem.py`` in a process of its
+    own, and the twin notebook's cells. The kernels line carries each
+    kernel's launches over the twins (``example_launches``).
 
 Each Davidson solve reports iterations, convergence, time per iteration,
 the f64 residual ||A x - rho x|| of each normalised Ritz vector against the
@@ -923,44 +946,61 @@ def chain_case(name, r, q, diag_np, evals_np, device) -> dict:
     }
 
 
-def int_mm_library(xs_planes, q_planes, products, sym, n, device):
-    """(ms, device_ms, note, equal): one ``torch._int_mm`` per int8 product
-    of the action, qx against the dense int8 matrix the tiles imply, in
-    CUDA-event and profiler device ms. ``_int_mm`` takes more than 16 rows,
-    so x is padded to 32. ``equal`` says whether its first product equals
-    the plain version's int32 accumulator."""
+def int_mm_library(xs_planes, q_planes, products, sym, n, device) -> dict:
+    """One ``torch._int_mm`` per int8 product of the action, qx against the
+    dense int8 matrix the tiles imply, in CUDA-event and profiler device ms,
+    with that matrix in two layouts: column-major (``d.t().contiguous().t()``,
+    the same symmetric values in the layout cuBLASLt's int8 path takes for
+    its second operand; the yardstick, ``library_ms``) and row-major (as
+    built, ``library_row_major_ms``). ``_int_mm`` takes more than 16 rows,
+    so x is padded to 32. Each layout's first product must equal the plain
+    version's int32 accumulator bit for bit
+    (``library_equals_plain_accumulator``)."""
     import torch
 
     from iterative_solver_torch.ops.kernels import symm_int8
 
     m = xs_planes[0].shape[0]
     rows = max(32, m)
-    dense = [dense_from_tiles(q, sym.ii, sym.jj, sym.b, n) for q in q_planes]
+    row_major = [dense_from_tiles(q, sym.ii, sym.jj, sym.b, n) for q in q_planes]
+    layouts = {"column_major": [d.t().contiguous().t() for d in row_major],
+               "row_major": row_major}
     padded = []
     for xp in xs_planes:
         pad = torch.zeros((rows, n), dtype=torch.int8, device=device)
         pad[:m] = xp
         padded.append(pad)
-    pairs = [(padded[a], dense[k]) for a, k in products]
-    note = (f"torch._int_mm x{len(pairs)} ({rows} x {n}) @ ({n} x {n}) int8"
+    note = (f"torch._int_mm x{len(products)} ({rows} x {n}) @ ({n} x {n}) int8, the plane "
+            "column-major (row-major beside it)"
             + (f", x padded from {m} to {rows} rows" if rows != m else ""))
-    try:
-        got = torch._int_mm(*pairs[0])[:m]
-        ref = symm_int8._symm_matmat_int8_plain(xs_planes[0], q_planes[0], sym.ii, sym.jj,
-                                                sym.b, n // sym.b)
-        equal = bool(torch.equal(got, ref))
-        lib = lambda: [torch._int_mm(a, d) for a, d in pairs]  # noqa: E731
-        ms = time_ms(lib, device)
-        dev_ms = device_ms(lib, device, "", None)[0]
-    except RuntimeError as err:  # a yardstick only: record the refusal
-        return None, None, f"{note}: refused ({str(err).splitlines()[0]})", None
-    return ms, dev_ms, note, equal
+    ref = symm_int8._symm_matmat_int8_plain(xs_planes[0], q_planes[0], sym.ii, sym.jj,
+                                            sym.b, n // sym.b)
+    rec = {"library_note": note, "library_equals_plain_accumulator": {}}
+    for layout, dense in layouts.items():
+        pairs = [(padded[a], dense[k]) for a, k in products]
+        key = "library" if layout == "column_major" else "library_row_major"
+        try:
+            got = torch._int_mm(*pairs[0])[:m]
+            rec["library_equals_plain_accumulator"][layout] = bool(torch.equal(got, ref))
+            lib = lambda: [torch._int_mm(a, d) for a, d in pairs]  # noqa: E731
+            rec[f"{key}_ms"] = time_ms(lib, device)
+            rec[f"{key}_device_ms"] = device_ms(lib, device, "", None)[0]
+        except RuntimeError as err:  # a yardstick only: record the refusal
+            rec[f"{key}_ms"] = rec[f"{key}_device_ms"] = None
+            rec["library_note"] += f"; {layout} refused ({str(err).splitlines()[0]})"
+    if not all(rec["library_equals_plain_accumulator"].values()):
+        raise AssertionError(f"torch._int_mm differs from the plain accumulator: {rec}")
+    return rec
 
 
 def check_int8_kernels(matrix: np.ndarray, flagship, device) -> list:
     """K4 and K5 against their plain versions, bit for bit, at the main
     path's shapes: K4 at 16 x 8192 (the bench matrix) and at 64 x 32768
-    (the flagship operator), K5 at 16 x 8192."""
+    (the flagship operator), K5 at 16 x 8192, all at b = 1024; and both at
+    the quantized_screening example's shape, 6 x 8192 at b = 256
+    (EXAMPLE_INT8_ROWS, EXAMPLE_INT8_TILE: the bench matrix packed there),
+    where 528 tile pairs of one 256-square each take another walk and flush
+    than the b = 1024 cases' 36 pairs of 16."""
     import torch
 
     from iterative_solver_torch.ops.kernels import symm_int8
@@ -984,18 +1024,21 @@ def check_int8_kernels(matrix: np.ndarray, flagship, device) -> list:
             pairs = ((0, 0), (0, 1), (1, 0))   # p1 Q1, p1 Q2, p2 Q1
         y = kernel(x, sym)
         y_ref = plain(x, sym)
+        again = kernel(x, sym)
         torch.cuda.synchronize(device)
         abs_err = float((y - y_ref).abs().max())
         if not torch.equal(y, y_ref):
             raise AssertionError(f"{name}: not bit-identical to the plain version "
                                  f"(max abs err {abs_err:.3e})")
+        if not torch.equal(again, y):
+            raise AssertionError(f"{name}: a second call gave other bits")
+        del again
         kernel_ms, plain_ms = in_turns(lambda: plain(x, sym), lambda: kernel(x, sym), device)
         # the main kernel and its epilogue, and all the call's device work
         # (the quantization of x in torch ops included)
         kernel_device_ms, call_device_ms, _ = device_ms(lambda: kernel(x, sym), device,
                                                         "symm_int8", 2)
-        library_ms, library_device_ms, library_note, library_equal = int_mm_library(
-            xs_planes, q_planes, pairs, sym, n, device)
+        library = int_mm_library(xs_planes, q_planes, pairs, sym, n, device)
         # the bytes the replaced function moves; its int32 accumulators live
         # in on-chip scratch, so their traffic here (atomics into device
         # memory, then the epilogue's read) is reported apart, not bounded
@@ -1014,13 +1057,11 @@ def check_int8_kernels(matrix: np.ndarray, flagship, device) -> list:
             "name": name, "route": "cuda",
             "source": "iterative_solver_torch/ops/kernels/csrc/symm_int8.cu",
             "replaces": replaces, "max_abs_err": abs_err, "bit_identical": True,
-            "tolerance": 0.0, "ms": kernel_ms, "kernel_ms": kernel_ms,
+            "same_bits": True, "tolerance": 0.0, "ms": kernel_ms, "kernel_ms": kernel_ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "bound_bytes": nbytes, "scratch_bytes": scratch_bytes,
             "flush_atomics": flush_atomics, "flush_sums": flush_sums,
-            "library_ms": library_ms, "library_device_ms": library_device_ms,
-            "library_note": library_note,
-            "library_equals_plain_accumulator": library_equal,
+            **library,
             "kernel_device_ms": kernel_device_ms, "call_device_ms": call_device_ms,
             "shapes": {"m": m, "n": n, "b": sym.b, "n_pairs": sym.n_pairs},
         })
@@ -1030,8 +1071,15 @@ def check_int8_kernels(matrix: np.ndarray, flagship, device) -> list:
     int8_case("K4@n8192", sym, NROOTS, 1, k4)
     del sym
     int8_case("K4", flagship, FLAGSHIP_ROOTS, 1, k4)
+    k5 = "iterative_solver_tpu/ops/kernels/symm_int8.py:430"
     sym = symm_int8.SymmetricBlockedInt8Split.from_dense(matrix, b=1024, device=device)
-    int8_case("K5", sym, NROOTS, 2, "iterative_solver_tpu/ops/kernels/symm_int8.py:430")
+    int8_case("K5", sym, NROOTS, 2, k5)
+    del sym
+    tile, rows = EXAMPLE_INT8_TILE, EXAMPLE_INT8_ROWS
+    sym = symm_int8.SymmetricBlockedInt8.from_dense(matrix, b=tile, device=device)
+    int8_case(f"K4@b{tile}", sym, rows, 1, k4)
+    sym = symm_int8.SymmetricBlockedInt8Split.from_dense(matrix, b=tile, device=device)
+    int8_case(f"K5@b{tile}", sym, rows, 2, k5)
     del sym
     return results
 
@@ -4010,6 +4058,272 @@ def solve_chebyshev(matrix, device, op) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# The examples (examples_torch/): the twin of every examples/*.py script,
+# each run through its main() on the card, in this process, at the sizes
+# below; one of them again as a user runs it, in a process of its own; and
+# the twin notebook's cells.
+
+EXAMPLES_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples_torch")
+# (twin, its arguments on the card): the kernel-bearing twins at the main
+# path's n = 8192 with its tiles (512 for K1-f32 and K3; the int8 twin keeps
+# its example's 256), the batched scan at the batched phase's 8 x 1024
+EXAMPLES = (
+    ("packed_symmetric_davidson", ("--n", "8192", "--b", "512")),
+    ("refine_to_1e8", ("--n", "8192", "--nroots", "8", "--action", "split")),
+    ("quantized_screening", ("--n", "8192")),
+    ("hybrid_precision", ()),
+    ("ppcg_hard_spectrum", ()),
+    ("batched_scan", ("--n", "1024", "--points", "8")),
+    ("response_equations", ()),
+    ("nonhermitian_eigen", ()),
+    ("differentiable_eigenvalues", ()),
+    ("eigenvector_adjoint", ()),
+    ("checkpoint_resume", ()),
+    ("distributed_eigensystem", ()),
+    ("foreign_container", ()),
+    ("linear_eigensystem_multiroot", ()),
+    ("linear_eigensystem", ()),
+    ("linear_equations", ()),
+    ("nonlinear_equations", ()),
+    ("optimize", ()),
+)
+# quantized_screening's tile and roots on the card: check_int8_kernels holds
+# K4 and K5 to their plain versions at this shape too
+EXAMPLE_INT8_TILE, EXAMPLE_INT8_ROWS = 256, 6
+EXAMPLE_SUBPROCESS = "linear_eigensystem"
+EXAMPLE_NOTEBOOK = "OptimizeExample.ipynb"
+# the twins that solve in float32: their counts may differ from the CPU's by
+# EXAMPLE_F32_SLACK; the float64 ones match the CPU's exactly, but for the
+# Davidson stalls of ppcg_hard_spectrum (250-500 iterations, where rounding
+# drifts the count by a few percent: tests/test_torch_examples_parity_ppcg.py)
+EXAMPLE_F32 = {"packed_symmetric_davidson", "refine_to_1e8", "quantized_screening",
+               "hybrid_precision"}
+EXAMPLE_F32_SLACK = 2
+EXAMPLE_DRIFT = 0.05
+# every twin's counts (example_counts) on the CPU at the arguments above,
+# from calibrate_examples_cpu.py
+EXAMPLE_CPU_ITERATIONS = {
+    "packed_symmetric_davidson": {"f32.iterations": 3, "split.iterations": 3},
+    "refine_to_1e8": {"iterations": 5, "passes": 1},
+    "quantized_screening": {"screen.iterations": 2, "polish.iterations": 100,
+        "refine.passes": 2},
+    "hybrid_precision": {"iterations": 3, "refine_iterations": 4},
+    "ppcg_hard_spectrum": {"ppcg.iterations": 77, "davidson.window.iterations": 495,
+        "davidson.window3.iterations": 387, "davidson.full.iterations": 248},
+    "batched_scan": {"scan.0.iterations": 10, "scan.1.iterations": 15,
+        "scan.2.iterations": 20, "scan.3.iterations": 20, "scan.4.iterations": 25,
+        "scan.5.iterations": 25, "scan.6.iterations": 30, "scan.7.iterations": 35,
+        "nonsym.0.iterations": 10, "nonsym.1.iterations": 15, "nonsym.2.iterations": 15,
+        "nonsym.3.iterations": 20, "nonsym.4.iterations": 25, "nonsym.5.iterations": 25,
+        "nonsym.6.iterations": 30, "nonsym.7.iterations": 35},
+    "response_equations": {"cg_iterations": 9, "nonsym.0.iterations": 10,
+        "nonsym.1.iterations": 10, "nonsym.2.iterations": 10, "nonsym.3.iterations": 10},
+    "nonhermitian_eigen": {"host_rr.iterations": 9, "device_rr.iterations": 9,
+        "complex_pair.iterations": 22, "linear.iterations": 8},
+    "differentiable_eigenvalues": {"points.0.iterations": 23, "points.1.iterations": 18,
+        "points.2.iterations": 16, "points.3.iterations": 18, "points.4.iterations": 24},
+    "eigenvector_adjoint": {},
+    "checkpoint_resume": {"iterations": 8, "nonsym.interrupted_at": 4,
+        "nonsym.iterations": 10},
+    "distributed_eigensystem": {"iterations": 68},
+    "foreign_container": {"runs.0.iterations": 6, "runs.1.iterations": 6,
+        "runs.2.iterations": 6, "runs.3.iterations": 5},
+    "linear_eigensystem_multiroot": {"iterations": 5},
+    "linear_eigensystem": {"iterations": 6},
+    "linear_equations": {"iterations": 7},
+    "nonlinear_equations": {"iterations": 8},
+    "optimize": {"iterations": 7},
+    "OptimizeExample": {"bfgs_iterations": 7, "fused_iterations": 34},
+}
+# the kernels the twins must launch (packed_symmetric_davidson,
+# refine_to_1e8, quantized_screening, hybrid_precision)
+EXAMPLE_KERNELS = ("K1-f32", "K3", "K2", "K4", "K5")
+# the kernels line's names by the launch counters' keys
+LAUNCH_NAMES = {"symm_bf16": "K1-bf16", "symm_f32": "K1-f32", "symm_split": "K3",
+                "chain": "K2", "symm_int8": "K4", "symm_int8_split": "K5", "bsr": "K6",
+                "gram": "K7"}
+
+
+def example_counts(out, prefix: str = "") -> dict:
+    """The iteration counts in a twin's dict, by path ("f32.iterations",
+    "scan.3.iterations"): each int under a key that ends in "iterations" or
+    is "passes" or "interrupted_at"."""
+    counts = {}
+    for key, value in (out.items() if isinstance(out, dict) else enumerate(out)):
+        path = f"{prefix}{key}"
+        if isinstance(value, dict) or (isinstance(value, list) and value
+                                       and isinstance(value[0], dict)):
+            counts.update(example_counts(value, path + "."))
+        elif (isinstance(value, int) and not isinstance(value, bool)
+              and (str(key).endswith("iterations") or key in ("passes", "interrupted_at"))):
+            counts[path] = value
+    return counts
+
+
+def example_count_failures(name: str, counts: dict) -> list:
+    """Each count of a card run against the CPU run's (EXAMPLE_CPU_ITERATIONS)."""
+    cpu = EXAMPLE_CPU_ITERATIONS[name]
+    if sorted(counts) != sorted(cpu):
+        return [f"{name}: counts {sorted(counts)}, the CPU run's {sorted(cpu)}"]
+    failures = []
+    for key, ref in cpu.items():
+        slack = (EXAMPLE_F32_SLACK if name in EXAMPLE_F32
+                 else int(np.ceil(EXAMPLE_DRIFT * ref)) if key.startswith("davidson.") else 0)
+        if abs(counts[key] - ref) > slack:
+            failures.append(f"{name}: {key} = {counts[key]}, the CPU run's {ref} (+-{slack})")
+    return failures
+
+
+def example_expected_launches(name: str, out: dict) -> dict:
+    """The launches a twin makes on the card, by counter key: each fused
+    Davidson solve its action's kernel for init + symmetry probe +
+    iterations + restarts and K2 once per iteration; each refinement pass
+    the CG init's action and one per CG iteration; nothing else (the other
+    twins' actions are dense products), and never K7."""
+    expected = {key: 0 for counters in launch_counters() for key in counters}
+
+    def solve(key, iters, nroots, m_max):
+        expected[key] += 1 + 2 + iters + expected_restarts(iters, nroots, m_max)
+        expected["chain"] += iters
+
+    if name == "packed_symmetric_davidson":
+        solve("symm_f32", out["f32"]["iterations"], out["nroots"], out["m_max"])
+        solve("symm_split", out["split"]["iterations"], out["nroots"], out["m_max"])
+    elif name == "refine_to_1e8":
+        solve("symm_split", out["iterations"], out["nroots"], out["m_max"])
+        expected["symm_split"] += sum(1 + it for it in out["cg_iterations"])
+    elif name == "quantized_screening":
+        solve("symm_int8", out["screen"]["iterations"], out["nroots"], out["m_max"])
+        solve("symm_int8_split", out["polish"]["iterations"], out["nroots"], out["m_max"])
+        expected["symm_int8_split"] += sum(1 + it for it in out["refine"]["cg_iterations"])
+    elif name == "hybrid_precision":
+        # the host-driven run(): a dense split-K action, the chain each step
+        expected["chain"] += out["iterations"]
+    return expected
+
+
+def _last_json(text: str) -> dict:
+    return json.loads(text.strip().splitlines()[-1])
+
+
+def twin_main(name: str, argv) -> tuple:
+    """(result, printed): the twin's ``main(argv)`` in this process, its
+    output captured."""
+    import contextlib
+    import importlib
+    import io
+
+    twin = importlib.import_module(f"examples_torch.{name}")
+    printed = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(printed):
+            out = twin.main(list(argv))
+    except Exception as err:
+        raise AssertionError(f"example {name} failed: {err!r}\n{printed.getvalue()[-3000:]}")
+    return out, printed.getvalue()
+
+
+def run_example(name: str, argv, device) -> dict:
+    """One twin's main on the card: its own assertions, its counts against
+    the CPU run's, its launches against example_expected_launches."""
+    import torch
+
+    reset_launches()
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    out, printed = twin_main(name, ["--device", "cuda", *argv])
+    torch.cuda.synchronize(device)
+    seconds = time.perf_counter() - t0
+    launches = {key: read_launches(key) for counters in launch_counters() for key in counters}
+    expected = example_expected_launches(name, out)
+    counts = example_counts(out)
+    rec = {"phase": "example", "name": name, "argv": list(argv), "seconds": seconds,
+           "iterations": counts, "cpu_iterations": EXAMPLE_CPU_ITERATIONS[name],
+           "launches": launches, "expected_launches": expected, "result": out}
+    emit(rec)
+    failures = example_count_failures(name, counts)
+    if _last_json(printed) != out or out["device"] != "cuda":
+        failures.append(f"{name}: its last line is not its result on the card")
+    if name == "quantized_screening" and (out["n"], out["b"], out["nroots"]) != (
+            N, EXAMPLE_INT8_TILE, EXAMPLE_INT8_ROWS):
+        failures.append(f"{name}: ran at n, b, nroots = {out['n']}, {out['b']}, "
+                        f"{out['nroots']}, not the shape check_int8_kernels holds")
+    if launches != expected:
+        failures.append(f"{name}: launches {launches} != expected {expected}")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return rec
+
+
+def run_example_subprocess(name: str) -> dict:
+    """The twin as a user runs it: ``python3 examples_torch/<name>.py``, in
+    a process of its own, on the card by default."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.join(EXAMPLES_DIR, f"{name}.py")],
+                          capture_output=True, text=True, timeout=300,
+                          cwd=os.path.dirname(EXAMPLES_DIR))
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"python3 examples_torch/{name}.py exited {proc.returncode}:\n"
+                             f"{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
+    out = _last_json(proc.stdout)
+    counts = example_counts(out)
+    rec = {"phase": "example_subprocess", "name": name, "seconds": seconds,
+           "iterations": counts, "result": out}
+    emit(rec)
+    failures = example_count_failures(name, counts)
+    if out["device"] != "cuda":
+        failures.append(f"{name}: ran on {out['device']}")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return rec
+
+
+def run_example_notebook(device) -> dict:
+    """The twin notebook on the card: its counts against the CPU run's, no
+    kernel launched."""
+    import torch
+
+    from examples_torch import _cli
+
+    os.environ.pop("EXAMPLES_DEVICE", None)
+    reset_launches()
+    t0 = time.perf_counter()
+    out = _cli.run_notebook(os.path.join(EXAMPLES_DIR, EXAMPLE_NOTEBOOK))
+    torch.cuda.synchronize(device)
+    counts = example_counts(out)
+    launches = {key: read_launches(key) for counters in launch_counters() for key in counters}
+    rec = {"phase": "example_notebook", "name": EXAMPLE_NOTEBOOK,
+           "seconds": time.perf_counter() - t0, "iterations": counts, "launches": launches,
+           "result": out}
+    emit(rec)
+    failures = example_count_failures("OptimizeExample", counts)
+    if out["device"] != "cuda" or any(launches.values()):
+        failures.append(f"ran on {out['device']}, launches {launches}")
+    if failures:
+        raise AssertionError(f"{EXAMPLE_NOTEBOOK}: " + "; ".join(failures))
+    return rec
+
+
+def run_examples(device) -> dict:
+    """The examples phase; returns each kernel's launches over its twins."""
+    t0 = time.perf_counter()
+    totals = {}
+    for name, argv in EXAMPLES:
+        rec = run_example(name, argv, device)
+        for key, count in rec["launches"].items():
+            totals[LAUNCH_NAMES[key]] = totals.get(LAUNCH_NAMES[key], 0) + count
+    run_example_subprocess(EXAMPLE_SUBPROCESS)
+    run_example_notebook(device)
+    emit({"phase": "examples", "twins": len(EXAMPLES) + 1, "seconds": time.perf_counter() - t0,
+          "launches": totals})
+    missing = [k for k in EXAMPLE_KERNELS if not totals.get(k)]
+    if missing or totals.get("K7"):
+        raise AssertionError(f"examples: {missing} not launched, or K7 launched: {totals}")
+    return totals
+
+
+# ---------------------------------------------------------------------------
 # The distribution layer (ROADMAP.md Queue 1 item 6b). SHARD_WORLD ranks run
 # as processes of this script (``--shard-worker``) on the one card, joined by
 # gloo: NCCL refuses two ranks on one card, so every collective is staged
@@ -4038,8 +4352,6 @@ SHARD_KERNELS = (("K1-bf16", "fast", 1024), ("K1-f32", "exact", 512), ("K3", "pr
                  ("K4", "int8", 1024), ("K5", "int8_precise", 1024))
 # the rank that packs each tier's storage (the int8 tiers alone)
 SHARD_PACKER = {"int8": 0, "int8_precise": 1, "fast": 2, "exact": 2, "precise": 3}
-SHARD_LAUNCH_KEYS = {"K1-bf16": "symm_bf16", "K1-f32": "symm_f32", "K3": "symm_split",
-                     "K4": "symm_int8", "K5": "symm_int8_split"}
 # K4 at the sharded flagship's shape (64 x 32768, a quarter of its pairs)
 SHARD_FLAGSHIP_KERNEL = "K4@flagship"
 # the rows of x at which the family phases launch each rank's K1-f32 (1:
@@ -5108,7 +5420,7 @@ def run_sharded(device, unsharded_iters: dict, flagship, kernels, inputs=None) -
         for rec in recs[1:]:
             key = rec["phase"] + rec.get("name", "")
             by_phase.setdefault(key, []).append(rec)
-    rank_launches = {k: [0] * len(ranks) for k in SHARD_LAUNCH_KEYS}
+    rank_launches = {name: [0] * len(ranks) for name, _, _ in SHARD_KERNELS}
     rank_ms = {}
     failures = []
     for key, recs in by_phase.items():
@@ -5129,7 +5441,7 @@ def run_sharded(device, unsharded_iters: dict, flagship, kernels, inputs=None) -
             if whole is not None:
                 head["unsharded_device_ms"] = whole["kernel_device_ms"]
                 head["unsharded_ms"] = whole["ms"]
-            if head["name"] in SHARD_LAUNCH_KEYS:
+            if head["name"] in rank_launches:
                 rank_ms[head["name"]] = head["rank_device_ms"]
             emit(head)
             continue
@@ -5148,8 +5460,8 @@ def run_sharded(device, unsharded_iters: dict, flagship, kernels, inputs=None) -
             if abs(head["iterations"] - unsharded_iters[ukey]) > SHARD_ITER_SLACK:
                 failures.append(f"{key}: {head['iterations']} iterations, the unsharded run "
                                 f"{unsharded_iters[ukey]}")
-            kname = {v: k for k, v in SHARD_LAUNCH_KEYS.items()}.get(head.get("launch_key"))
-            if kname is not None:
+            kname = LAUNCH_NAMES.get(head.get("launch_key"))
+            if kname in rank_launches:
                 for r, rec in enumerate(recs):
                     rank_launches[kname][r] += rec["launches"]["action"]
             emit(head)
@@ -5162,8 +5474,8 @@ def run_sharded(device, unsharded_iters: dict, flagship, kernels, inputs=None) -
                                 f"{unsharded_iters[tier]}")
         lkey = SHARD_TIERS[tier][4] if tier else (
             "symm_int8" if head["phase"] == "solve_sharded_ppcg" else None)
-        kname = {v: k for k, v in SHARD_LAUNCH_KEYS.items()}.get(lkey)
-        if kname is not None:
+        kname = LAUNCH_NAMES.get(lkey)
+        if kname in rank_launches:
             for r, rec in enumerate(recs):
                 rank_launches[kname][r] += rec["launches"]["action"]
         emit(head)
@@ -5358,6 +5670,7 @@ def main() -> int:
     del bench_bsr, sparse_dense
     phenol_rec = solve_phenol(phenol, phenol_diag, phenol_gen_s, device)
     del phenol
+    example_launches = run_examples(device)
     # last, as nothing profiled here follows them: the sharded phases (after
     # other processes shared the card, this process's profiler windows
     # dropped device events), then NCCL, whose communicator lives in this
@@ -5411,6 +5724,8 @@ def main() -> int:
         if k["launches"] == 0 and k["name"] not in off_path:
             raise AssertionError(f"{k['name']} was not launched on the main path")
         row = {key: k[key] for key in keys}
+        # the examples phase's launches, apart from the main path's
+        row["example_launches"] = example_launches.get(k["name"], 0)
         if k["name"] in sharded["rank_launches"]:
             # the sharded solves' launches and the kernel's ms on each rank's pairs
             row["rank_launches"] = sharded["rank_launches"][k["name"]]

@@ -1,6 +1,7 @@
-"""The port imports nothing of JAX: no module of iterative_solver_torch/,
-not chip_smoke.py, calibrate_sparse_cpu.py, calibrate_nonlinear_cpu.py,
-calibrate_nonsym_cpu.py, calibrate_spill_cpu.py, calibrate_sharded_cpu.py or
+"""The port imports nothing of JAX: no module of iterative_solver_torch/ or
+examples_torch/, not chip_smoke.py, calibrate_sparse_cpu.py, calibrate_nonlinear_cpu.py,
+calibrate_nonsym_cpu.py, calibrate_spill_cpu.py, calibrate_sharded_cpu.py,
+calibrate_examples_cpu.py or
 the sharded tests' worker (tests/torch_shard_worker.py) imports ``jax``, ``jaxlib``
 or ``iterative_solver_tpu`` (which would run iterative_solver_tpu/__init__.py
 and import JAX)."""
@@ -14,11 +15,12 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "iterative_solver_tpu"}
-PORT_FILES = sorted((ROOT / "iterative_solver_torch").rglob("*.py")) + [
+PORT_FILES = sorted((ROOT / "iterative_solver_torch").rglob("*.py")) + sorted(
+    (ROOT / "examples_torch").glob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "calibrate_sparse_cpu.py", ROOT / "compare_kernels.py",
     ROOT / "calibrate_nonlinear_cpu.py", ROOT / "calibrate_nonsym_cpu.py",
     ROOT / "calibrate_spill_cpu.py", ROOT / "calibrate_sharded_cpu.py",
-    ROOT / "tests" / "torch_shard_worker.py"]
+    ROOT / "calibrate_examples_cpu.py", ROOT / "tests" / "torch_shard_worker.py"]
 
 
 def _imported_roots(path):
@@ -44,7 +46,8 @@ def test_port_files_found():
             "calibrate_spill_cpu.py", "distribution.py", "distr_array.py", "mesh.py",
             "collectives.py", "sharded_symm.py", "sharded_bsr.py",
             "calibrate_sharded_cpu.py", "torch_shard_worker.py", "c_api.py",
-            "build_embedded.py"} <= names
+            "build_embedded.py", "packed_symmetric_davidson.py",
+            "distributed_eigensystem.py", "_cli.py", "calibrate_examples_cpu.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
