@@ -30,6 +30,7 @@ import torch
 
 from .. import config as _config  # noqa: F401  (precision pins)
 from ..parallel.collectives import all_gather, psum
+from ..utils.profiler import count
 
 Tensor = torch.Tensor
 
@@ -182,12 +183,18 @@ def adapt_sharding(sharding, ndim: int):
 def to_device(x, dtype=None, device=None, sharding=None) -> Tensor:
     """A tensor of ``x`` (numpy, list or tensor) on ``device``; with
     ``sharding``, this rank's slice of the global ``x`` on the mesh's
-    device."""
+    device. The bytes that land on a CUDA device from host memory add to
+    the counter ``h2d_bytes`` (utils/profiler.py) while a profiler
+    records."""
     if sharding is not None:
-        return sharding.shard(x, dtype=dtype)
-    if isinstance(x, torch.Tensor):
-        return x.to(device=device, dtype=dtype)
-    return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+        out = sharding.shard(x, dtype=dtype)
+    elif isinstance(x, torch.Tensor):
+        out = x.to(device=device, dtype=dtype)
+    else:
+        out = torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+    if out.is_cuda and not (isinstance(x, torch.Tensor) and x.is_cuda):
+        count("h2d_bytes", out.numel() * out.element_size())
+    return out
 
 
 def to_host(x: Tensor) -> np.ndarray:

@@ -8,6 +8,9 @@ One step runs the whole Davidson iteration on the device —
   against the basis -> whitening -> basis append
 
 and the host checks convergence between steps (one scalar sync per step).
+The solve's phases open spans (utils/profiler.py): ``davidson.solve``,
+``.upload``, ``.iteration``, ``.rr``, ``.ritz``, ``.expand``, ``.action``
+and ``.wait``, which record only while a ``torch.profiler`` session does.
 The basis lives in a fixed-capacity ``(m_max, N)`` stack; slot validity is
 tracked with a mask whose inactive diagonal entries are pushed above the
 spectrum before the eigh. Restarts collapse the basis onto the current Ritz
@@ -62,6 +65,7 @@ from ..ops.kernels.chain import (
 from ..array.vector_ops import to_device
 from ..parallel.collectives import barrier, pmax, psum
 from ..parallel.mesh import check_sharding
+from ..utils.profiler import settle, span
 from ._finite import check_finite
 
 Tensor = torch.Tensor
@@ -140,6 +144,13 @@ def validate_p_inputs(p_space, p_actions, n: int):
 
 def _dots(a: Tensor, b: Tensor, sharding=None) -> Tensor:
     return psum(torch.einsum("in,in->i", a, b), sharding)
+
+
+def _act(matvec, x: Tensor, operand) -> Tensor:
+    """``matvec(x, operand)``, the user's action, inside the span
+    ``davidson.action``."""
+    with span("davidson.action"):
+        return matvec(x, operand)
 
 
 def _eye(n: int, like: Tensor) -> Tensor:
@@ -329,60 +340,63 @@ def _step_body(
 
     def step(state: DavidsonState, operand, diag: Tensor, it: int = 0) -> DavidsonState:
         v, w, mask, k = state.v, state.w, state.mask, state.k
-        if rr in ("window", "window3", "anchored"):
-            if rr == "anchored" and it % anchor_every == 0:
-                ea, c = _masked_eigh(v, w, mask, sh)
-                evals, c_new, evals_all = ea[:nroots], c[:, :nroots] * mask[:, None], ea
+        with span("davidson.rr"):
+            if rr in ("window", "window3", "anchored"):
+                if rr == "anchored" and it % anchor_every == 0:
+                    ea, c = _masked_eigh(v, w, mask, sh)
+                    evals, c_new, evals_all = ea[:nroots], c[:, :nroots] * mask[:, None], ea
+                else:
+                    evals, c_new, evals_all = _window_rr(
+                        v, w, mask, k, state.c, nroots, m_max,
+                        c_mom=state.cm if rr == "window3" else None, n_p=n_p, sharding=sh)
+                coeff = c_new.T
             else:
-                evals, c_new, evals_all = _window_rr(
-                    v, w, mask, k, state.c, nroots, m_max,
-                    c_mom=state.cm if rr == "window3" else None, n_p=n_p, sharding=sh)
-            coeff = c_new.T
-        else:
-            evals_all, c = _masked_eigh(v, w, mask, sh)
-            coeff = (c[:, :nroots] * mask[:, None]).T  # (nroots, m_max)
-            evals = evals_all[:nroots]
-            c_new = coeff.T
-        x = torch.matmul(coeff, v)
-        ax = torch.matmul(coeff, w)
-        # Rayleigh-quotient refinement: full-length dots are ~eps*||A||
-        # accurate, recovering eigenvalue accuracy the small eigh may lack
-        xx = _dots(x, x, sh)
-        xax = _dots(x, ax, sh)
-        evals = torch.where(xx > 0, xax / torch.where(xx > 0, xx, torch.ones_like(xx)), evals)
-        r = ax - evals[:, None] * x
-        errors = torch.sqrt(torch.abs(_dots(r, r, sh)))
+                evals_all, c = _masked_eigh(v, w, mask, sh)
+                coeff = (c[:, :nroots] * mask[:, None]).T  # (nroots, m_max)
+                evals = evals_all[:nroots]
+                c_new = coeff.T
+        with span("davidson.ritz"):
+            x = torch.matmul(coeff, v)
+            ax = torch.matmul(coeff, w)
+            # Rayleigh-quotient refinement: full-length dots are ~eps*||A||
+            # accurate, recovering eigenvalue accuracy the small eigh may lack
+            xx = _dots(x, x, sh)
+            xax = _dots(x, ax, sh)
+            evals = torch.where(xx > 0, xax / torch.where(xx > 0, xx, torch.ones_like(xx)), evals)
+            r = ax - evals[:, None] * x
+            errors = torch.sqrt(torch.abs(_dots(r, r, sh)))
 
-        if fuse_chain:
-            if expand is None:
-                # Jacobi preconditioning runs inside the kernel
-                t, n0_2, n2, g = fused_expand_chain(r, v, mask, diag, evals)
+        with span("davidson.expand"):
+            if fuse_chain:
+                if expand is None:
+                    # Jacobi preconditioning runs inside the kernel
+                    t, n0_2, n2, g = fused_expand_chain(r, v, mask, diag, evals)
+                else:
+                    t = expand(x, r, evals, evals_all, mask, diag, operand)
+                    t, n0_2, n2, g = fused_expand_chain(t.to(v.dtype), v, mask)
+                t, keep = whiten_after_chain(t, n0_2, n2, nroots, null_thresh, g=g)
             else:
-                t = expand(x, r, evals, evals_all, mask, diag, operand)
-                t, n0_2, n2, g = fused_expand_chain(t.to(v.dtype), v, mask)
-            t, keep = whiten_after_chain(t, n0_2, n2, nroots, null_thresh, g=g)
-        else:
-            if expand is None:
-                # Jacobi/Davidson preconditioner with the regulariser made
-                # RELATIVE to the spectrum scale
-                scale_est = pmax(torch.max(torch.abs(diag)), sh) + torch.max(torch.abs(evals))
-                t = r / (diag[None, :] - evals[:, None] + 1e-15 * scale_est + 1e-300)
-            else:
-                t = expand(x, r, evals, evals_all, mask, diag, operand)
-            # null detection compares post-GS norms to the PRE-GS norms
-            n0_2 = _dots(t, t, sh)
-            # two classical GS passes against the basis
-            for _ in range(2):
-                proj = psum(torch.matmul(t, v.T), sh) * mask[None, :]
-                t = t - torch.matmul(proj, v)
-            n2 = _dots(t, t, sh)
-            t, keep = whiten_after_chain(t, n0_2, n2, nroots, null_thresh, sharding=sh)
+                if expand is None:
+                    # Jacobi/Davidson preconditioner with the regulariser made
+                    # RELATIVE to the spectrum scale
+                    scale_est = pmax(torch.max(torch.abs(diag)), sh) + torch.max(torch.abs(evals))
+                    t = r / (diag[None, :] - evals[:, None] + 1e-15 * scale_est + 1e-300)
+                else:
+                    t = expand(x, r, evals, evals_all, mask, diag, operand)
+                # null detection compares post-GS norms to the PRE-GS norms
+                n0_2 = _dots(t, t, sh)
+                # two classical GS passes against the basis
+                for _ in range(2):
+                    proj = psum(torch.matmul(t, v.T), sh) * mask[None, :]
+                    t = t - torch.matmul(proj, v)
+                n2 = _dots(t, t, sh)
+                t, keep = whiten_after_chain(t, n0_2, n2, nroots, null_thresh, sharding=sh)
 
         # append at slot k, in place; never over the frozen P slots
         if k + nroots > m_max or k < n_p:
             raise ValueError(f"append at slot {k} outside [{n_p}, {m_max}]")
         v[k:k + nroots] = t.to(v.dtype)
-        w[k:k + nroots] = matvec(t, operand).to(w.dtype)
+        w[k:k + nroots] = _act(matvec, t, operand).to(w.dtype)
         mask_new = mask.clone()
         mask_new[k:k + nroots] = torch.where(keep, torch.ones_like(mask[:nroots]),
                                              mask[k:k + nroots])
@@ -441,7 +455,8 @@ def _restart_body(matvec: Callable[..., Tensor], nroots: int, m_max: int,
         xo = xo_t.T
         live = keep.to(state.mask.dtype)
         v = _stack_rows([pv, xo.to(pv.dtype)], m_max)
-        w = _stack_rows([pw, (matvec(xo, operand) * live[:, None]).to(pw.dtype)], m_max)
+        w = _stack_rows([pw, (_act(matvec, xo, operand) * live[:, None]).to(pw.dtype)],
+                        m_max)
         mask = _stack_rows([live.new_ones((n_p,)), live], m_max)
         c0 = None
         if state.c is not None:
@@ -461,7 +476,7 @@ def _restart_body(matvec: Callable[..., Tensor], nroots: int, m_max: int,
         l = _cholesky_nan(g + 1e-30 * _eye(nroots, g))
         xo = lower_solve(l, x)
         v = _stack_rows([xo.to(state.v.dtype)], m_max)
-        w = _stack_rows([matvec(xo, operand).to(state.w.dtype)], m_max)
+        w = _stack_rows([_act(matvec, xo, operand).to(state.w.dtype)], m_max)
         mask = _stack_rows([torch.ones_like(state.mask[:nroots])], m_max)
         c0 = None
         if state.c is not None:
@@ -497,14 +512,14 @@ def _init_body(matvec: Callable[..., Tensor], nroots: int, m_max: int,
         gp = psum(torch.matmul(p, p.T), sh)
         lp = _cholesky_nan(gp + 1e-30 * _eye(n_p, gp))
         pw = lower_solve(lp, p)
-        wpw = lower_solve(lp, wp) if p_actions else matvec(pw, operand)
+        wpw = lower_solve(lp, wp) if p_actions else _act(matvec, pw, operand)
         v0 = _p_project(v0, pw, sh)
         # guesses fully inside the P span project to zero: eigh-whitening
         # drops them as dead slots instead of NaN-ing a Cholesky
         v0o_t, keep = _eigh_whiten_cols(v0.T, thresh=1e-10, sharding=sh)
         v0o = v0o_t.T
         live = keep.to(v0.dtype)
-        w0 = matvec(v0o, operand) * live[:, None]
+        w0 = _act(matvec, v0o, operand) * live[:, None]
         v = _stack_rows([pw.to(v0.dtype), v0o], m_max)
         w = _stack_rows([wpw.to(v0.dtype), w0.to(v0.dtype)], m_max)
         mask = _stack_rows([live.new_ones((n_p,)), live], m_max)
@@ -528,7 +543,7 @@ def _init_body(matvec: Callable[..., Tensor], nroots: int, m_max: int,
         g = psum(torch.matmul(v0, v0.T), sh)
         l = _cholesky_nan(g + 1e-30 * _eye(nroots, g))
         v0o = lower_solve(l, v0)
-        w0 = matvec(v0o, operand)
+        w0 = _act(matvec, v0o, operand)
         v = _stack_rows([v0o], m_max)
         w = _stack_rows([w0.to(v0.dtype)], m_max)
         mask = _stack_rows([torch.ones_like(v0o[:, 0])], m_max)
@@ -554,7 +569,10 @@ def make_davidson_init(matvec: Callable[..., Tensor], nroots: int, m_max: int,
 def _not_converged(s: DavidsonState, tol: float) -> bool:
     # one scalar sync; NaN > tol is False, so a NaN error ends the loop as
     # in the JAX package (check_finite then raises)
-    return bool(torch.max(s.errors) > tol)
+    with span("davidson.wait"):
+        out = bool(torch.max(s.errors) > tol)
+    settle()
+    return out
 
 
 def make_davidson_solve(
@@ -590,9 +608,10 @@ def make_davidson_solve(
                            device=state.errors.device) if history else None)
         s, it = state, 0
         while it < max_iter_ and _not_converged(s, tol_):
-            if s.k + nroots > m_max:
-                s = restart(s, operand)
-            s = step(s, operand, diag, it)
+            with span("davidson.iteration"):
+                if s.k + nroots > m_max:
+                    s = restart(s, operand)
+                s = step(s, operand, diag, it)
             if history:
                 hist[min(it, history - 1)] = torch.max(s.errors)
             it += 1
@@ -939,13 +958,14 @@ class FusedDavidson:
         return t if self.sharding is None else self.sharding.gather(t, self.n)
 
     def init_state(self, v0) -> DavidsonState:
-        v0 = v0 if isinstance(v0, torch.Tensor) else torch.as_tensor(np.asarray(v0))
-        if self.n_orig != self.n and v0.shape[-1] == self.n_orig:
-            # pad caller guesses of the unpadded width with zeros
-            pad = torch.zeros(v0.shape[:-1] + (self.n - v0.shape[-1],),
-                              dtype=v0.dtype, device=v0.device)
-            v0 = torch.cat([v0, pad], dim=-1)
-        v0 = to_device(v0, self.dtype, self.device, self.sharding).contiguous()
+        with span("davidson.upload"):
+            v0 = v0 if isinstance(v0, torch.Tensor) else torch.as_tensor(np.asarray(v0))
+            if self.n_orig != self.n and v0.shape[-1] == self.n_orig:
+                # pad caller guesses of the unpadded width with zeros
+                pad = torch.zeros(v0.shape[:-1] + (self.n - v0.shape[-1],),
+                                  dtype=v0.dtype, device=v0.device)
+                v0 = torch.cat([v0, pad], dim=-1)
+            v0 = to_device(v0, self.dtype, self.device, self.sharding).contiguous()
         if self.check_symmetric and not self._symmetry_checked:
             from ._symmetry import check_symmetric_operator
 
@@ -971,7 +991,9 @@ class FusedDavidson:
         return state
 
     def _finish(self, state: DavidsonState):
-        evals, errors = state.evals.cpu().numpy(), state.errors.cpu().numpy()
+        with span("davidson.wait"):
+            evals, errors = state.evals.cpu().numpy(), state.errors.cpu().numpy()
+        settle()
         check_finite(errors, "FusedDavidson")
         return evals, self._global(state.x), errors, self.iterations
 
@@ -992,17 +1014,18 @@ class FusedDavidson:
         """The whole solve (make_davidson_solve). ``chunked=True`` checks
         convergence only at restart boundaries; the iteration count is then
         quantised up to the basis-fill length."""
-        kw = dict(expand=self.expand, rr=self.rr, fuse_chain=self.fuse_chain,
-                  n_p=self.n_p, anchor_every=self.anchor_every, sharding=self.sharding)
-        if chunked:
-            solve = make_davidson_solve_chunked(self.matvec, self.nroots, self.m_max, **kw)
-        else:
-            solve = make_davidson_solve(self.matvec, self.nroots, self.m_max, **kw)
-        state = self.init_state(v0)
-        final, iters = solve(state, self.operand, self.diag, self.tol, self.max_iter)
-        self.iterations += iters
-        self.matvecs += iters * self.nroots * self.matvecs_per_direction
-        evals, x, errors, _ = self._finish(final)
+        with span("davidson.solve"):
+            kw = dict(expand=self.expand, rr=self.rr, fuse_chain=self.fuse_chain,
+                      n_p=self.n_p, anchor_every=self.anchor_every, sharding=self.sharding)
+            if chunked:
+                solve = make_davidson_solve_chunked(self.matvec, self.nroots, self.m_max, **kw)
+            else:
+                solve = make_davidson_solve(self.matvec, self.nroots, self.m_max, **kw)
+            state = self.init_state(v0)
+            final, iters = solve(state, self.operand, self.diag, self.tol, self.max_iter)
+            self.iterations += iters
+            self.matvecs += iters * self.nroots * self.matvecs_per_direction
+            evals, x, errors, _ = self._finish(final)
         return evals, x, errors, iters
 
     def run_fast(self, v0, checkpoint_path=None, checkpoint_every: int = 1):

@@ -1,22 +1,136 @@
 """Hierarchical named-region profiler (port of
-iterative_solver_tpu/utils/profiler.py).
+iterative_solver_tpu/utils/profiler.py), and the spans and counters of
+the solve.
 
 The counterpart of molpro::Profiler (SURVEY.md §5): a wall-clock region
 tree on the host, with each region also opened as a
-``torch.profiler.record_function`` range, so that it shows in a
-``torch.profiler`` trace of the card beside the kernels it launched (the
-JAX package opens a ``jax.profiler.TraceAnnotation`` instead). Regions nest
-via the ``push()`` context manager; ``report()`` renders the tree with
-cumulative times and call counts.
+``torch.profiler.record_function`` range while a ``torch.profiler`` session
+records, so that it shows in the trace of the card beside the kernels it
+launched (the JAX package opens a ``jax.profiler.TraceAnnotation``
+instead). Regions nest via the ``push()`` context manager; ``report()``
+renders the tree with cumulative times and call counts.
+
+``span(name)`` and ``count(name, n)`` instrument the solve itself. Both
+record only while a ``torch.profiler`` session records; otherwise each is
+one flag read. A span opens a ``record_function`` range (a
+``user_annotation`` in the profiler's chrome trace, on the kernels' clock),
+takes its host duration, and with CUDA in use records a start and an end
+event on the current stream: their interval is the span's device extent,
+from the device reaching the span's first work to its finishing the last,
+idle inside included. Where CUDA is not in use the host does the work
+inside the span, and the extent is the host duration. Extents are resolved
+without a synchronisation of their own: ``settle()``, called after the
+solve's blocking reads, adds those whose end event has completed, and
+``snapshot()`` waits for the rest. Totals live in one registry per process
+(a solve runs on one host thread): per span name the count, the summed host
+seconds and the summed device seconds, and per counter its sum.
+``snapshot()`` returns them and ``reset()`` clears them.
 """
 
 from __future__ import annotations
 
 import contextlib
 import time
-from typing import Dict
+from typing import Dict, List
 
+import torch
 from torch.profiler import record_function
+
+# True while a torch.profiler session records: the one gate of every
+# instrument here
+_recording = torch._C._autograd._profiler_enabled
+# what span() returns with the gate off: a shared context that does nothing
+_OFF = contextlib.nullcontext()
+
+# span name -> [count, host seconds, device seconds]
+_SPANS: Dict[str, list] = {}
+_COUNTERS: Dict[str, float] = {}
+# (record, start event, end event, their pool) of spans whose extent is not
+# yet added, in the order their end events were recorded
+_PENDING: List[tuple] = []
+# device index -> timing events whose interval has been read, for reuse
+_FREE: Dict[int, list] = {}
+
+
+class _Span:
+    __slots__ = ("name", "range", "stream", "free", "start", "t0")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        self.range = record_function(self.name)
+        self.range.__enter__()
+        # with CUDA in use, the extent is read on the stream current at entry
+        self.stream = torch.cuda.current_stream() if torch.cuda.is_initialized() else None
+        if self.stream is not None:
+            self.free = _FREE.setdefault(self.stream.device_index, [])
+            self.start = self._event()
+        self.t0 = time.perf_counter()
+        return self
+
+    def _event(self):
+        ev = self.free.pop() if self.free else torch.cuda.Event(enable_timing=True)
+        ev.record(self.stream)
+        return ev
+
+    def __exit__(self, *exc):
+        host = time.perf_counter() - self.t0
+        rec = _SPANS.setdefault(self.name, [0, 0.0, 0.0])
+        rec[0] += 1
+        rec[1] += host
+        if self.stream is None:
+            rec[2] += host
+        else:
+            _PENDING.append((rec, self.start, self._event(), self.free))
+        self.range.__exit__(*exc)
+        return False
+
+
+def span(name: str):
+    """A context manager that records the region ``name`` while a
+    ``torch.profiler`` session records, and does nothing otherwise."""
+    return _Span(name) if _recording() else _OFF
+
+
+def count(name: str, n: float) -> None:
+    """Add ``n`` to the counter ``name`` while a ``torch.profiler`` session
+    records."""
+    if _recording():
+        _COUNTERS[name] = _COUNTERS.get(name, 0) + n
+
+
+def settle() -> None:
+    """Add the device extents of the spans whose end event has completed,
+    oldest first, up to the first that has not; waits for nothing."""
+    done = 0
+    for rec, start, end, free in _PENDING:
+        if not end.query():
+            break
+        rec[2] += start.elapsed_time(end) * 1e-3
+        free += (start, end)
+        done += 1
+    del _PENDING[:done]
+
+
+def snapshot() -> dict:
+    """The registry: ``{"spans": {name: {"count", "host_s", "device_s"}},
+    "counters": {name: total}}``. Waits for the device to finish the spans
+    recorded so far."""
+    for _, _, end, _ in _PENDING:
+        end.synchronize()
+    settle()
+    return {"spans": {name: {"count": c, "host_s": h, "device_s": d}
+                      for name, (c, h, d) in _SPANS.items()},
+            "counters": dict(_COUNTERS)}
+
+
+def reset() -> None:
+    """Clear the registry."""
+    _SPANS.clear()
+    _COUNTERS.clear()
+    _PENDING.clear()
+    _FREE.clear()
 
 
 class _Node:
@@ -50,7 +164,7 @@ class Profiler:
         self._stack.append(node)
         t0 = time.perf_counter()
         try:
-            with record_function(name):
+            with record_function(name) if _recording() else _OFF:
                 yield self
         finally:
             node.total += time.perf_counter() - t0
