@@ -354,6 +354,7 @@ limits, and ``calibrate_sharded_cpu.py`` runs them on the CPU.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import os
 import subprocess
@@ -993,6 +994,17 @@ def int_mm_library(xs_planes, q_planes, products, sym, n, device) -> dict:
     return rec
 
 
+# K4's and K5's device ms in an earlier run of this script, the square
+# walk's (PERF.md's kernel table; NVIDIA H100 80GB HBM3, 700 W), printed
+# beside each row's own
+INT8_EARLIER_DEVICE_MS = {"K4@n8192": 0.0262, "K4": 0.8703, "K5": 0.0712, "K4@b256": 0.0254,
+                       "K5@b256": 0.0520}
+# the benchmark cell's operator: n = 131072 in tiles of 1024 (8256 pairs,
+# 8.06 GiB), 16 rows of x; its plain version takes this many pairs a pass
+INT8_CELL_N = 131072
+INT8_CELL_PAIRS_PER_PASS = 128
+
+
 def check_int8_kernels(matrix: np.ndarray, flagship, device) -> list:
     """K4 and K5 against their plain versions, bit for bit, at the main
     path's shapes: K4 at 16 x 8192 (the bench matrix) and at 64 x 32768
@@ -1000,7 +1012,10 @@ def check_int8_kernels(matrix: np.ndarray, flagship, device) -> list:
     the quantized_screening example's shape, 6 x 8192 at b = 256
     (EXAMPLE_INT8_ROWS, EXAMPLE_INT8_TILE: the bench matrix packed there),
     where 528 tile pairs of one 256-square each take another walk and flush
-    than the b = 1024 cases' 36 pairs of 16."""
+    than the b = 1024 cases' 36 pairs of 16; and K4 at the benchmark cell's
+    shape, 16 x 131072 at b = 1024 (``synthetic_packed_int8``), where it
+    takes the band walk. Each K4 row names the walk it took
+    (``symm_int8.K4_WALKS``) and counts that walk's reds."""
     import torch
 
     from iterative_solver_torch.ops.kernels import symm_int8
@@ -1008,11 +1023,14 @@ def check_int8_kernels(matrix: np.ndarray, flagship, device) -> list:
     rng = np.random.default_rng(2)
     results = []
 
-    def int8_case(name, sym, m, planes, replaces):
+    def int8_case(name, sym, m, planes, replaces, pairs_per_pass=None):
+        # pairs_per_pass: an operator too large for the plain version in one
+        # contraction and for a dense yardstick: no plain or library timing
         n = sym.shape[0]
         x = torch.as_tensor(rng.standard_normal((m, n)), dtype=torch.float32, device=device)
         if planes == 1:
-            kernel, plain = symm_int8.symm_matmat_int8_kernel, symm_int8.symm_matmat_int8
+            kernel = symm_int8.symm_matmat_int8_kernel
+            plain = functools.partial(symm_int8.symm_matmat_int8, pairs_per_pass=pairs_per_pass)
             q_planes = (sym.q,)
             xs_planes = symm_int8.quantize_rows(x * sym.gq[None, :])[:1]
             pairs = ((0, 0),)
@@ -1022,7 +1040,10 @@ def check_int8_kernels(matrix: np.ndarray, flagship, device) -> list:
             q_planes = (sym.q1, sym.q2)
             xs_planes = symm_int8.quantize_rows_split(x * sym.gq[None, :])[:2]
             pairs = ((0, 0), (0, 1), (1, 0))   # p1 Q1, p1 Q2, p2 Q1
+        walks = dict(symm_int8.K4_WALKS)
         y = kernel(x, sym)
+        walk = ("square" if planes == 2 else
+                next(k for k, v in symm_int8.K4_WALKS.items() if v != walks[k]))
         y_ref = plain(x, sym)
         again = kernel(x, sym)
         torch.cuda.synchronize(device)
@@ -1032,13 +1053,19 @@ def check_int8_kernels(matrix: np.ndarray, flagship, device) -> list:
                                  f"(max abs err {abs_err:.3e})")
         if not torch.equal(again, y):
             raise AssertionError(f"{name}: a second call gave other bits")
-        del again
-        kernel_ms, plain_ms = in_turns(lambda: plain(x, sym), lambda: kernel(x, sym), device)
+        del again, y_ref
+        if pairs_per_pass is None:
+            kernel_ms, plain_ms = in_turns(lambda: plain(x, sym), lambda: kernel(x, sym),
+                                           device)
+        else:
+            kernel_ms, plain_ms = time_ms(lambda: kernel(x, sym), device), None
         # the main kernel and its epilogue, and all the call's device work
         # (the quantization of x in torch ops included)
         kernel_device_ms, call_device_ms, _ = device_ms(lambda: kernel(x, sym), device,
                                                         "symm_int8", 2)
-        library = int_mm_library(xs_planes, q_planes, pairs, sym, n, device)
+        library = ({"library_ms": None, "library_note": "none: the dense plane would take "
+                    f"{n * n / 2 ** 30:.0f} GiB"} if pairs_per_pass is not None else
+                   int_mm_library(xs_planes, q_planes, pairs, sym, n, device))
         # the bytes the replaced function moves; its int32 accumulators live
         # in on-chip scratch, so their traffic here (atomics into device
         # memory, then the epilogue's read) is reported apart, not bounded
@@ -1048,21 +1075,24 @@ def check_int8_kernels(matrix: np.ndarray, flagship, device) -> list:
                   + 4 * m + 8 * n + 8 * sym.n_pairs)       # sx, gq, d, ii, jj
         bound_ms, bound_by = bound(nbytes, symm_flops(sym, m, len(pairs)), "int8")
         scratch_bytes = planes * 2 * 4 * m * n             # accumulators written, read
-        # K4 and K5 flush each square once: one int32 sum per accumulator
-        # (K5: hi and lo), row of x and contributed row or column, two to a
-        # 64-bit red where b is even (symm_int8.int8_flush_atomics)
+        # K4 and K5 flush each square or band once: one int32 sum per
+        # accumulator (K5: hi and lo), row of x and contributed row or
+        # column, two to a 64-bit red where b is even
+        # (symm_int8.int8_flush_atomics)
         flush_sums, flush_atomics = symm_int8.int8_flush_atomics(
-            sym.ii.cpu(), sym.jj.cpu(), sym.b, m, planes=planes)
+            sym.ii.cpu(), sym.jj.cpu(), sym.b, m, planes=planes, walk=walk)
         results.append({
             "name": name, "route": "cuda",
             "source": "iterative_solver_torch/ops/kernels/csrc/symm_int8.cu",
             "replaces": replaces, "max_abs_err": abs_err, "bit_identical": True,
             "same_bits": True, "tolerance": 0.0, "ms": kernel_ms, "kernel_ms": kernel_ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "bound_bytes": nbytes, "scratch_bytes": scratch_bytes,
+            "bound_bytes": nbytes, "scratch_bytes": scratch_bytes, "walk": walk,
             "flush_atomics": flush_atomics, "flush_sums": flush_sums,
             **library,
             "kernel_device_ms": kernel_device_ms, "call_device_ms": call_device_ms,
+            "share_of_bound": bound_ms / kernel_device_ms,
+            "earlier_kernel_device_ms": INT8_EARLIER_DEVICE_MS.get(name),
             "shapes": {"m": m, "n": n, "b": sym.b, "n_pairs": sym.n_pairs},
         })
 
@@ -1081,6 +1111,12 @@ def check_int8_kernels(matrix: np.ndarray, flagship, device) -> list:
     sym = symm_int8.SymmetricBlockedInt8Split.from_dense(matrix, b=tile, device=device)
     int8_case(f"K5@b{tile}", sym, rows, 2, k5)
     del sym
+    from iterative_solver_torch.models.synthetic_fci import synthetic_packed_int8
+
+    sym, _ = synthetic_packed_int8(INT8_CELL_N, b=1024, seed=0, device=device)
+    int8_case(f"K4@n{INT8_CELL_N}", sym, NROOTS, 1, k4, INT8_CELL_PAIRS_PER_PASS)
+    del sym
+    torch.cuda.empty_cache()
     return results
 
 

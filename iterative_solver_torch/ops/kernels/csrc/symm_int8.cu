@@ -2,7 +2,10 @@
 //
 // Replaces two Pallas kernels of iterative_solver_tpu/ops/kernels/symm_int8.py:
 //   symm_int8       <- _symm_matmat_int8_impl (K4, :344, pallas_call :397),
-//                      one int8 plane Q: symm_int8_mma_kernel<MT, 1>;
+//                      one int8 plane Q: symm_int8_mma_kernel<MT, 1> (the
+//                      square walk) or, at one M tile on an operator with
+//                      bands enough to fill the card, symm_int8_band_kernel
+//                      (the band walk; see "K4 at one M tile" below);
 //   symm_int8_split <- _symm_matmat_int8_split_impl (K5, :430, pallas_call
 //                      :493), two planes Q1, Q2 and two x planes p1, p2:
 //                      the same kernel on two planes, symm_int8_mma_kernel<1, 2>
@@ -89,6 +92,31 @@
 // Any b >= 1 and m >= 1: ragged chunks are zero-filled, rows of x past m
 // and columns past b are zero in the staging, the flush skips them.
 //
+// K4 at one M tile: the band walk (symm_int8_band_kernel). At m <= 16 the
+// square walk ran at 46% of its byte bound on the benchmark's operator
+// (16 x 131072, b = 1024, 8.06 GiB): its stream alone, with no products
+// and no reds, took 4.12 ms against a bound of 2.59 (H100), as every 1 KB
+// tile row left device memory in 16 pieces of 64 bytes, each fetched by
+// cp.async and released by a block-wide barrier per stage. The band walk
+// streams whole tile rows instead: a work item is 256 rows of a tile
+// across its width, a stage 32 whole rows (32 KB) loaded by TMA boxes of
+// 128-byte lines with the 128-byte swizzle, one producer warp, full and
+// empty mbarriers and no block-wide barrier in the stream (the layout and
+// the roles are in the note above the kernel). Its stream alone takes 2.74
+// ms (94% of the bound); with the products and the flushes 3.3 ms (78%):
+// what bounds it now is its flushes, 0.5 ms of y_j reds into the
+// accumulator (16 K 32-bit sums a band); carrying y_j along the four
+// bands of a tile would cut them fourfold. The square walk stays for:
+//  - m > 16 (two or four M tiles): a band's y_j would take 32-64 K int32
+//    a block, which the register file cannot hold beside the ring;
+//  - b not a multiple of 16, or an operand not 16-byte aligned: TMA's
+//    strides and the bulk copies of x need 16 bytes;
+//  - b > 1024: a warp holds y_j of one 128-byte line, eight warps eight;
+//  - too few bands to fill the card (symm_int8.py int8_walk: fewer than 8
+//    an SM): one block an SM would leave most SMs one or two bands, where
+//    the square walk's three blocks an SM do as well (16 x 8192);
+//  - K5, whose two planes double every sum.
+//
 // A second launch from this file is the epilogue, once per output element:
 //   K4: y = float(acc) * sx[row] * gq[col] + xf * d[col]
 //   K5: y = (float(hi) + float(lo) * (float)(1/254)) * sx[row] * gq[col] + xf * d[col]
@@ -98,6 +126,7 @@
 // first adds back the 64-bit reds' carry into the odd columns of each
 // accumulator (hi and lo alike; red_pair).
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -579,6 +608,321 @@ symm_int8_mma_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ x2
   cp_async_wait<0>();
 }
 
+// ------------------------------------ K4 at one M tile: the band walk
+//
+// A work item is a band: BAND rows of one tile across its whole width b
+// (b <= 1024, a multiple of 16). It streams through a ring of BSTAGES
+// stages of BROWS whole tile rows, loaded by TMA: each stage is up to 8
+// boxes of BROWS rows x 128 bytes, one per 128-byte line of the rows, each
+// stored [row][128 B] with the 128-byte swizzle (16-byte segment s of row p
+// at s ^ (p & 7); the stage's lines 4 KB apart, 1024-byte aligned). One
+// producer warp issues the loads; 8 consumer warps, warp w on line w (tile
+// columns 128 w .. + 127), take each stage on a full mbarrier and give it
+// back on an empty one: no block-wide barrier in the stream.
+//
+// Per stage, warp w forms
+//   y_i (the stage's 32 rows) += x_j (its 128 columns) Q^T: x_j's fragments
+//     stay in registers for the band; the partial over the warp's columns
+//     is added into the band's y_i in shared memory (shared-memory adds;
+//     eight warps, one line each, add into each sum);
+//   y_j (its 128 columns) += x_i (the stage's 32 rows) Q, one k-step of 32,
+//     with the register transpose (ldmatrix.trans + prmt) of the square
+//     walk. The lanes' row addresses pair the stage's rows so that each
+//     8x8 matrix of one ldmatrix.trans reads 8 rows of distinct p & 7, which
+//     the swizzle makes conflict-free: of the four rows 4t .. 4t + 3 that
+//     lane t gathers, matrix 0 holds 4t, 4t + 1 for t < 2 and 4t + 2,
+//     4t + 3 for t >= 2 (matrix 1 the other two), and the lane's prmt
+//     selector puts them back in row order.
+// y_j stays in registers over the band (64 a thread). Both sums leave once
+// per band, 256 + b a row of x where the square walk's four squares of the
+// same rows flush 4 x 512 at b = 1024, as 32-bit reds of 32 neighbouring
+// sums of one row a warp (y_j through an 8-row staging of the warp's own):
+// on the H100 these cost the band walk about 0.6 ms a call at the
+// benchmark's shape, where the square walk's pattern of 64-bit reds of
+// column pairs, scattered over eight rows a warp, cost it 1.4 ms. With no
+// 64-bit pair, the epilogue adds back no carry after a band-walk call.
+constexpr int BAND = 256;                 // rows of a band (symm_int8.py BAND_INT8)
+constexpr int BROWS = 32;                 // tile rows per stage: one k-step of y_j
+constexpr int BLINE = 128;                // bytes of a line: a warp's columns
+constexpr int BLINES = 8;                 // lines of a stage, at most: b <= 1024
+constexpr int BSTAGE = BROWS * BLINE * BLINES;   // 32 KB
+constexpr int BSTAGES = 3;
+constexpr int BCONS = 8;                  // consumer warps
+constexpr int BTHREADS = 32 * (BCONS + 1);
+constexpr int XJLD = BLINE * BLINES + 16; // staged x_j row stride, bytes
+constexpr int XILD = BAND + 16;           // staged x_i row stride, bytes
+constexpr int XJS = MTILE * XJLD;
+constexpr int XIS = MTILE * XILD;
+constexpr int YILD = 20;                  // int32 per band row of y_i: 16 rows of x + 4
+constexpr int YIS = BAND * YILD * 4;      // bytes of one y_i buffer
+constexpr int YJLD = BLINE + 16;          // int32 per staged row of y_j (conflict-free int4 stores)
+constexpr int YJS = 8 * YJLD * 4;         // bytes of a warp's y_j staging: 8 rows of x
+constexpr size_t BSMEM = size_t(BSTAGES) * BSTAGE + 2 * (XJS + XIS) + 2 * YIS + BCONS * YJS +
+                         8 * (2 * BSTAGES + 4) + 1024;
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+}
+
+// box (BLINE bytes, BROWS rows) of the tile-row matrix at (col, row) into
+// shared memory, completing on bar
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, int col,
+                                            int row, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(row), "r"(bar)
+      : "memory");
+}
+
+// bytes (a multiple of 16, both ends 16-byte aligned) into shared memory
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, int bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+      "[%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// acc (m, n) += both contributions of the bands blockIdx.x, blockIdx.x +
+// gridDim.x, ... of the tiles, for m <= 16 rows of x. ``tiles``: the
+// tensor map of q as (n_pairs b) rows of b bytes, boxes of (BLINE, BROWS).
+__global__ void __launch_bounds__(BTHREADS, 1)
+symm_int8_band_kernel(const __grid_constant__ CUtensorMap tiles, const int8_t* __restrict__ x,
+                      const int* __restrict__ ii, const int* __restrict__ jj,
+                      int* __restrict__ acc, int m, int n, int b, int bands) {
+  extern __shared__ __align__(1024) unsigned char smem_band[];
+  // the 128-byte swizzle's phase is read from address bits 7-9: the ring
+  // starts on a 1024-byte boundary (BSMEM holds 1 KB to spare for it)
+  unsigned char* ring = smem_band + ((1024 - (smem_u32(smem_band) & 1023)) & 1023);
+  unsigned char* xbuf = ring + BSTAGES * BSTAGE;       // [k & 1][x_j, x_i]
+  int* yib = reinterpret_cast<int*>(xbuf + 2 * (XJS + XIS));   // [k & 1][p][YILD]
+  int* yjs = yib + 2 * BAND * YILD;                          // [warp][8][YJLD]
+  const uint32_t bars = smem_u32(yjs) + BCONS * YJS;
+  // full[s], empty[s], xfull[2], xempty[2]
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (BSTAGES + s); };
+  auto xfull = [&](int u) { return bars + 8 * (2 * BSTAGES + u); };
+  auto xempty = [&](int u) { return bars + 8 * (2 * BSTAGES + 2 + u); };
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int bpt = (b + BAND - 1) / BAND;   // bands per tile
+  const int lines = (b + BLINE - 1) / BLINE;
+  const int mrows = min(m, MTILE);
+
+  for (int e = tid; e < 2 * BAND * YILD; e += BTHREADS) yib[e] = 0;
+  if (tid == 0) {
+    for (int s = 0; s < BSTAGES; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), BCONS);
+    }
+    for (int u = 0; u < 2; ++u) {
+      mbar_init(xfull(u), 1);
+      mbar_init(xempty(u), BCONS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == BCONS) {
+    // the producer: x of each band, then its stages, from one lane
+    if (lane == 0) {
+      int stage = 0;
+      uint32_t phase = 0;
+#pragma unroll 1
+      for (int k = 0, band = blockIdx.x; band < bands; ++k, band += gridDim.x) {
+        const int t = band / bpt;
+        const int r0 = (band - t * bpt) * BAND;
+        const int rows = min(BAND, b - r0);
+        const int bi = ii[t], bj = jj[t];
+        const int u = k & 1;
+        mbar_wait(xempty(u), ((k >> 1) & 1) ^ 1);
+        unsigned char* xs = xbuf + u * (XJS + XIS);
+        mbar_expect(xfull(u), mrows * (b + (bi != bj ? rows : 0)));
+        for (int mm = 0; mm < mrows; ++mm) {
+          bulk_load(smem_u32(xs + mm * XJLD), x + size_t(mm) * n + size_t(bj) * b, b, xfull(u));
+          if (bi != bj)
+            bulk_load(smem_u32(xs + XJS + mm * XILD), x + size_t(mm) * n + size_t(bi) * b + r0,
+                      rows, xfull(u));
+        }
+        const int row0 = t * b + r0;
+#pragma unroll 1
+        for (int s = 0; s < rows; s += BROWS) {
+          mbar_wait(empty(stage), phase ^ 1);
+          mbar_expect(full(stage), lines * BROWS * BLINE);
+          for (int l = 0; l < lines; ++l)
+            tma_load_2d(smem_u32(ring + stage * BSTAGE + l * BROWS * BLINE), &tiles, l * BLINE,
+                        row0 + s, full(stage));
+          if (++stage == BSTAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // the consumers: warp w on line w
+  const int w = warp;
+  const bool active = w * BLINE < b;
+  const int g4 = lane >> 2;
+  const int t4 = lane & 3;
+  const int xrow = lane & 15;
+  const int xk = (lane >> 4) * 16;
+  // ldmatrix.trans row of this lane (see the note above): matrix j = lane >> 3
+  // (j >> 1: rows 16 and up; j & 1: the second pair of a lane's four rows),
+  // stored row i = lane & 7 (i >> 1: the receiving lane's t, i & 1: which
+  // of its pair)
+  const int ti = (lane & 7) >> 1;
+  const int tr = 16 * (lane >> 4) + 4 * ti + (lane & 1) + 2 * (((lane >> 3) & 1) ^ (ti >> 1));
+  const uint32_t sel_even = t4 < 2 ? 0x6420u : 0x2064u;
+  const uint32_t sel_odd = t4 < 2 ? 0x7531u : 0x3175u;
+  int stage = 0;
+  uint32_t phase = 0;
+
+#pragma unroll 1
+  for (int k = 0, band = blockIdx.x; band < bands; ++k, band += gridDim.x) {
+    const int t = band / bpt;
+    const int r0 = (band - t * bpt) * BAND;
+    const int rows = min(BAND, b - r0);
+    const int bi = ii[t], bj = jj[t];
+    const bool diag = bi == bj;
+    const int u = k & 1;
+    const unsigned char* xj_s = xbuf + u * (XJS + XIS);
+    const unsigned char* xi_s = xj_s + XJS;
+    int* yi = yib + u * BAND * YILD;
+
+    mbar_wait(xfull(u), (k >> 1) & 1);
+    uint32_t fxj[4][4];   // x_j over the warp's line: four k-steps of 32
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+      ldsm_x4(smem_u32(xj_s + xrow * XJLD + w * BLINE + ks * 32 + xk), fxj[ks]);
+    int acc_j[8][2][4];   // y_j: per 16-column segment, even and odd columns
+#pragma unroll
+    for (int sg = 0; sg < 8; ++sg)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc_j[sg][0][e] = acc_j[sg][1][e] = 0;
+
+#pragma unroll 1
+    for (int s = 0; s < rows; s += BROWS) {
+      mbar_wait(full(stage), phase);
+      const unsigned char* st = ring + stage * BSTAGE + w * BROWS * BLINE;
+      int part[4][4];   // y_i of the stage's rows over this warp's columns
+      if (active) {
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) part[nt][e] = 0;
+          const int p = 8 * nt + (lane & 7);
+          uint32_t bq[2][4];
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf)
+            ldsm_x4(smem_u32(st + p * BLINE + (((4 * hf + (lane >> 3)) ^ (p & 7)) << 4)),
+                    bq[hf]);
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+            mma_s8(part[nt], fxj[2 * hf], bq[hf][0], bq[hf][1]);
+            mma_s8(part[nt], fxj[2 * hf + 1], bq[hf][2], bq[hf][3]);
+          }
+        }
+        if (!diag) {
+          uint32_t fxi[4];
+          ldsm_x4(smem_u32(xi_s + xrow * XILD + s + xk), fxi);
+          if (s + 16 >= rows) fxi[2] = fxi[3] = 0u;   // rows past the band: another tile's
+#pragma unroll
+          for (int sg = 0; sg < 8; ++sg) {
+            uint32_t bt[4];
+            ldsm_x4_trans(smem_u32(st + tr * BLINE + ((sg ^ (tr & 7)) << 4)), bt);
+            mma_s8(acc_j[sg][0], fxi, __byte_perm(bt[0], bt[1], sel_even),
+                   __byte_perm(bt[2], bt[3], sel_even));
+            mma_s8(acc_j[sg][1], fxi, __byte_perm(bt[0], bt[1], sel_odd),
+                   __byte_perm(bt[2], bt[3], sel_odd));
+          }
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty(stage));
+      if (active) {
+        // a lane holds rows g4, g4 + 8 of x at the stage rows 8 nt + 2 t4, + 1
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          int* y = yi + (s + 8 * nt + 2 * t4) * YILD + g4;
+          atomicAdd(y, part[nt][0]);
+          atomicAdd(y + YILD, part[nt][1]);
+          atomicAdd(y + 8, part[nt][2]);
+          atomicAdd(y + YILD + 8, part[nt][3]);
+        }
+      }
+      if (++stage == BSTAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(xempty(u));
+
+    // y_j of the band, from the registers through the warp's staging, 8
+    // rows of x at a time: lane (g4, t4) holds rows g4 and g4 + 8 at the
+    // columns 4 t4 .. + 3 of each 16-column segment; the reds go out a row
+    // at a time, 32 neighbouring sums a warp-wide red
+    if (active && !diag) {
+      int* stg = yjs + w * 8 * YJLD;
+      const int ncol = min(BLINE, b - w * BLINE);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        __syncwarp();
+#pragma unroll
+        for (int sg = 0; sg < 8; ++sg)
+          *reinterpret_cast<int4*>(stg + g4 * YJLD + 16 * sg + 4 * t4) =
+              make_int4(acc_j[sg][0][2 * h], acc_j[sg][1][2 * h], acc_j[sg][0][2 * h + 1],
+                        acc_j[sg][1][2 * h + 1]);
+        __syncwarp();
+        for (int r = 0; r < 8 && 8 * h + r < mrows; ++r) {
+          int* out = acc + size_t(8 * h + r) * n + size_t(bj) * b + w * BLINE;
+#pragma unroll
+          for (int c = lane; c < BLINE; c += 32)
+            if (c < ncol) atomicAdd(out + c, stg[r * YJLD + c]);
+        }
+      }
+    }
+    // y_i of the band, once all eight warps have added into it; then zero
+    // it for the band after next
+    asm volatile("bar.sync 1, %0;\n" ::"n"(32 * BCONS) : "memory");
+    for (int e = tid; e < MTILE * BAND; e += 32 * BCONS) {
+      const int row = e / BAND;
+      const int p = e - row * BAND;
+      int* y = yi + p * YILD + row;
+      if (row < mrows && p < rows) atomicAdd(acc + size_t(row) * n + size_t(bi) * b + r0 + p, *y);
+      *y = 0;
+    }
+  }
+}
+
 template <bool SPLIT>
 __global__ void symm_int8_epilogue(const int* __restrict__ acc0,
                                    const int* __restrict__ acc1,
@@ -656,32 +1000,93 @@ int launch_mma(const int8_t* x, const int8_t* x2, const int8_t* q, const int8_t*
   return int(cudaGetLastError());
 }
 
+// cuTensorMapEncodeTiled from the driver, through the runtime (no -lcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) ==
+            cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+int launch_band(const int8_t* x, const int8_t* q, const int* ii, const int* jj, int* acc,
+                int m, int n, int b, int n_pairs, cudaStream_t stream) {
+  if (m > MTILE || b > BLINE * BLINES || alignment(q, b) != 16 || alignment(x, b) != 16)
+    return int(cudaErrorInvalidValue);
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return int(cudaErrorNotSupported);
+  // the tiles as (n_pairs b) rows of b bytes; a box is BROWS rows of one
+  // 128-byte line, swizzled; columns past b read as zeros
+  CUtensorMap tiles;
+  const cuuint64_t dims[2] = {cuuint64_t(b), cuuint64_t(n_pairs) * cuuint64_t(b)};
+  const cuuint64_t strides[1] = {cuuint64_t(b)};
+  const cuuint32_t box[2] = {BLINE, BROWS};
+  const cuuint32_t unit[2] = {1, 1};
+  if (encode(&tiles, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<int8_t*>(q), dims, strides,
+             box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return int(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(
+      symm_int8_band_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(BSMEM));
+  if (err != cudaSuccess) return int(err);
+  int device = 0, sms = 0;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) !=
+          cudaSuccess)
+    return int(err);
+  const int bands = n_pairs * ((b + BAND - 1) / BAND);
+  // persistent blocks, one an SM: each walks the bands blockIdx.x + k * gridDim.x
+  symm_int8_band_kernel<<<bands < sms ? bands : sms, BTHREADS, BSMEM, stream>>>(
+      tiles, x, ii, jj, acc, m, n, b, bands);
+  return int(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
+
+// The band height of K4's band walk (symm_int8.py BAND_INT8).
+int symm_int8_band_rows() { return BAND; }
 
 // The square edge of K4's and K5's work items (symm_int8.py SQUARE_INT8).
 int symm_int8_square_edge() { return SQ; }
 
 // K4. qx (m, n) int8; q (n_pairs, b, b) int8, 16-byte aligned; xf (m, n)
 // f32; sx (m,) f32; gq, d (n,) f32; acc (m, n) int32 zeroed by the caller;
-// y (m, n) f32. M tiles per block: 1 for m <= 16, 2 for m <= 32, else 4.
+// y (m, n) f32. walk 1: the band walk (m <= 16, b <= 1024, b and both
+// int8 operands 16-byte aligned; symm_int8.py int8_walk chooses); walk 0:
+// the square walk, M tiles per block 1 for m <= 16, 2 for m <= 32, else 4.
 int symm_int8(const int8_t* qx, const int8_t* q, const int* ii, const int* jj,
               const float* xf, const float* sx, const float* gq, const float* d,
-              int* acc, float* y, int m, int n, int b, int n_pairs,
+              int* acc, float* y, int m, int n, int b, int n_pairs, int walk,
               cudaStream_t stream) {
   const long long nsq = (b + SQ - 1) / SQ;
   const long long items = n_pairs * nsq * nsq;
   if (m <= 0 || n <= 0 || b <= 0 || n_pairs <= 0 || n % b != 0 || items > 0x7fffffff ||
-      (m + MTILE - 1) / MTILE > 65535)
+      (m + MTILE - 1) / MTILE > 65535 || (walk != 0 && walk != 1))
     return int(cudaErrorInvalidValue);
   const int it = int(items);
-  int err = m <= MTILE ? launch_mma<1, 1>(qx, qx, q, q, ii, jj, acc, acc, m, n, b, it, stream)
+  int err = walk == 1 ? launch_band(qx, q, ii, jj, acc, m, n, b, n_pairs, stream)
+            : m <= MTILE
+                ? launch_mma<1, 1>(qx, qx, q, q, ii, jj, acc, acc, m, n, b, it, stream)
             : m <= 2 * MTILE
                 ? launch_mma<2, 1>(qx, qx, q, q, ii, jj, acc, acc, m, n, b, it, stream)
                 : launch_mma<4, 1>(qx, qx, q, q, ii, jj, acc, acc, m, n, b, it, stream);
   if (err != 0) return err;
-  return launch_epilogue(false, b % 2 == 0, acc, acc, xf, sx, gq, d, y, m, n, stream);
+  // the band walk adds 32-bit sums: no 64-bit pairs' carry to add back
+  return launch_epilogue(false, b % 2 == 0 && walk == 0, acc, acc, xf, sx, gq, d, y, m, n,
+                         stream);
 }
 
 // K5. p1, p2 (m, n) int8; q1, q2 (n_pairs, b, b) int8; acc1 (hi) and acc2

@@ -25,18 +25,21 @@ both packages (``convert.py``).
 Kernels (CUDA C++ for sm_90a, ``csrc/symm_int8.cu``):
 
 - ``symm_matmat_int8_kernel`` replaces ``symm_matmat_int8_pallas`` /
-  ``_symm_matmat_int8_impl`` (K4), on the int8 tensor cores: persistent
-  blocks walk the ``SQUARE_INT8`` x ``SQUARE_INT8`` squares of the tiles,
-  derived from the block index (``int8_square_items``), for passes of up
-  to 64 rows of x;
+  ``_symm_matmat_int8_impl`` (K4), on the int8 tensor cores, in one of two
+  walks that ``int8_walk`` picks from the call's shape: at one M tile of
+  16 rows with enough bands to fill the card, persistent blocks walk the
+  bands of the tiles (``BAND_INT8`` whole tile rows, streamed by TMA;
+  ``int8_band_items``); otherwise the ``SQUARE_INT8`` x ``SQUARE_INT8``
+  squares (``int8_square_items``), for passes of up to 64 rows of x.
+  ``K4_WALKS`` counts the calls of each walk;
 - ``symm_matmat_int8_split_kernel`` replaces
   ``symm_matmat_int8_split_pallas`` / ``_symm_matmat_int8_split_impl`` (K5)
   with the same kernel on two planes: each tile byte pair feeds three
   products into two int32 sums, hi = p1 Q1 and lo = p1 Q2 + p2 Q1, for
   passes of 16 rows of x (``INT8_SPLIT_ROWS``).
 
-``int8_square_walk`` follows both walks in plain PyTorch for the CPU
-tests, and ``int8_flush_atomics`` counts their flushes.
+``int8_square_walk`` follows K4's two walks and K5's in plain PyTorch for
+the CPU tests, and ``int8_flush_atomics`` counts their flushes.
 
 x is quantized in the wrapper with the same torch ops as the plain version
 (the JAX package quantizes outside its Pallas kernels too). The kernels add
@@ -65,6 +68,7 @@ import numpy as np
 import torch
 
 from ... import config as _config
+from ...utils import profiler as _profiler
 from . import _build
 from .symm import _check_operands, exactly_symmetric, packed_matvec
 
@@ -72,6 +76,8 @@ Tensor = torch.Tensor
 
 # launches of each kernel, counted once per action call by the wrappers
 LAUNCHES = {"symm_int8": 0, "symm_int8_split": 0}
+# K4's calls by the walk they took (``int8_walk``)
+K4_WALKS = {"band": 0, "square": 0}
 
 _SQRT127 = float(np.sqrt(127.0))
 
@@ -83,6 +89,14 @@ M_TILE = 16
 # K5's rows of x per pass: one M tile (its two planes' sums fill the
 # registers that K4 gives to more rows)
 INT8_SPLIT_ROWS = M_TILE
+# K4's band walk: bands of BAND_INT8 tile rows across the whole width b,
+# streamed in stages of BAND_STAGE_ROWS rows; one warp per 128 bytes of a
+# row holds its y_j in registers, so b <= BAND_MAX_B; it engages where the
+# bands give every SM at least BAND_MIN_PER_SM of them (one block an SM)
+BAND_INT8 = 256
+BAND_STAGE_ROWS = 32
+BAND_MAX_B = 1024
+BAND_MIN_PER_SM = 8
 
 
 def _pack_lower(matrix: np.ndarray, b: int):
@@ -295,13 +309,22 @@ def quantize_rows_split(xs: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
 
 
 def _symm_matmat_int8_plain(qx: Tensor, q: Tensor, ii: Tensor, jj: Tensor,
-                            b: int, nb: int) -> Tensor:
+                            b: int, nb: int, pairs_per_pass: Optional[int] = None) -> Tensor:
     """The int32 accumulator of the packed action (symm_int8.py:280-292):
     acc_i += qx_j Q^T for every pair, acc_j += qx_i Q for strict-lower
     pairs. PyTorch has no int32 batched product on CUDA, so the contraction
     runs in float64: every product and partial sum is an integer below
     2^31 < 2^53 (``_check_acc_headroom``), so it is exact in any order, and
-    the cast back to int32 is exact too."""
+    the cast back to int32 is exact too. ``pairs_per_pass`` takes the pairs
+    that many at a time, which bounds the float64 copies of the tiles (a
+    pass's int32 sums are exact too, so the result is the same)."""
+    if pairs_per_pass is not None and q.shape[0] > pairs_per_pass:
+        acc = None
+        for start in range(0, q.shape[0], pairs_per_pass):
+            sl = slice(start, start + pairs_per_pass)
+            part = _symm_matmat_int8_plain(qx, q[sl], ii[sl], jj[sl], b, nb)
+            acc = part if acc is None else acc.add_(part)
+        return acc
     m = qx.shape[0]
     f64 = torch.float64
     ii, jj = ii.long(), jj.long()
@@ -331,20 +354,78 @@ def int8_square_items(n_pairs: int, b: int):
         yield t, (s // nsq) * SQUARE_INT8, (s % nsq) * SQUARE_INT8
 
 
+def int8_walk(m: int, b: int, n_pairs: int, sms: int, aligned: bool = True,
+              planes: int = 1) -> str:
+    """The walk K4 takes for a call: ``"band"`` at one M tile (m <= 16),
+    where the tiles take 16-byte copies (``aligned``: b a multiple of 16,
+    the int8 operands 16-byte aligned; TMA's strides need it), b <=
+    ``BAND_MAX_B``, and the bands fill the card's ``sms`` SMs at least
+    ``BAND_MIN_PER_SM`` deep; ``"square"`` otherwise, and always for K5
+    (``planes=2``)."""
+    bands = n_pairs * -(-b // BAND_INT8)
+    if (planes == 1 and int8_m_tiles(m) == 1 and aligned and b % 16 == 0
+            and b <= BAND_MAX_B and bands >= BAND_MIN_PER_SM * sms):
+        return "band"
+    return "square"
+
+
+def int8_band_items(n_pairs: int, b: int):
+    """The band walk's work items in block-index order: (t, r0) of each
+    band of ``BAND_INT8`` rows of each tile, derived as the kernel derives
+    them from ``blockIdx.x``."""
+    per_tile = -(-b // BAND_INT8)
+    for band in range(n_pairs * per_tile):
+        t, r = divmod(band, per_tile)
+        yield t, r * BAND_INT8
+
+
+def _int8_band_walk(qx: Tensor, q: Tensor, ii: list, jj: list, b: int) -> Tensor:
+    """The band walk of ``int8_square_walk``: per band, stage by stage of
+    ``BAND_STAGE_ROWS`` rows, y_i of the stage's rows over all b columns
+    and y_j of all b columns over the stage's rows, in int32; each
+    flushed into the accumulator once per band."""
+    m = qx.shape[0]
+    xs, tiles = qx.to(torch.int64), q.to(torch.int64)
+    acc = torch.zeros(qx.shape, dtype=torch.int32, device=qx.device)
+    for t, r0 in int8_band_items(len(ii), b):
+        diag = ii[t] == jj[t]
+        r1 = min(r0 + BAND_INT8, b)
+        yi = torch.zeros((m, r1 - r0), dtype=torch.int32, device=qx.device)
+        yj = torch.zeros((m, b), dtype=torch.int32, device=qx.device)
+        xj = xs[:, jj[t] * b:(jj[t] + 1) * b]
+        for s in range(r0, r1, BAND_STAGE_ROWS):
+            rows = tiles[t, s:min(s + BAND_STAGE_ROWS, r1)]
+            yi[:, s - r0:s - r0 + rows.shape[0]] += (xj @ rows.T).to(torch.int32)
+            if not diag:
+                yj += (xs[:, ii[t] * b + s:ii[t] * b + s + rows.shape[0]] @ rows).to(torch.int32)
+        if not diag:
+            acc[:, jj[t] * b:(jj[t] + 1) * b] += yj
+        acc[:, ii[t] * b + r0:ii[t] * b + r1] += yi
+    return acc
+
+
 def int8_square_walk(qx: Tensor, q: Tensor, ii: Tensor, jj: Tensor, b: int,
-                     p2: Optional[Tensor] = None, q2: Optional[Tensor] = None):
-    """Plain emulation of the K4 and K5 walk, for the CPU tests: for each
+                     p2: Optional[Tensor] = None, q2: Optional[Tensor] = None,
+                     walk: str = "square"):
+    """Plain emulation of the K4 and K5 walks, for the CPU tests. The
+    square walk (K4's for more than 16 rows of x, and K5's): for each
     pass of rows of x (``16 * int8_m_tiles(m)``, or ``INT8_SPLIT_ROWS`` on
     two planes) and each work item, the chunks column by column as the
     kernel streams them, both contributions y_i += x_j Qᵀ and (off the
     diagonal) y_j += x_i Q summed in int32; y_i added into the accumulator
     once per item, y_j once per chunk column, as the kernel flushes.
+    ``walk="band"`` (one plane, m <= 16): K4's band walk instead
+    (``_int8_band_walk``).
 
     One plane (``qx``, ``q``): returns the accumulator. Two planes (``qx``
     = p1, ``q`` = Q1, and ``p2``, ``q2`` = Q2): returns (hi, lo), hi = p1 Q1
     and lo = p1 Q2 + p2 Q1, each product pair taken chunk by chunk."""
     m, n = qx.shape
     split = p2 is not None
+    if walk == "band":
+        if split or int8_m_tiles(m) != 1:
+            raise ValueError("the band walk takes one plane and at most 16 rows of x")
+        return _int8_band_walk(qx, q, ii.tolist(), jj.tolist(), b)
     rows_per_pass = INT8_SPLIT_ROWS if split else M_TILE * int8_m_tiles(m)
     # (x plane, tile plane, sum) of each product
     products = ((0, 0, 0), (0, 1, 1), (1, 0, 1)) if split else ((0, 0, 0),)
@@ -381,27 +462,36 @@ def int8_square_walk(qx: Tensor, q: Tensor, ii: Tensor, jj: Tensor, b: int,
     return tuple(accs) if split else accs[0]
 
 
-def int8_flush_atomics(ii, jj, b: int, m: int, planes: int = 1) -> Tuple[int, int]:
+def int8_flush_atomics(ii, jj, b: int, m: int, planes: int = 1,
+                       walk: str = "square") -> Tuple[int, int]:
     """(int32 sums, reds) that one K4 (``planes=1``) or K5 (``planes=2``:
     hi and lo) call flushes into its accumulators: each work item flushes
-    once, one sum per accumulator, row of x and row of its square (y_i)
-    and, off the diagonal, per row of x and column of its square (y_j).
-    Where b is even two neighbouring sums go out as one 64-bit red, else
-    each as a 32-bit one."""
+    once, one sum per accumulator, row of x and row of its square or band
+    (y_i) and, off the diagonal, per row of x and column of its square or,
+    for a band (``walk="band"``), of the whole tile (y_j). The square walk
+    sends two neighbouring sums as one 64-bit red where b is even, else
+    each as a 32-bit one; the band walk sends each as a 32-bit red, 32
+    neighbouring sums of one row a warp-wide red."""
     diag = np.asarray(ii) == np.asarray(jj)
-    edges = [min(SQUARE_INT8, b - s) for s in range(0, b, SQUARE_INT8)]
-    per_tile = sum(edges) * len(edges)   # sum over squares of their rows (or columns)
-    sums = int(planes * m * per_tile * (2 * np.sum(~diag) + np.sum(diag)))
-    return sums, sums // 2 if b % 2 == 0 else sums
+    if walk == "band":
+        rows = b                                   # y_i: every row once over the bands
+        cols = b * -(-b // BAND_INT8)              # y_j: the tile's width once a band
+    else:
+        edges = [min(SQUARE_INT8, b - s) for s in range(0, b, SQUARE_INT8)]
+        rows = cols = sum(edges) * len(edges)      # over squares, their rows (or columns)
+    sums = int(planes * m * (rows * diag.size + cols * np.sum(~diag)))
+    return sums, sums // 2 if b % 2 == 0 and walk == "square" else sums
 
 
-def symm_matmat_int8(x: Tensor, sym: SymmetricBlockedInt8) -> Tensor:
+def symm_matmat_int8(x: Tensor, sym: SymmetricBlockedInt8,
+                     pairs_per_pass: Optional[int] = None) -> Tensor:
     """Plain PyTorch version of K4 (symm_int8.py:295-302): float32 whatever
-    the dtype of x, cast back to it."""
+    the dtype of x, cast back to it. ``pairs_per_pass``: see
+    ``_symm_matmat_int8_plain`` (the same bits, less memory)."""
     nb = sym.shape[0] // sym.b
     xf = x.to(torch.float32)
     qx, sx = quantize_rows(xf * sym.gq[None, :])
-    acc = _symm_matmat_int8_plain(qx, sym.q, sym.ii, sym.jj, sym.b, nb)
+    acc = _symm_matmat_int8_plain(qx, sym.q, sym.ii, sym.jj, sym.b, nb, pairs_per_pass)
     y = acc.to(torch.float32) * sx * sym.gq[None, :] + xf * _diag_or_zeros(sym)[None, :]
     return y.to(x.dtype)
 
@@ -427,13 +517,14 @@ _I = ctypes.c_int
 @functools.cache
 def _int8_lib():
     lib = _build.load("symm_int8")
-    lib.symm_int8.argtypes = [_P] * 10 + [_I] * 4 + [_P]
+    lib.symm_int8.argtypes = [_P] * 10 + [_I] * 5 + [_P]
     lib.symm_int8_split.argtypes = [_P] * 13 + [_I] * 4 + [_P]
     lib.symm_int8.restype = _I
     lib.symm_int8_split.restype = _I
-    if lib.symm_int8_square_edge() != SQUARE_INT8:
-        raise RuntimeError(f"symm_int8.cu walks squares of {lib.symm_int8_square_edge()}, "
-                           f"symm_int8.py {SQUARE_INT8}")
+    if (lib.symm_int8_square_edge(), lib.symm_int8_band_rows()) != (SQUARE_INT8, BAND_INT8):
+        raise RuntimeError(f"symm_int8.cu walks squares of {lib.symm_int8_square_edge()} and "
+                           f"bands of {lib.symm_int8_band_rows()} rows, symm_int8.py "
+                           f"{SQUARE_INT8} and {BAND_INT8}")
     return lib
 
 
@@ -450,11 +541,24 @@ def _check_scales(x: Tensor, sym) -> Tuple[Tensor, Tensor]:
     return out[0], out[1]
 
 
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _record_walk(walk: str) -> None:
+    """Count one K4 call of ``walk`` in ``K4_WALKS`` and, for the band
+    walk inside a traced solve, in the profiler's ``int8_band_calls``."""
+    K4_WALKS[walk] += 1
+    if walk == "band":
+        _profiler.count("int8_band_calls", 1)
+
+
 def symm_matmat_int8_kernel(x: Tensor, sym: SymmetricBlockedInt8) -> Tensor:
     """K4: the one-plane int8 action, each packed tile read once for up to
-    64 rows of x (replaces ``symm_matmat_int8_pallas``). A CUDA tensor
-    launches ``symm_int8`` and returns float32; a CPU tensor takes the plain
-    version."""
+    64 rows of x (replaces ``symm_matmat_int8_pallas``), in the walk
+    ``int8_walk`` picks. A CUDA tensor launches ``symm_int8`` and returns
+    float32; a CPU tensor takes the plain version."""
     if x.device.type == "cpu":
         return symm_matmat_int8(x, sym)
     x = x.contiguous()
@@ -464,13 +568,16 @@ def symm_matmat_int8_kernel(x: Tensor, sym: SymmetricBlockedInt8) -> Tensor:
     qx, sx = quantize_rows(x * gq[None, :])
     acc = torch.zeros((m, n), dtype=torch.int32, device=x.device)
     y = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    aligned = sym.q.data_ptr() % 16 == 0 and qx.data_ptr() % 16 == 0
+    walk = int8_walk(m, sym.b, sym.n_pairs, _sm_count(x.device.index), aligned)
     lib = _int8_lib()
     err = lib.symm_int8(qx.data_ptr(), sym.q.data_ptr(), sym.ii.data_ptr(), sym.jj.data_ptr(),
                         x.data_ptr(), sx.data_ptr(), gq.data_ptr(), dg.data_ptr(),
                         acc.data_ptr(), y.data_ptr(), m, n, sym.b, sym.n_pairs,
-                        _build.stream_handle(x.device))
+                        int(walk == "band"), _build.stream_handle(x.device))
     _build.check(lib, err, "symm_int8")
     LAUNCHES["symm_int8"] += 1
+    _record_walk(walk)
     return y
 
 

@@ -364,6 +364,45 @@ def test_int8_kernel_m_tilings(cuda, n, b, m):
     assert torch.equal(y, symm_int8.symm_matmat_int8(x, sym))
 
 
+# K4's band walk at small shapes, where int8_walk would pick the square
+# walk (too few bands to fill the card): every b a multiple of 16 of
+# INT8_SHAPES (b = 32 and 96 below a 128-byte line and a band, b = 512 half
+# a stage's lines), and tile dropping; the walk is forced by replacing the
+# choice, and the call counted once as a band call
+@pytest.mark.parametrize("m", [1, 6, 16])
+@pytest.mark.parametrize("n,b,tol", [(n, b, None) for n, b in INT8_SHAPES if b % 16 == 0]
+                         + [(4096, 1024, 0.0)])
+def test_int8_band_walk_equals_plain(cuda, monkeypatch, n, b, tol, m):
+    mat = _sym_matrix(n, 14)
+    if tol is not None:  # zero some whole off-diagonal tiles, which tol drops
+        for i, j in ((1, 0), (3, 1)):
+            mat[i * b:(i + 1) * b, j * b:(j + 1) * b] = 0.0
+            mat[j * b:(j + 1) * b, i * b:(i + 1) * b] = 0.0
+    sym = symm_int8.SymmetricBlockedInt8.from_dense(mat, b=b, tol=tol, device=cuda)
+    monkeypatch.setattr(symm_int8, "int8_walk", lambda *args, **kw: "band")
+    xh = np.random.default_rng(15).standard_normal((m, sym.shape[0]))
+    xh[m // 2] = 0.0
+    x = torch.as_tensor(xh, dtype=torch.float32, device=cuda)
+    before = dict(symm_int8.K4_WALKS)
+    y = symm_int8.symm_matmat_int8_kernel(x, sym)
+    torch.cuda.synchronize()
+    assert symm_int8.K4_WALKS == {**before, "band": before["band"] + 1}
+    assert torch.equal(y, symm_int8.symm_matmat_int8(x, sym))
+    assert torch.equal(symm_int8.symm_matmat_int8_kernel(x, sym), y)
+
+
+def test_int8_walk_taken_on_the_card(cuda):
+    """At these sizes the choice is the square walk: a call counts one
+    square-walk call and no profiler count."""
+    sym = symm_int8.SymmetricBlockedInt8.from_dense(_sym_matrix(2048, 16), b=1024, device=cuda)
+    x = torch.ones((16, 2048), dtype=torch.float32, device=cuda)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert symm_int8.int8_walk(16, 1024, sym.n_pairs, sms) == "square"
+    before = dict(symm_int8.K4_WALKS)
+    symm_int8.symm_matmat_int8_kernel(x, sym)
+    assert symm_int8.K4_WALKS == {**before, "square": before["square"] + 1}
+
+
 # K5 at every pass count: 16 rows of x per pass, so 17 and 40 take two and
 # three passes, 64 four, 100 seven
 @pytest.mark.parametrize("m", [1, 17, 40, 64, 100])

@@ -132,15 +132,19 @@ def test_quantize_rows_half_to_even():
     np.testing.assert_array_equal(qt.numpy(), [[127, 0, 2, -2, 4]])
 
 
+# pairs_per_pass None: all pairs in one contraction; 2: in passes of two
+# pairs (the card's check at the benchmark's size), the same bits
 @pytest.mark.parametrize("n,b,tol", PACKINGS)
-@pytest.mark.parametrize("m", [1, 4])
-def test_int32_accumulator_equals_jax(n, b, tol, m):
+@pytest.mark.parametrize("m,pairs_per_pass", [(1, None), (4, None), (4, 2)],
+                         ids=["1", "4", "4-passes"])
+def test_int32_accumulator_equals_jax(n, b, tol, m, pairs_per_pass):
     js, ts = _pair("int8", n, b, tol, seed=3)
     n_pad = ts.shape[0]
     qx = np.random.default_rng(4).integers(-127, 128, (m, n_pad)).astype(np.int8)
     nb = n_pad // ts.b
     ref = np.asarray(J._symm_matmat_int8_xla(jnp.asarray(qx), js.q, (js.ii, js.jj), js.b, nb))
-    got = T._symm_matmat_int8_plain(torch.from_numpy(qx), ts.q, ts.ii, ts.jj, ts.b, nb)
+    got = T._symm_matmat_int8_plain(torch.from_numpy(qx), ts.q, ts.ii, ts.jj, ts.b, nb,
+                                    pairs_per_pass)
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), ref)
 
@@ -241,14 +245,21 @@ def _walk_operand(n, b, tol):
     return ts
 
 
-@pytest.mark.parametrize("m", [1, 16, 17, 64, 65])
-@pytest.mark.parametrize("n,b,tol", WALKS)
-def test_square_walk_equals_plain(n, b, tol, m):
+# the square walk at every M tiling; K4's band walk (one M tile, b a
+# multiple of 16) at m = 1, 6 and 16
+WALK_CASES = ([pytest.param(n, b, tol, m, "square", id=f"{n}-{b}-{tol}-{m}")
+               for n, b, tol in WALKS for m in (1, 16, 17, 64, 65)]
+              + [pytest.param(n, b, tol, m, "band", id=f"{n}-{b}-{tol}-{m}-band")
+                 for n, b, tol in WALKS if b % 16 == 0 for m in (1, 6, 16)])
+
+
+@pytest.mark.parametrize("n,b,tol,m,walk", WALK_CASES)
+def test_square_walk_equals_plain(n, b, tol, m, walk):
     ts = _walk_operand(n, b, tol)
     qx = np.random.default_rng(17).integers(-127, 128, (m, ts.shape[0])).astype(np.int8)
     qx[m // 2] = 0
     qx = torch.from_numpy(qx)
-    got = T.int8_square_walk(qx, ts.q, ts.ii, ts.jj, ts.b)
+    got = T.int8_square_walk(qx, ts.q, ts.ii, ts.jj, ts.b, walk=walk)
     ref = T._symm_matmat_int8_plain(qx, ts.q, ts.ii, ts.jj, ts.b, ts.shape[0] // ts.b)
     assert got.dtype == torch.int32
     assert torch.equal(got, ref)
@@ -294,10 +305,32 @@ def test_flush_atomics_count_by_numpy(n, b, tol, planes):
     rows = np.minimum(T.SQUARE_INT8, b - (s // nsq) * T.SQUARE_INT8)
     cols = np.minimum(T.SQUARE_INT8, b - (s % nsq) * T.SQUARE_INT8)
     per_x_row = np.sum(rows + np.where(ii[t] != jj[t], cols, 0))
+    # the band walk: per band, its rows (y_i) and, off the diagonal, all b
+    # columns of the tile (y_j)
+    bpt = -(-b // T.BAND_INT8)
+    tb = np.repeat(np.arange(ts.n_pairs), bpt)
+    band_rows = np.minimum(T.BAND_INT8, b - np.tile(np.arange(bpt), ts.n_pairs) * T.BAND_INT8)
+    per_x_row_band = np.sum(band_rows + np.where(ii[tb] != jj[tb], b, 0))
     for m in (1, 16, 17, 64):
         sums, reds = T.int8_flush_atomics(ii, jj, b, m, planes=planes)
         assert sums == planes * m * int(per_x_row)
         assert reds == (sums // 2 if b % 2 == 0 else sums)
+        if planes == 1 and m <= 16:
+            # one 32-bit red a sum
+            assert T.int8_flush_atomics(ii, jj, b, m, walk="band") == (
+                m * int(per_x_row_band),) * 2
+
+
+@pytest.mark.parametrize("walk,sums,reds", [("band", 667_942_912, 667_942_912),
+                                            ("square", 1_073_741_824, 536_870_912)])
+def test_flush_atomics_at_the_benchmark_cell(walk, sums, reds):
+    """The benchmark's operator (n = 131072, b = 1024: 8256 tile pairs, 128
+    on the diagonal) at 16 rows of x: the band walk flushes 256 + 1024
+    sums a band and row of x, each a 32-bit red; the square walk 4 x 512,
+    two to a 64-bit red."""
+    ii, jj = np.tril_indices(128)
+    assert ii.size == 8256
+    assert T.int8_flush_atomics(ii, jj, 1024, 16, walk=walk) == (sums, reds)
 
 
 @pytest.mark.parametrize("n,b,tol", WALKS)
@@ -334,3 +367,52 @@ def test_square_items_cover_every_tile_element_once(n, b, tol):
                                      (65, 4)])
 def test_m_tiles_per_block(m, tiles):
     assert T.int8_m_tiles(m) == tiles
+
+
+# (m, b, n_pairs, sms, aligned, planes) -> walk: the benchmark's operator
+# (8256 pairs of 1024) takes the band walk at 16 rows on 132 SMs; 36 pairs
+# (n = 8192) give 144 bands, 528 of 256 (b = 256) 528: under 8 an SM
+WALK_CHOICES = [
+    ((16, 1024, 8256, 132, True, 1), "band"),
+    ((1, 1024, 8256, 132, True, 1), "band"),
+    ((17, 1024, 8256, 132, True, 1), "square"),
+    ((64, 1024, 8256, 132, True, 1), "square"),
+    ((16, 1024, 8256, 132, False, 1), "square"),
+    ((16, 1000, 8256, 132, True, 1), "square"),
+    ((16, 2048, 8256, 132, True, 1), "square"),
+    ((16, 1024, 8256, 132, True, 2), "square"),
+    ((16, 1024, 36, 132, True, 1), "square"),
+    ((6, 256, 528, 132, True, 1), "square"),
+    ((16, 1024, 264, 132, True, 1), "band"),
+    ((16, 1024, 263, 132, True, 1), "square"),
+    ((16, 1024, 263, 100, True, 1), "band"),
+    ((16, 96, 1056, 132, True, 1), "band"),
+]
+
+
+@pytest.mark.parametrize("args,walk", WALK_CHOICES)
+def test_walk_choice(args, walk):
+    """The band walk only at one M tile, b a multiple of 16 up to 1024 with
+    16-byte aligned operands, and at least 8 bands an SM (the SM count
+    passed in); the square walk otherwise, and always for K5."""
+    assert T.int8_walk(*args) == walk
+
+
+@pytest.mark.parametrize("walk", ["band", "square"])
+def test_walk_counters_count_one_a_call(walk):
+    """``K4_WALKS`` counts every call of its walk; the profiler's
+    ``int8_band_calls`` counts band-walk calls inside a traced solve only."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from iterative_solver_torch.utils import profiler as P
+
+    P.reset()
+    before = dict(T.K4_WALKS)
+    T._record_walk(walk)
+    with profile(activities=[ProfilerActivity.CPU]):
+        T._record_walk(walk)
+        T._record_walk(walk)
+    assert T.K4_WALKS == {**before, walk: before[walk] + 3}
+    band = {"int8_band_calls": 2} if walk == "band" else {}
+    assert P.snapshot()["counters"] == band
+    P.reset()
