@@ -547,11 +547,10 @@ def _sm_count(index: int) -> int:
 
 
 def _record_walk(walk: str) -> None:
-    """Count one K4 call of ``walk`` in ``K4_WALKS`` and, for the band
-    walk inside a traced solve, in the profiler's ``int8_band_calls``."""
+    """Count one K4 call of ``walk`` in ``K4_WALKS`` and, inside a traced
+    solve, in the profiler's ``int8_band_calls`` or ``int8_square_calls``."""
     K4_WALKS[walk] += 1
-    if walk == "band":
-        _profiler.count("int8_band_calls", 1)
+    _profiler.count(f"int8_{walk}_calls", 1)
 
 
 def symm_matmat_int8_kernel(x: Tensor, sym: SymmetricBlockedInt8) -> Tensor:

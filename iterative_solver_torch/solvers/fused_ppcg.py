@@ -11,6 +11,18 @@ iteration: A·x and A·p are carried exactly through every linear update, the
 action applies only to the fresh block W, plus one re-anchoring action of X
 at each full Rayleigh-Ritz.
 
+The solve's phases open spans (utils/profiler.py): ``ppcg.solve``,
+``.upload``, ``.iteration``, ``.action``, ``.rr3`` (the per-root 3x3
+Rayleigh-Ritz, the update and the Cholesky-QR), ``.full_rr`` (with its
+re-anchoring ``.action`` inside) and ``.wait``, which record only while a
+``torch.profiler`` session does.
+
+On a CUDA device the per-root Rayleigh-Ritz after its row dots
+(``_rr3_coeffs``: two packed 3x3 Jacobi eigensolves, elementwise on (r,)
+vectors) is captured once into a CUDA graph and replayed each iteration
+(``_Replay``), the same kernels at one launch; the guess is copied to the
+device at its own dtype and narrowed there.
+
 Differences from the JAX package, each kept to the same semantics:
 
 - the ``lax.while_loop`` is a host loop that reads the device once per
@@ -35,6 +47,7 @@ replicated eigenvalues and errors and the gathered Ritz vectors.
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, NamedTuple, Optional
 
 import numpy as np
@@ -46,6 +59,7 @@ from ..array.vector_ops import dots_rows as _rows_dot
 from ..ops.kernels.chain import _cholesky_nan, lower_solve
 from ..parallel.collectives import pmax, psum
 from ..parallel.mesh import check_sharding
+from ..utils.profiler import settle, span
 from ._finite import check_finite
 
 Tensor = torch.Tensor
@@ -75,6 +89,13 @@ def _flush(x: Tensor) -> Tensor:
 
 def _eye(n: int, like: Tensor) -> Tensor:
     return torch.eye(n, dtype=like.dtype, device=like.device)
+
+
+def _act(matvec, x: Tensor, operand) -> Tensor:
+    """``matvec(x, operand)``, the user's action, inside the span
+    ``ppcg.action``."""
+    with span("ppcg.action"):
+        return matvec(x, operand)
 
 
 def _jacobi3_packed(a00, a11, a22, a01, a02, a12, sweeps: int = 6):
@@ -141,19 +162,31 @@ def _batched_eigh3(a: Tensor, sweeps: int = 6):
 
 def _batched_rr3(x, ax, w, aw, p, ap, live_w, live_p, nroots: int,
                  sharding=None) -> Tensor:
-    """Per-root (3, 3) Rayleigh-Ritz, batched over roots
-    (fused_ppcg.py:130-195). Rows are unit-normalised or exactly zero, so
-    the metric has a unit diagonal on live directions; dead directions are
-    masked out of the whitening and their diagonal pushed above the live
-    spectrum. Returns the (r, 3) coefficients of the lowest eigenpair."""
-    dtype = x.dtype
-    one = torch.ones((nroots,), dtype=dtype, device=x.device)
-    lw = live_w.to(dtype)
-    lp = live_p.to(dtype)
-    # the nine row dots over N, in one all-reduce under sharding
-    dots = psum(torch.stack([_rows_dot(a, c) for a, c in (
+    """The JAX package's ``_batched_rr3``: ``_rr3_coeffs`` of ``_rr3_dots``
+    (the step calls the two apart, to replay the second from a graph)."""
+    return _rr3_coeffs(_rr3_dots(x, ax, w, aw, p, ap, sharding), live_w, live_p, nroots)
+
+
+def _rr3_dots(x, ax, w, aw, p, ap, sharding=None) -> Tensor:
+    """The nine row dots over N of the per-root Rayleigh-Ritz, a (9, r)
+    block, in one all-reduce under sharding."""
+    return psum(torch.stack([_rows_dot(a, c) for a, c in (
         (x, w), (x, p), (w, p), (x, ax), (w, ax), (p, ax), (w, aw), (p, aw), (p, ap))]),
         sharding)
+
+
+def _rr3_coeffs(dots: Tensor, live_w: Tensor, live_p: Tensor, nroots: int) -> Tensor:
+    """Per-root (3, 3) Rayleigh-Ritz, batched over roots
+    (fused_ppcg.py:130-195), from its row dots (``_rr3_dots``). Rows are
+    unit-normalised or exactly zero, so the metric has a unit diagonal on
+    live directions; dead directions are masked out of the whitening and
+    their diagonal pushed above the live spectrum. Returns the (r, 3)
+    coefficients of the lowest eigenpair. Every operation is elementwise on
+    (r,) vectors, with no read back to the host."""
+    dtype = dots.dtype
+    one = torch.ones((nroots,), dtype=dtype, device=dots.device)
+    lw = live_w.to(dtype)
+    lp = live_p.to(dtype)
     xw, xp, wp, hxx, hxw, hxp, hww, hwp, hpp = dots.unbind(0)
 
     gw0, gw1, gw2, gu = _jacobi3_packed(one, lw, lp, xw, xp, wp)
@@ -196,11 +229,55 @@ def _batched_rr3(x, ax, w, aw, p, ap, live_w, live_p, nroots: int,
                         for i in range(3)], dim=-1)
 
 
+class _Replay:
+    """``fn`` of tensors, replayed on a CUDA device from one CUDA graph per
+    set of argument shapes, so that its launches cost the host one. The
+    first call of each set runs ``fn`` once on a side stream, then captures
+    it; every call copies its arguments into the graph's own buffers and
+    returns the graph's output buffer, which the next call overwrites. The
+    kernels are those that ``fn`` launches, so the bits are too. Off CUDA
+    ``fn`` runs as it is."""
+
+    def __init__(self, fn: Callable[..., Tensor]):
+        self.fn = fn
+        self.graphs = {}
+
+    def __call__(self, *args: Tensor) -> Tensor:
+        if not args[0].is_cuda:
+            return self.fn(*args)
+        key = tuple((a.shape, a.dtype, a.device) for a in args)
+        if key not in self.graphs:
+            self.graphs[key] = self._capture(args)
+        graph, inputs, out = self.graphs[key]
+        for buf, a in zip(inputs, args):
+            buf.copy_(a)
+        graph.replay()
+        return out
+
+    def _capture(self, args):
+        inputs = [a.clone() for a in args]
+        stream = torch.cuda.current_stream(args[0].device)
+        side = torch.cuda.Stream(args[0].device)
+        side.wait_stream(stream)
+        with torch.cuda.stream(side):
+            self.fn(*inputs)     # loads the kernels outside the capture
+        stream.wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.device(args[0].device), \
+                torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            out = self.fn(*inputs)
+        return graph, inputs, out
+
+
 def _step_body(matvec: Callable[..., Tensor], nroots: int, rr_every: int,
                sharding=None):
     """One PPCG iteration (fused_ppcg.py:198-290). ``sharding``: the blocks
-    and the diagonal are this rank's slices of N."""
+    and the diagonal are this rank's slices of N. On CUDA the per-root
+    Rayleigh-Ritz after its dots is one graph launch (``_Replay``): launched
+    one by one, its ~1,900 small operations held the card idle behind the
+    host."""
     sh = sharding
+    rr3_coeffs = _Replay(functools.partial(_rr3_coeffs, nroots=nroots))
 
     def step(state: PPCGState, operand, diag: Tensor) -> PPCGState:
         x, ax, p, ap = state.x, state.ax, state.p, state.ap
@@ -232,36 +309,38 @@ def _step_body(matvec: Callable[..., Tensor], nroots: int, rr_every: int,
         p = p * sp[:, None]      # sp is exactly 0 on dead rows: normalises
         ap = ap * sp[:, None]    # and masks in one multiply
 
-        aw = matvec(w, operand)         # the action of the iteration
+        aw = _act(matvec, w, operand)   # the action of the iteration
 
-        c = _batched_rr3(x, ax, w, aw, p, ap, live_w, live_p, nroots, sh)
-        x_new = c[:, 0:1] * x + c[:, 1:2] * w + c[:, 2:3] * p
-        ax_new = c[:, 0:1] * ax + c[:, 1:2] * aw + c[:, 2:3] * ap
-        p_new = c[:, 1:2] * w + c[:, 2:3] * p
-        ap_new = c[:, 1:2] * aw + c[:, 2:3] * ap
+        with span("ppcg.rr3"):
+            c = rr3_coeffs(_rr3_dots(x, ax, w, aw, p, ap, sh), live_w, live_p)
+            x_new = c[:, 0:1] * x + c[:, 1:2] * w + c[:, 2:3] * p
+            ax_new = c[:, 0:1] * ax + c[:, 1:2] * aw + c[:, 2:3] * ap
+            p_new = c[:, 1:2] * w + c[:, 2:3] * p
+            ap_new = c[:, 1:2] * aw + c[:, 2:3] * ap
 
-        # Cholesky-QR keeps the block orthonormal; AX gets the same
-        # transform. L^-1 is formed once against the small identity.
-        g = psum(torch.matmul(x_new, x_new.T), sh)
-        g = g + chol_jitter(dtype) * _eye(nroots, g)
-        l = _cholesky_nan(g)
-        li = torch.linalg.solve_triangular(l, _eye(nroots, g), upper=False)
-        x_new = torch.matmul(li, x_new)
-        ax_new = torch.matmul(li, ax_new)
+            # Cholesky-QR keeps the block orthonormal; AX gets the same
+            # transform. L^-1 is formed once against the small identity.
+            g = psum(torch.matmul(x_new, x_new.T), sh)
+            g = g + chol_jitter(dtype) * _eye(nroots, g)
+            l = _cholesky_nan(g)
+            li = torch.linalg.solve_triangular(l, _eye(nroots, g), upper=False)
+            x_new = torch.matmul(li, x_new)
+            ax_new = torch.matmul(li, ax_new)
 
         it = state.it + 1
         if it % rr_every == 0:
             # full RR: re-couple and re-sort the roots, and re-anchor AX
             # with an exact action (the carried block drifts); the
             # momentum block stays carried
-            h = psum(torch.matmul(x_new, ax_new.T), sh)
-            h = 0.5 * (h + h.T)
-            _, cmat = torch.linalg.eigh(h)
-            rot = cmat.T
-            x_new = torch.matmul(rot, x_new)
-            ax_new = matvec(x_new, operand)
-            p_new = torch.matmul(rot, p_new)
-            ap_new = torch.matmul(rot, ap_new)
+            with span("ppcg.full_rr"):
+                h = psum(torch.matmul(x_new, ax_new.T), sh)
+                h = 0.5 * (h + h.T)
+                _, cmat = torch.linalg.eigh(h)
+                rot = cmat.T
+                x_new = torch.matmul(rot, x_new)
+                ax_new = _act(matvec, x_new, operand)
+                p_new = torch.matmul(rot, p_new)
+                ap_new = torch.matmul(rot, ap_new)
         return PPCGState(x_new, ax_new, p_new, ap_new, rho, errors, it)
 
     return step
@@ -279,13 +358,22 @@ def make_ppcg_init(matvec: Callable[..., Tensor], nroots: int, sharding=None):
                             min=_floor(1e-300, g.dtype))
         l = _cholesky_nan(g + (chol_jitter(g.dtype) * scale) * _eye(nroots, g))
         x = lower_solve(l, v0)
-        ax = matvec(x, operand)
+        ax = _act(matvec, x, operand)
         rho = _rows_dot(x, ax, sh)
         res = ax - rho[:, None] * x
         errors = torch.sqrt(torch.abs(_rows_dot(res, res, sh)))
         return PPCGState(x, ax, torch.zeros_like(x), torch.zeros_like(x), rho, errors, 0)
 
     return init
+
+
+def _not_converged(errors: Tensor, tol: float) -> bool:
+    # one scalar sync; NaN > tol is False, so a NaN error ends the loop as
+    # in the JAX package (run_on_device's check_finite then raises)
+    with span("ppcg.wait"):
+        out = bool(torch.max(errors) > tol)
+    settle()
+    return out
 
 
 def make_ppcg_step(matvec, nroots: int, rr_every: int = 5, sharding=None):
@@ -306,10 +394,9 @@ def make_ppcg_solve(matvec, nroots: int, rr_every: int = 5, history: int = 0,
         hist = (torch.full((history,), float("nan"), dtype=state.errors.dtype,
                            device=state.errors.device) if history else None)
         s, it = state, 0
-        # one scalar sync per iteration; a NaN error ends the loop as in
-        # the JAX package (run_on_device's check_finite then raises)
-        while it < max_iter_ and bool(torch.max(s.errors) > tol_):
-            s = step(s, operand, diag)
+        while it < max_iter_ and _not_converged(s.errors, tol_):
+            with span("ppcg.iteration"):
+                s = step(s, operand, diag)
             if history:
                 hist[min(it, history - 1)] = torch.max(s.errors)
             it += 1
@@ -405,12 +492,16 @@ class FusedPPCG:
         return np.asarray(x)[..., : self.n_orig]
 
     def init_state(self, v0) -> PPCGState:
-        v0 = v0 if isinstance(v0, torch.Tensor) else torch.as_tensor(np.asarray(v0))
-        if self.n_orig != self.n and v0.shape[-1] == self.n_orig:
-            pad = torch.zeros(v0.shape[:-1] + (self.n - self.n_orig,),
-                              dtype=v0.dtype, device=v0.device)
-            v0 = torch.cat([v0, pad], dim=-1)
-        v0 = to_device(v0, self.dtype, self.device, self.sharding).contiguous()
+        with span("ppcg.upload"):
+            v0 = v0 if isinstance(v0, torch.Tensor) else torch.as_tensor(np.asarray(v0))
+            if self.n_orig != self.n and v0.shape[-1] == self.n_orig:
+                pad = torch.zeros(v0.shape[:-1] + (self.n - self.n_orig,),
+                                  dtype=v0.dtype, device=v0.device)
+                v0 = torch.cat([v0, pad], dim=-1)
+            # the guess crosses at its own dtype and narrows on the device:
+            # converted on the host first, a (64, 131072) float64 guess took
+            # twice as long as the copy of its 8-byte entries to an H100
+            v0 = to_device(v0, None, self.device, self.sharding).to(self.dtype).contiguous()
         if self.check_symmetric and not self._symmetry_checked:
             from ._symmetry import check_symmetric_operator
 
@@ -430,15 +521,19 @@ class FusedPPCG:
         eigenvalues and rows sorted ascending (the periodic RR sorts; the
         final state may be mid-window, so sort on exit). ``x`` stays a
         tensor on the solver's device (gathered under sharding)."""
-        state = self.init_state(v0)
-        final, iters = self._solve(state, self.operand, self.diag, self.tol, self.max_iter)
-        evals = final.evals.cpu().numpy()
-        errors = final.errors.cpu().numpy()
-        order = np.argsort(evals)
-        x = final.x[torch.as_tensor(order, device=final.x.device)]
-        if self.sharding is not None:
-            x = self.sharding.gather(x, self.n)
-        check_finite(errors, "FusedPPCG")
+        with span("ppcg.solve"):
+            state = self.init_state(v0)
+            final, iters = self._solve(state, self.operand, self.diag, self.tol,
+                                       self.max_iter)
+            with span("ppcg.wait"):
+                evals = final.evals.cpu().numpy()
+                errors = final.errors.cpu().numpy()
+            settle()
+            order = np.argsort(evals)
+            x = final.x[torch.as_tensor(order, device=final.x.device)]
+            if self.sharding is not None:
+                x = self.sharding.gather(x, self.n)
+            check_finite(errors, "FusedPPCG")
         return evals[order], x, errors[order], int(iters)
 
     run = run_on_device

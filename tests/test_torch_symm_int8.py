@@ -401,7 +401,8 @@ def test_walk_choice(args, walk):
 @pytest.mark.parametrize("walk", ["band", "square"])
 def test_walk_counters_count_one_a_call(walk):
     """``K4_WALKS`` counts every call of its walk; the profiler's
-    ``int8_band_calls`` counts band-walk calls inside a traced solve only."""
+    ``int8_band_calls`` and ``int8_square_calls`` count that walk's calls
+    inside a traced solve only."""
     from torch.profiler import ProfilerActivity, profile
 
     from iterative_solver_torch.utils import profiler as P
@@ -413,6 +414,5 @@ def test_walk_counters_count_one_a_call(walk):
         T._record_walk(walk)
         T._record_walk(walk)
     assert T.K4_WALKS == {**before, walk: before[walk] + 3}
-    band = {"int8_band_calls": 2} if walk == "band" else {}
-    assert P.snapshot()["counters"] == band
+    assert P.snapshot()["counters"] == {f"int8_{walk}_calls": 2}
     P.reset()
