@@ -996,9 +996,10 @@ def int_mm_library(xs_planes, q_planes, products, sym, n, device) -> dict:
 
 # K4's and K5's device ms in an earlier run of this script, the square
 # walk's (PERF.md's kernel table; NVIDIA H100 80GB HBM3, 700 W), printed
-# beside each row's own
+# beside each row's own; at the PPCG cell's 64 x 131072, the benchmark's
+# traced square walk (20 calls in 0.2911 s)
 INT8_EARLIER_DEVICE_MS = {"K4@n8192": 0.0262, "K4": 0.8703, "K5": 0.0712, "K4@b256": 0.0254,
-                       "K5@b256": 0.0520}
+                       "K5@b256": 0.0520, "K4@n131072r64": 14.56}
 # the benchmark cell's operator: n = 131072 in tiles of 1024 (8256 pairs,
 # 8.06 GiB), 16 rows of x; its plain version takes this many pairs a pass
 INT8_CELL_N = 131072
@@ -1012,10 +1013,11 @@ def check_int8_kernels(matrix: np.ndarray, flagship, device) -> list:
     the quantized_screening example's shape, 6 x 8192 at b = 256
     (EXAMPLE_INT8_ROWS, EXAMPLE_INT8_TILE: the bench matrix packed there),
     where 528 tile pairs of one 256-square each take another walk and flush
-    than the b = 1024 cases' 36 pairs of 16; and K4 at the benchmark cell's
-    shape, 16 x 131072 at b = 1024 (``synthetic_packed_int8``), where it
-    takes the band walk. Each K4 row names the walk it took
-    (``symm_int8.K4_WALKS``) and counts that walk's reds."""
+    than the b = 1024 cases' 36 pairs of 16; and K4 at the benchmark
+    cells' shapes, 16 and 64 x 131072 at b = 1024 (one
+    ``synthetic_packed_int8`` operator), where it takes the band and the
+    strip walk (as it does at 64 x 32768). Each K4 row names the walk it
+    took (``symm_int8.K4_WALKS``) and counts that walk's reds."""
     import torch
 
     from iterative_solver_torch.ops.kernels import symm_int8
@@ -1075,9 +1077,9 @@ def check_int8_kernels(matrix: np.ndarray, flagship, device) -> list:
                   + 4 * m + 8 * n + 8 * sym.n_pairs)       # sx, gq, d, ii, jj
         bound_ms, bound_by = bound(nbytes, symm_flops(sym, m, len(pairs)), "int8")
         scratch_bytes = planes * 2 * 4 * m * n             # accumulators written, read
-        # K4 and K5 flush each square or band once: one int32 sum per
-        # accumulator (K5: hi and lo), row of x and contributed row or
-        # column, two to a 64-bit red where b is even
+        # K4 and K5 flush each square, band or strip once: one int32 sum
+        # per accumulator (K5: hi and lo), row of x and contributed row or
+        # column, two to a 64-bit red where the square walk's b is even
         # (symm_int8.int8_flush_atomics)
         flush_sums, flush_atomics = symm_int8.int8_flush_atomics(
             sym.ii.cpu(), sym.jj.cpu(), sym.b, m, planes=planes, walk=walk)
@@ -1115,6 +1117,8 @@ def check_int8_kernels(matrix: np.ndarray, flagship, device) -> list:
 
     sym, _ = synthetic_packed_int8(INT8_CELL_N, b=1024, seed=0, device=device)
     int8_case(f"K4@n{INT8_CELL_N}", sym, NROOTS, 1, k4, INT8_CELL_PAIRS_PER_PASS)
+    int8_case(f"K4@n{INT8_CELL_N}r{FLAGSHIP_ROOTS}", sym, FLAGSHIP_ROOTS, 1, k4,
+              INT8_CELL_PAIRS_PER_PASS)
     del sym
     torch.cuda.empty_cache()
     return results

@@ -2,10 +2,14 @@
 //
 // Replaces two Pallas kernels of iterative_solver_tpu/ops/kernels/symm_int8.py:
 //   symm_int8       <- _symm_matmat_int8_impl (K4, :344, pallas_call :397),
-//                      one int8 plane Q: symm_int8_mma_kernel<MT, 1> (the
-//                      square walk) or, at one M tile on an operator with
-//                      bands enough to fill the card, symm_int8_band_kernel
-//                      (the band walk; see "K4 at one M tile" below);
+//                      one int8 plane Q, in one of three walks chosen per
+//                      call (symm_int8.py int8_walk): at one M tile on an
+//                      operator with bands enough to fill the card,
+//                      symm_int8_band_kernel (the band walk; see "K4 at one
+//                      M tile" below); at four M tiles (33 to 64 rows of
+//                      x) on one with strips enough, symm_int8_strip_kernel
+//                      (the strip walk; "K4 at four M tiles"); otherwise
+//                      symm_int8_mma_kernel<MT, 1> (the square walk);
 //   symm_int8_split <- _symm_matmat_int8_split_impl (K5, :430, pallas_call
 //                      :493), two planes Q1, Q2 and two x planes p1, p2:
 //                      the same kernel on two planes, symm_int8_mma_kernel<1, 2>
@@ -78,16 +82,18 @@
 //    b = 1024, n = 8192; 8448 at the flagship. A block's warps take one of
 //    two roles, y_i or y_j, with equal products (Cfg).
 //
-// What limits it now (H100, flagship): the SM's shared-memory and load /
-// store pipe, not the bytes. Per 4 KB chunk the warps issue about 36 KB of
-// ldmatrix (each tile fragment is read by up to two warps, each x fragment
-// by four or eight, as 128 registers at 512 threads allow), beside the
-// cp.async stores and the reds, and those costs add rather than overlap:
-// without the reds the kernel takes about three quarters of its time,
-// without the reds and the tile loads about half, and the products reach
-// under a tenth of the int8 tensor-core peak. Fewer fragment reads per
-// product (wgmma reading the operands from shared memory) and fewer reds
-// (y_i carried along a strip of squares) are the next steps.
+// What limits the square walk (H100, flagship): the SM's shared-memory and
+// load / store pipe, not the bytes. Per 4 KB chunk the warps issue about
+// 36 KB of ldmatrix (each tile fragment is read by up to two warps, each x
+// fragment by four or eight, as 128 registers at 512 threads allow),
+// beside the cp.async stores and the reds, and those costs add rather than
+// overlap: without the reds the kernel takes about three quarters of its
+// time, without the reds and the tile loads about half, and the products
+// reach under a tenth of the int8 tensor-core peak. At one and at four M
+// tiles the band and strip walks take its place (a TMA stream of whole
+// tile rows; the strip walk's products as wgmma from shared memory); it
+// stays for two M tiles, more than 64 rows, unaligned operands, b > 1024
+// and K5.
 //
 // Any b >= 1 and m >= 1: ragged chunks are zero-filled, rows of x past m
 // and columns past b are zero in the staging, the flush skips them.
@@ -108,7 +114,8 @@
 // accumulator (16 K 32-bit sums a band); carrying y_j along the four
 // bands of a tile would cut them fourfold. The square walk stays for:
 //  - m > 16 (two or four M tiles): a band's y_j would take 32-64 K int32
-//    a block, which the register file cannot hold beside the ring;
+//    a block, which the register file cannot hold beside the ring (at
+//    four M tiles the strip walk turns the walk the other way);
 //  - b not a multiple of 16, or an operand not 16-byte aligned: TMA's
 //    strides and the bulk copies of x need 16 bytes;
 //  - b > 1024: a warp holds y_j of one 128-byte line, eight warps eight;
@@ -923,6 +930,390 @@ symm_int8_band_kernel(const __grid_constant__ CUtensorMap tiles, const int8_t* _
   }
 }
 
+// ------------------------------------ K4 at four M tiles: the strip walk
+//
+// A work item is a strip: all b rows of one tile across STRIP of its
+// columns (b <= 1024, a multiple of 16), for up to 64 rows of x.
+// Persistent blocks, one an SM, walk the strips blockIdx.x + k gridDim.x.
+// A block streams its strip through a ring of SSTAGES stages of SROWS
+// whole strip rows, each up to four TMA boxes of SROWS rows x 128 bytes
+// (one per 128-byte line of the strip, the 128-byte swizzle, 1024-byte
+// aligned) and, off the diagonal, the stage's x_i: a box of 64 rows of x x
+// SROWS bytes (the 64-byte swizzle). x_j of the strip (64 rows of x x
+// STRIP bytes, boxes like the tile's) comes by TMA into one of two
+// buffers. One producer warp issues the loads; two consumer warpgroups
+// take each stage on a full mbarrier and give it back on an empty one (no
+// block-wide barrier in the stream). The producer's warpgroup hands its
+// registers to the consumers (setmaxnreg): ptxas sizes a block's
+// registers by whole warpgroups, so at 288 threads it capped them at 168
+// a thread, spilling the consumers' 128 of y_j and serializing their wgmma.
+//
+// Both products are warpgroup products (wgmma m64nNk32 .s32.s8.s8), B read
+// from shared memory by a descriptor (K-major: int8 wgmma cannot
+// transpose an operand it reads from shared memory). Every wgmma is
+// issued on one path, with zero operands where a product must add
+// nothing: ptxas serializes wgmma under a branch.
+//   y_i (64 rows of x x the stage's rows) += x_j Q^T: A = x_j (M = rows of
+//     x, K = strip columns), read from shared memory as it landed (past
+//     the strip's columns, from a block of zeros); B = the staged tile
+//     rows. Warpgroup g takes the stage's rows 32 g .. + 31 (N = 32) over
+//     all the strip's columns; the sum is flushed after its stage;
+//   y_j^T (the strip's columns x 64 rows of x) += Q^T x_i^T: A = Q^T (M =
+//     strip columns, K = the stage's rows), built in registers with the
+//     band walk's ldmatrix.trans + prmt; its m16n8k32 fragments are the
+//     layout of a warp's slice of a register-sourced wgmma A, the even
+//     columns of a 16-column segment on the fragment's rows g, the odd
+//     ones on g + 8; B = x_i. Warpgroup g takes lines 2 g and 2 g + 1 (four
+//     M blocks of 64 columns, warp w the columns 32 w .. + 31 of each
+//     line): 128 registers a thread, kept for the whole strip and flushed
+//     once.
+// The flushes are 32-bit reds of 32 neighbouring sums of one row of x a
+// warp-wide red, staged through the warp's own shared memory: per row of x
+// and tile, b sums of y_i a strip and, off the diagonal, b of y_j
+// (symm_int8.int8_flush_atomics); no 64-bit pair, so the epilogue adds
+// back no carry. Rows of x past m read zeros from TMA and are not
+// flushed; tile rows past b (another tile's, in a stage that overhangs the
+// tile) are cut from y_j by zeroing their fragment half, and not flushed
+// from y_i; columns past b read zeros from the tile's tensor map.
+//
+// What bounds it (H100, the PPCG cell, 64 x 131072, 5.13 ms against 2.60
+// of bytes): the L2, which takes the tile stream and the reds together.
+// The stream alone takes 2.90 ms; the reds of y_i add 0.9, those of y_j
+// 0.6, the products 0.7 (copies of this source without each part). Strips
+// of 256 columns (4 b sums of y_i a tile; 64 registers of y_j, x_j's A in
+// registers) took 6.0 ms, 1.8 of them y_i's reds, whichever way they left
+// (warp-wide reds or TMA bulk reductions, cp.reduce.async.bulk) and
+// whether or not the strips of a tile added into the same rows at once.
+// Adding a tile's strips in a cluster through distributed shared memory
+// before one red took longer than the reds it saved (12 to 25 ms: the
+// remote stores, loads and mbarriers of every stage). The wider strip
+// halves y_i's sums.
+constexpr int STRIP = 512;                  // tile columns of a strip (symm_int8.py STRIP_INT8)
+constexpr int SROWS = 64;                   // tile rows per stage: two k-steps of y_j
+constexpr int SLINES = STRIP / BLINE;       // 128-byte lines of a strip row
+constexpr int SXROWS = 4 * MTILE;           // rows of x: four M tiles
+constexpr int SBOX = SROWS * BLINE;         // one line of a stage's rows
+constexpr int SXI = SXROWS * SROWS;         // x_i of a stage's rows
+constexpr int SSTAGE = SLINES * SBOX + SXI; // 36 KB
+constexpr int SSTAGES = 3;
+constexpr int SXJ = SXROWS * STRIP;         // x_j of a strip
+constexpr int SCONS = 8;                    // consumer warps: two warpgroups
+constexpr int STHREADS = 32 * (SCONS + 4);  // and a producer warpgroup
+constexpr int SREGS_PRODUCER = 40;          // registers a thread after setmaxnreg
+constexpr int SREGS_CONSUMER = 232;         // 128 x 40 + 256 x 232 <= 65536
+constexpr int SYJLD = 32 + 4;               // int32 per staged row of y_j (conflict-free int2 stores)
+constexpr int SYILD = 32 + 8;               // int32 per staged row of y_i
+constexpr int SSTG = 32 * SYJLD * 4;        // bytes of a warp's staging: 32 rows of y_j, or 16 of y_i
+constexpr int SZERO = SXROWS * BLINE;       // zeros: x_j's A past the strip's columns
+constexpr size_t SSMEM = size_t(SSTAGES) * SSTAGE + 2 * SXJ + SZERO + SCONS * SSTG +
+                         8 * (2 * SSTAGES + 4) + 1024;
+static_assert(SSTAGE % 1024 == 0 && SXJ % 1024 == 0, "swizzled boxes stay 1024-byte aligned");
+static_assert(16 * SYILD <= 32 * SYJLD, "a warp's staging holds its y_i");
+
+// wgmma operand descriptor of a K-major operand in shared memory: start
+// address, stride between 8-row groups (sbo bytes), swizzle (1: 128-byte,
+// 2: 64-byte); the leading offset is unused by swizzled K-major layouts
+__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, int sbo, uint64_t swizzle) {
+  return uint64_t((addr & 0x3FFFF) >> 4) | (uint64_t(1) << 16) | (uint64_t(sbo >> 4) << 32) |
+         (swizzle << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// generic-proxy writes to shared memory, before the async proxy (wgmma) reads them
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// keeps the compiler from moving a register's uses across a wgmma fence or wait
+template <int N>
+__device__ __forceinline__ void fence_regs(int (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// d (64 x 64, s32) (+)= a (64 x 32, s8, registers) . b (32 x 64, s8, K-major
+// in shared memory); accumulate 0 overwrites d
+__device__ __forceinline__ void wgmma_m64n64(int (&d)[32], const uint32_t (&a)[4], uint64_t desc,
+                                             int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
+}
+
+// d (64 x 32, s32) (+)= a (64 x 32, s8, K-major in shared memory) . b (32 x
+// 32, s8, K-major)
+__device__ __forceinline__ void wgmma_m64n32_ss(int (&d)[16], uint64_t adesc, uint64_t bdesc,
+                                                int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %18, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15])
+      : "l"(adesc), "l"(bdesc), "r"(accumulate));
+}
+
+// acc (m, n) += both contributions of the strips blockIdx.x, blockIdx.x +
+// gridDim.x, ... of the tiles, for m <= 64 rows of x. ``tiles``: q as
+// (n_pairs b) rows of b bytes, boxes of (BLINE, SROWS), 128-byte swizzle;
+// ``xj_map``, ``xi_map``: x as m rows of n bytes, boxes of (BLINE, 64)
+// with the 128-byte swizzle and of (SROWS, 64) with the 64-byte one.
+__global__ void __launch_bounds__(STHREADS, 1)
+symm_int8_strip_kernel(const __grid_constant__ CUtensorMap tiles,
+                       const __grid_constant__ CUtensorMap xj_map,
+                       const __grid_constant__ CUtensorMap xi_map, const int* __restrict__ ii,
+                       const int* __restrict__ jj, int* __restrict__ acc, int m, int n, int b,
+                       int strips) {
+  extern __shared__ __align__(1024) unsigned char smem_strip[];
+  unsigned char* ring = smem_strip + ((1024 - (smem_u32(smem_strip) & 1023)) & 1023);
+  unsigned char* xjb = ring + SSTAGES * SSTAGE;                  // [k & 1]
+  unsigned char* zero = xjb + 2 * SXJ;
+  int* stg_all = reinterpret_cast<int*>(zero + SZERO);           // [warp][SSTG / 4]
+  const uint32_t bars = smem_u32(stg_all) + SCONS * SSTG;
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (SSTAGES + s); };
+  auto xfull = [&](int u) { return bars + 8 * (2 * SSTAGES + u); };
+  auto xempty = [&](int u) { return bars + 8 * (2 * SSTAGES + 2 + u); };
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int spt = (b + STRIP - 1) / STRIP;   // strips per tile
+
+  for (int e = tid; e < SZERO / 16; e += STHREADS)
+    reinterpret_cast<int4*>(zero)[e] = make_int4(0, 0, 0, 0);
+  fence_proxy_async();   // the zeros, for wgmma's reads
+  if (tid == 0) {
+    for (int s = 0; s < SSTAGES; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), SCONS);
+    }
+    for (int u = 0; u < 2; ++u) {
+      mbar_init(xfull(u), 1);
+      mbar_init(xempty(u), SCONS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= SCONS) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(SREGS_PRODUCER));
+    // the producer: x_j of each strip, then its stages (the tile rows and,
+    // off the diagonal, x_i), from one lane
+    if (warp == SCONS && lane == 0) {
+      int stage = 0;
+      uint32_t phase = 0;
+#pragma unroll 1
+      for (int k = 0, item = blockIdx.x; item < strips; ++k, item += gridDim.x) {
+        const int t = item / spt;
+        const int c0 = (item - t * spt) * STRIP;
+        const int lines = min(SLINES, (b - c0 + BLINE - 1) / BLINE);
+        const int bi = ii[t], bj = jj[t];
+        const int u = k & 1;
+        mbar_wait(xempty(u), ((k >> 1) & 1) ^ 1);
+        mbar_expect(xfull(u), lines * SXROWS * BLINE);
+        for (int l = 0; l < lines; ++l)
+          tma_load_2d(smem_u32(xjb + u * SXJ + l * SXROWS * BLINE), &xj_map,
+                      bj * b + c0 + l * BLINE, 0, xfull(u));
+#pragma unroll 1
+        for (int p0 = 0; p0 < b; p0 += SROWS) {
+          mbar_wait(empty(stage), phase ^ 1);
+          unsigned char* st = ring + stage * SSTAGE;
+          mbar_expect(full(stage), lines * SBOX + (bi != bj ? SXI : 0));
+          for (int l = 0; l < lines; ++l)
+            tma_load_2d(smem_u32(st + l * SBOX), &tiles, c0 + l * BLINE, t * b + p0, full(stage));
+          if (bi != bj)
+            tma_load_2d(smem_u32(st + SLINES * SBOX), &xi_map, bi * b + p0, 0, full(stage));
+          if (++stage == SSTAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // the consumers: warpgroup g (lines 2 g, 2 g + 1 of y_j, the stage rows
+  // 32 g .. of y_i), warp w in it (rows 16 w .. of x in y_i, columns 32 w ..
+  // of each of its lines in y_j)
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(SREGS_CONSUMER));
+  const int g = warp >> 2;
+  const int w = warp & 3;
+  const int g4 = lane >> 2;
+  const int t4 = lane & 3;
+  // the band walk's ldmatrix.trans rows and prmt selectors (see its note)
+  const int ti = (lane & 7) >> 1;
+  const int tr = 16 * (lane >> 4) + 4 * ti + (lane & 1) + 2 * (((lane >> 3) & 1) ^ (ti >> 1));
+  const uint32_t sel_even = t4 < 2 ? 0x6420u : 0x2064u;
+  const uint32_t sel_odd = t4 < 2 ? 0x7531u : 0x3175u;
+  int* stg = stg_all + warp * (SSTG / 4);
+  int stage = 0;
+  uint32_t phase = 0;
+
+#pragma unroll 1
+  for (int k = 0, item = blockIdx.x; item < strips; ++k, item += gridDim.x) {
+    const int t = item / spt;
+    const int c0 = (item - t * spt) * STRIP;
+    const int ncols = min(STRIP, b - c0);
+    const int bi = ii[t], bj = jj[t];
+    const int u = k & 1;
+    const uint32_t xj_s = smem_u32(xjb + u * SXJ);
+    mbar_wait(xfull(u), (k >> 1) & 1);
+
+    int yj[4][32];   // y_j^T of the warpgroup's four M blocks: line 2 g + (mb >> 1)
+#pragma unroll
+    for (int mb = 0; mb < 4; ++mb)
+#pragma unroll
+      for (int e = 0; e < 32; ++e) yj[mb][e] = 0;
+
+#pragma unroll 1
+    for (int p0 = 0; p0 < b; p0 += SROWS) {
+      mbar_wait(full(stage), phase);
+      const unsigned char* st = ring + stage * SSTAGE;
+      const int prow = b - p0;   // the stage's rows of this tile, if fewer than SROWS
+      // Q^T's A fragments, per k-step of 32 rows and M block (line 2 g +
+      // (mb >> 1)): columns 32 w + 16 (mb & 1) + 2 g4 of the line (rows g4
+      // of the fragment) and + 1 (rows g4 + 8); zero where y_j takes
+      // nothing (a diagonal tile, columns past b, rows of another tile)
+      uint32_t qa[2][4][4];
+#pragma unroll
+      for (int mb = 0; mb < 4; ++mb) {
+        const int line = 2 * g + (mb >> 1);
+        const bool on = bi != bj && line * BLINE + 32 * w + 16 * (mb & 1) < ncols;
+        const int sg = 2 * w + (mb & 1);
+#pragma unroll
+        for (int ks = 0; ks < 2; ++ks) {
+          const bool lo = on && 32 * ks < prow;
+          const bool hi = on && 32 * ks + 16 < prow;
+          uint32_t bt[4];
+          ldsm_x4_trans(
+              smem_u32(st + line * SBOX + (32 * ks + tr) * BLINE + ((sg ^ (tr & 7)) << 4)), bt);
+          qa[ks][mb][0] = lo ? __byte_perm(bt[0], bt[1], sel_even) : 0u;
+          qa[ks][mb][1] = lo ? __byte_perm(bt[0], bt[1], sel_odd) : 0u;
+          qa[ks][mb][2] = hi ? __byte_perm(bt[2], bt[3], sel_even) : 0u;
+          qa[ks][mb][3] = hi ? __byte_perm(bt[2], bt[3], sel_odd) : 0u;
+        }
+      }
+      int yi[16];
+#pragma unroll
+      for (int mb = 0; mb < 4; ++mb) fence_regs(yj[mb]);
+      wgmma_fence();
+      const uint32_t xi_s = smem_u32(st + SLINES * SBOX);
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks)
+#pragma unroll
+        for (int mb = 0; mb < 4; ++mb)
+          wgmma_m64n64(yj[mb], qa[ks][mb], wgmma_desc(xi_s + 32 * ks, 8 * SROWS, 2), 1);
+#pragma unroll
+      for (int kk = 0; kk < 4 * SLINES; ++kk)
+        wgmma_m64n32_ss(
+            yi,
+            wgmma_desc((32 * kk < ncols ? xj_s + (kk >> 2) * SXROWS * BLINE : smem_u32(zero)) +
+                           32 * (kk & 3),
+                       8 * BLINE, 1),
+            wgmma_desc(smem_u32(st + (kk >> 2) * SBOX + 32 * g * BLINE) + 32 * (kk & 3),
+                       8 * BLINE, 1),
+            kk > 0);
+      wgmma_commit();
+      wgmma_wait_all();
+#pragma unroll
+      for (int mb = 0; mb < 4; ++mb) fence_regs(yj[mb]);
+      fence_regs(yi);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty(stage));
+      if (++stage == SSTAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
+
+      // y_i of the stage through the warp's staging: lane (g4, t4) holds
+      // rows 16 w + g4 (+ 8) of x at the stage rows 32 g + 8 j + 2 t4 (+ 1)
+      if (32 * g < prow) {
+        __syncwarp();
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          *reinterpret_cast<int2*>(stg + g4 * SYILD + 8 * j + 2 * t4) =
+              make_int2(yi[4 * j], yi[4 * j + 1]);
+          *reinterpret_cast<int2*>(stg + (g4 + 8) * SYILD + 8 * j + 2 * t4) =
+              make_int2(yi[4 * j + 2], yi[4 * j + 3]);
+        }
+        __syncwarp();
+        const int p = p0 + 32 * g + lane;
+        if (p < b) {
+          int* out = acc + size_t(bi) * b + p;
+          for (int r = 0; r < MTILE && 16 * w + r < m; ++r)
+            atomicAdd(out + size_t(16 * w + r) * n, stg[r * SYILD + lane]);
+        }
+      }
+    }
+    // x_j read by the strip's last product: its buffer is free
+    __syncwarp();
+    if (lane == 0) mbar_arrive(xempty(u));
+
+    // y_j of the strip through the warp's staging, 32 rows of x at a time:
+    // lane (g4, t4) holds the columns 32 w + 16 (mb & 1) + 2 g4 (+ 1) of
+    // line 2 g + (mb >> 1) at the rows 8 j + 2 t4 (+ 1) of x
+    if (bi != bj) {
+#pragma unroll
+      for (int l = 0; l < 2; ++l) {
+        const int col = c0 + (2 * g + l) * BLINE + 32 * w + lane;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          __syncwarp();
+#pragma unroll
+          for (int jq = 0; jq < 4; ++jq) {
+            const int j = 4 * h + jq;
+#pragma unroll
+            for (int mh = 0; mh < 2; ++mh) {
+              const int mb = 2 * l + mh;
+              *reinterpret_cast<int2*>(stg + (8 * jq + 2 * t4) * SYJLD + 16 * mh + 2 * g4) =
+                  make_int2(yj[mb][4 * j], yj[mb][4 * j + 2]);
+              *reinterpret_cast<int2*>(stg + (8 * jq + 2 * t4 + 1) * SYJLD + 16 * mh + 2 * g4) =
+                  make_int2(yj[mb][4 * j + 1], yj[mb][4 * j + 3]);
+            }
+          }
+          __syncwarp();
+          if (col < c0 + ncols) {
+            int* out = acc + size_t(bj) * b + col;
+            for (int r = 0; r < 32 && 32 * h + r < m; ++r)
+              atomicAdd(out + size_t(32 * h + r) * n, stg[r * SYJLD + lane]);
+          }
+        }
+      }
+    }
+  }
+}
+
 template <bool SPLIT>
 __global__ void symm_int8_epilogue(const int* __restrict__ acc0,
                                    const int* __restrict__ acc1,
@@ -1052,6 +1443,48 @@ int launch_band(const int8_t* x, const int8_t* q, const int* ii, const int* jj, 
   return int(cudaGetLastError());
 }
 
+// an int8 matrix of rows x cols (a multiple of 16 bytes a row) as a tensor
+// map of (box_cols, box_rows) boxes; elements outside it read as zeros
+bool encode_int8_2d(EncodeTiled encode, CUtensorMap* map, const int8_t* base, uint64_t cols,
+                    uint64_t rows, uint32_t box_cols, uint32_t box_rows,
+                    CUtensorMapSwizzle swizzle) {
+  const cuuint64_t dims[2] = {cols, rows};
+  const cuuint64_t strides[1] = {cols};
+  const cuuint32_t box[2] = {box_cols, box_rows};
+  const cuuint32_t unit[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<int8_t*>(base), dims, strides,
+                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+         CUDA_SUCCESS;
+}
+
+int launch_strip(const int8_t* x, const int8_t* q, const int* ii, const int* jj, int* acc,
+                 int m, int n, int b, int n_pairs, cudaStream_t stream) {
+  if (m > SXROWS || b % 16 != 0 || alignment(q, b) != 16 || alignment(x, b) != 16)
+    return int(cudaErrorInvalidValue);
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return int(cudaErrorNotSupported);
+  CUtensorMap tiles, xj_map, xi_map;
+  if (!encode_int8_2d(encode, &tiles, q, b, uint64_t(n_pairs) * b, BLINE, SROWS,
+                      CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !encode_int8_2d(encode, &xj_map, x, n, m, BLINE, SXROWS, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !encode_int8_2d(encode, &xi_map, x, n, m, SROWS, SXROWS, CU_TENSOR_MAP_SWIZZLE_64B))
+    return int(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(
+      symm_int8_strip_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(SSMEM));
+  if (err != cudaSuccess) return int(err);
+  int device = 0, sms = 0;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) !=
+          cudaSuccess)
+    return int(err);
+  const int strips = n_pairs * ((b + STRIP - 1) / STRIP);
+  // persistent blocks, one an SM: each walks the strips blockIdx.x + k * gridDim.x
+  symm_int8_strip_kernel<<<strips < sms ? strips : sms, STHREADS, SSMEM, stream>>>(
+      tiles, xj_map, xi_map, ii, jj, acc, m, n, b, strips);
+  return int(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -1059,14 +1492,19 @@ extern "C" {
 // The band height of K4's band walk (symm_int8.py BAND_INT8).
 int symm_int8_band_rows() { return BAND; }
 
+// The strip width of K4's strip walk (symm_int8.py STRIP_INT8).
+int symm_int8_strip_cols() { return STRIP; }
+
 // The square edge of K4's and K5's work items (symm_int8.py SQUARE_INT8).
 int symm_int8_square_edge() { return SQ; }
 
 // K4. qx (m, n) int8; q (n_pairs, b, b) int8, 16-byte aligned; xf (m, n)
 // f32; sx (m,) f32; gq, d (n,) f32; acc (m, n) int32 zeroed by the caller;
 // y (m, n) f32. walk 1: the band walk (m <= 16, b <= 1024, b and both
-// int8 operands 16-byte aligned; symm_int8.py int8_walk chooses); walk 0:
-// the square walk, M tiles per block 1 for m <= 16, 2 for m <= 32, else 4.
+// int8 operands 16-byte aligned; symm_int8.py int8_walk chooses); walk 2:
+// the strip walk (m <= 64, b a multiple of 16, both int8 operands 16-byte
+// aligned); walk 0: the square walk, M tiles per block 1 for m <= 16, 2
+// for m <= 32, else 4.
 int symm_int8(const int8_t* qx, const int8_t* q, const int* ii, const int* jj,
               const float* xf, const float* sx, const float* gq, const float* d,
               int* acc, float* y, int m, int n, int b, int n_pairs, int walk,
@@ -1074,17 +1512,18 @@ int symm_int8(const int8_t* qx, const int8_t* q, const int* ii, const int* jj,
   const long long nsq = (b + SQ - 1) / SQ;
   const long long items = n_pairs * nsq * nsq;
   if (m <= 0 || n <= 0 || b <= 0 || n_pairs <= 0 || n % b != 0 || items > 0x7fffffff ||
-      (m + MTILE - 1) / MTILE > 65535 || (walk != 0 && walk != 1))
+      (m + MTILE - 1) / MTILE > 65535 || walk < 0 || walk > 2)
     return int(cudaErrorInvalidValue);
   const int it = int(items);
-  int err = walk == 1 ? launch_band(qx, q, ii, jj, acc, m, n, b, n_pairs, stream)
+  int err = walk == 1   ? launch_band(qx, q, ii, jj, acc, m, n, b, n_pairs, stream)
+            : walk == 2 ? launch_strip(qx, q, ii, jj, acc, m, n, b, n_pairs, stream)
             : m <= MTILE
                 ? launch_mma<1, 1>(qx, qx, q, q, ii, jj, acc, acc, m, n, b, it, stream)
             : m <= 2 * MTILE
                 ? launch_mma<2, 1>(qx, qx, q, q, ii, jj, acc, acc, m, n, b, it, stream)
                 : launch_mma<4, 1>(qx, qx, q, q, ii, jj, acc, acc, m, n, b, it, stream);
   if (err != 0) return err;
-  // the band walk adds 32-bit sums: no 64-bit pairs' carry to add back
+  // the band and strip walks add 32-bit sums: no 64-bit pairs' carry to add back
   return launch_epilogue(false, b % 2 == 0 && walk == 0, acc, acc, xf, sx, gq, d, y, m, n,
                          stream);
 }

@@ -25,12 +25,21 @@ both packages (``convert.py``).
 Kernels (CUDA C++ for sm_90a, ``csrc/symm_int8.cu``):
 
 - ``symm_matmat_int8_kernel`` replaces ``symm_matmat_int8_pallas`` /
-  ``_symm_matmat_int8_impl`` (K4), on the int8 tensor cores, in one of two
-  walks that ``int8_walk`` picks from the call's shape: at one M tile of
-  16 rows with enough bands to fill the card, persistent blocks walk the
-  bands of the tiles (``BAND_INT8`` whole tile rows, streamed by TMA;
-  ``int8_band_items``); otherwise the ``SQUARE_INT8`` x ``SQUARE_INT8``
-  squares (``int8_square_items``), for passes of up to 64 rows of x.
+  ``_symm_matmat_int8_impl`` (K4), on the int8 tensor cores, in one of
+  three walks that ``int8_walk`` picks from the call's shape, each bound
+  by something else (csrc/symm_int8.cu's head note):
+  - at one M tile (m <= 16) with enough bands to fill the card, the band
+    walk: persistent blocks walk the bands of the tiles (``BAND_INT8``
+    whole tile rows, streamed by TMA; ``int8_band_items``), bound by the
+    tile stream and its y_j reds;
+  - at four M tiles (33 <= m <= 64) with enough strips to fill the card,
+    the strip walk: persistent blocks walk the strips of the tiles (all b
+    rows across ``STRIP_INT8`` columns, streamed by TMA, both products as
+    warpgroup products, wgmma; ``int8_strip_items``), bound by the L2,
+    which takes the tile stream and the reds together;
+  - otherwise the square walk: the ``SQUARE_INT8`` x ``SQUARE_INT8``
+    squares (``int8_square_items``), for passes of up to 64 rows of x,
+    bound by the SM's shared-memory pipe (ldmatrix of every fragment).
   ``K4_WALKS`` counts the calls of each walk;
 - ``symm_matmat_int8_split_kernel`` replaces
   ``symm_matmat_int8_split_pallas`` / ``_symm_matmat_int8_split_impl`` (K5)
@@ -38,8 +47,8 @@ Kernels (CUDA C++ for sm_90a, ``csrc/symm_int8.cu``):
   products into two int32 sums, hi = p1 Q1 and lo = p1 Q2 + p2 Q1, for
   passes of 16 rows of x (``INT8_SPLIT_ROWS``).
 
-``int8_square_walk`` follows K4's two walks and K5's in plain PyTorch for
-the CPU tests, and ``int8_flush_atomics`` counts their flushes.
+``int8_square_walk`` follows K4's three walks and K5's in plain PyTorch
+for the CPU tests, and ``int8_flush_atomics`` counts their flushes.
 
 x is quantized in the wrapper with the same torch ops as the plain version
 (the JAX package quantizes outside its Pallas kernels too). The kernels add
@@ -77,7 +86,7 @@ Tensor = torch.Tensor
 # launches of each kernel, counted once per action call by the wrappers
 LAUNCHES = {"symm_int8": 0, "symm_int8_split": 0}
 # K4's calls by the walk they took (``int8_walk``)
-K4_WALKS = {"band": 0, "square": 0}
+K4_WALKS = {"band": 0, "square": 0, "strip": 0}
 
 _SQRT127 = float(np.sqrt(127.0))
 
@@ -97,6 +106,20 @@ BAND_INT8 = 256
 BAND_STAGE_ROWS = 32
 BAND_MAX_B = 1024
 BAND_MIN_PER_SM = 8
+# K4's strip walk: strips of all b tile rows across STRIP_INT8 columns,
+# streamed in stages of STRIP_STAGE_ROWS rows, for up to 64 rows of x; a
+# warpgroup holds y_j of 256 columns in registers; it engages at four M
+# tiles where the strips give every SM at least STRIP_MIN_PER_SM of them
+# (one block an SM). On the H100 at 64 rows and b = 1024 it beat the square
+# walk at every depth measured, in kernel ms: 0.033 against 0.071 at 0.55
+# strips an SM (64 x 8192), 0.081 against 0.222 at 2 (a quarter of the
+# flagship's pairs, as on a sharded rank), 0.300 against 0.861 at 8 (the
+# PPCG flagship, 64 x 32768), 5.12 against 14.46 at 125 (the benchmark's
+# operator)
+STRIP_INT8 = 512
+STRIP_STAGE_ROWS = 64
+STRIP_MAX_B = 1024
+STRIP_MIN_PER_SM = 0.5
 
 
 def _pack_lower(matrix: np.ndarray, b: int):
@@ -356,16 +379,23 @@ def int8_square_items(n_pairs: int, b: int):
 
 def int8_walk(m: int, b: int, n_pairs: int, sms: int, aligned: bool = True,
               planes: int = 1) -> str:
-    """The walk K4 takes for a call: ``"band"`` at one M tile (m <= 16),
-    where the tiles take 16-byte copies (``aligned``: b a multiple of 16,
-    the int8 operands 16-byte aligned; TMA's strides need it), b <=
-    ``BAND_MAX_B``, and the bands fill the card's ``sms`` SMs at least
-    ``BAND_MIN_PER_SM`` deep; ``"square"`` otherwise, and always for K5
-    (``planes=2``)."""
-    bands = n_pairs * -(-b // BAND_INT8)
-    if (planes == 1 and int8_m_tiles(m) == 1 and aligned and b % 16 == 0
-            and b <= BAND_MAX_B and bands >= BAND_MIN_PER_SM * sms):
+    """The walk K4 takes for a call. Both TMA walks need 16-byte copies
+    (``aligned``: b a multiple of 16, the int8 operands 16-byte aligned;
+    TMA's strides need it) and b <= 1024: ``"band"`` at one M tile (m <=
+    16), where the bands fill the card's ``sms`` SMs at least
+    ``BAND_MIN_PER_SM`` deep; ``"strip"`` at four M tiles and m <= 64,
+    where the strips fill them at least ``STRIP_MIN_PER_SM`` deep;
+    ``"square"`` otherwise (two M tiles, more than 64 rows of x), and
+    always for K5 (``planes=2``)."""
+    if planes != 1 or not aligned or b % 16:
+        return "square"
+    tiles = int8_m_tiles(m)
+    if (tiles == 1 and b <= BAND_MAX_B
+            and n_pairs * -(-b // BAND_INT8) >= BAND_MIN_PER_SM * sms):
         return "band"
+    if (tiles == 4 and m <= 4 * M_TILE and b <= STRIP_MAX_B
+            and n_pairs * -(-b // STRIP_INT8) >= STRIP_MIN_PER_SM * sms):
+        return "strip"
     return "square"
 
 
@@ -377,6 +407,39 @@ def int8_band_items(n_pairs: int, b: int):
     for band in range(n_pairs * per_tile):
         t, r = divmod(band, per_tile)
         yield t, r * BAND_INT8
+
+
+def int8_strip_items(n_pairs: int, b: int):
+    """The strip walk's work items in block-index order: (t, c0) of each
+    strip of ``STRIP_INT8`` columns of each tile, derived as the kernel
+    derives them from ``blockIdx.x``."""
+    per_tile = -(-b // STRIP_INT8)
+    for strip in range(n_pairs * per_tile):
+        t, c = divmod(strip, per_tile)
+        yield t, c * STRIP_INT8
+
+
+def _int8_strip_walk(qx: Tensor, q: Tensor, ii: list, jj: list, b: int) -> Tensor:
+    """The strip walk of ``int8_square_walk``: per strip, stage by stage
+    of ``STRIP_STAGE_ROWS`` rows, y_i of the stage's rows over the strip's
+    columns, flushed after its stage, and y_j of the strip's columns over
+    the stage's rows, in int32, flushed once per strip."""
+    xs, tiles = qx.to(torch.int64), q.to(torch.int64)
+    acc = torch.zeros(qx.shape, dtype=torch.int32, device=qx.device)
+    for t, c0 in int8_strip_items(len(ii), b):
+        diag = ii[t] == jj[t]
+        c1 = min(c0 + STRIP_INT8, b)
+        yj = torch.zeros((qx.shape[0], c1 - c0), dtype=torch.int32, device=qx.device)
+        xj = xs[:, jj[t] * b + c0:jj[t] * b + c1]
+        for s in range(0, b, STRIP_STAGE_ROWS):
+            e = min(s + STRIP_STAGE_ROWS, b)
+            rows = tiles[t, s:e, c0:c1]
+            acc[:, ii[t] * b + s:ii[t] * b + e] += (xj @ rows.T).to(torch.int32)
+            if not diag:
+                yj += (xs[:, ii[t] * b + s:ii[t] * b + e] @ rows).to(torch.int32)
+        if not diag:
+            acc[:, jj[t] * b + c0:jj[t] * b + c1] += yj
+    return acc
 
 
 def _int8_band_walk(qx: Tensor, q: Tensor, ii: list, jj: list, b: int) -> Tensor:
@@ -415,7 +478,8 @@ def int8_square_walk(qx: Tensor, q: Tensor, ii: Tensor, jj: Tensor, b: int,
     diagonal) y_j += x_i Q summed in int32; y_i added into the accumulator
     once per item, y_j once per chunk column, as the kernel flushes.
     ``walk="band"`` (one plane, m <= 16): K4's band walk instead
-    (``_int8_band_walk``).
+    (``_int8_band_walk``); ``walk="strip"`` (one plane, m <= 64): its
+    strip walk (``_int8_strip_walk``).
 
     One plane (``qx``, ``q``): returns the accumulator. Two planes (``qx``
     = p1, ``q`` = Q1, and ``p2``, ``q2`` = Q2): returns (hi, lo), hi = p1 Q1
@@ -426,6 +490,10 @@ def int8_square_walk(qx: Tensor, q: Tensor, ii: Tensor, jj: Tensor, b: int,
         if split or int8_m_tiles(m) != 1:
             raise ValueError("the band walk takes one plane and at most 16 rows of x")
         return _int8_band_walk(qx, q, ii.tolist(), jj.tolist(), b)
+    if walk == "strip":
+        if split or m > 4 * M_TILE:
+            raise ValueError("the strip walk takes one plane and at most 64 rows of x")
+        return _int8_strip_walk(qx, q, ii.tolist(), jj.tolist(), b)
     rows_per_pass = INT8_SPLIT_ROWS if split else M_TILE * int8_m_tiles(m)
     # (x plane, tile plane, sum) of each product
     products = ((0, 0, 0), (0, 1, 1), (1, 0, 1)) if split else ((0, 0, 0),)
@@ -468,14 +536,19 @@ def int8_flush_atomics(ii, jj, b: int, m: int, planes: int = 1,
     hi and lo) call flushes into its accumulators: each work item flushes
     once, one sum per accumulator, row of x and row of its square or band
     (y_i) and, off the diagonal, per row of x and column of its square or,
-    for a band (``walk="band"``), of the whole tile (y_j). The square walk
-    sends two neighbouring sums as one 64-bit red where b is even, else
-    each as a 32-bit one; the band walk sends each as a 32-bit red, 32
-    neighbouring sums of one row a warp-wide red."""
+    for a band (``walk="band"``), of the whole tile (y_j). A strip
+    (``walk="strip"``) flushes every row of the tile once (y_i, stage by
+    stage) and, off the diagonal, its own columns once (y_j). The square
+    walk sends two neighbouring sums as one 64-bit red where b is even,
+    else each as a 32-bit one; the band and strip walks send each as a
+    32-bit red, 32 neighbouring sums of one row a warp-wide red."""
     diag = np.asarray(ii) == np.asarray(jj)
     if walk == "band":
         rows = b                                   # y_i: every row once over the bands
         cols = b * -(-b // BAND_INT8)              # y_j: the tile's width once a band
+    elif walk == "strip":
+        rows = b * -(-b // STRIP_INT8)             # y_i: every row once a strip
+        cols = b                                   # y_j: every column once over the strips
     else:
         edges = [min(SQUARE_INT8, b - s) for s in range(0, b, SQUARE_INT8)]
         rows = cols = sum(edges) * len(edges)      # over squares, their rows (or columns)
@@ -521,10 +594,10 @@ def _int8_lib():
     lib.symm_int8_split.argtypes = [_P] * 13 + [_I] * 4 + [_P]
     lib.symm_int8.restype = _I
     lib.symm_int8_split.restype = _I
-    if (lib.symm_int8_square_edge(), lib.symm_int8_band_rows()) != (SQUARE_INT8, BAND_INT8):
-        raise RuntimeError(f"symm_int8.cu walks squares of {lib.symm_int8_square_edge()} and "
-                           f"bands of {lib.symm_int8_band_rows()} rows, symm_int8.py "
-                           f"{SQUARE_INT8} and {BAND_INT8}")
+    edges = (lib.symm_int8_square_edge(), lib.symm_int8_band_rows(), lib.symm_int8_strip_cols())
+    if edges != (SQUARE_INT8, BAND_INT8, STRIP_INT8):
+        raise RuntimeError(f"symm_int8.cu walks squares, bands and strips of {edges}, "
+                           f"symm_int8.py {(SQUARE_INT8, BAND_INT8, STRIP_INT8)}")
     return lib
 
 
@@ -546,9 +619,14 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+# the ``walk`` argument of symm_int8.cu's ``symm_int8``
+_WALK_CODES = {"square": 0, "band": 1, "strip": 2}
+
+
 def _record_walk(walk: str) -> None:
     """Count one K4 call of ``walk`` in ``K4_WALKS`` and, inside a traced
-    solve, in the profiler's ``int8_band_calls`` or ``int8_square_calls``."""
+    solve, in the profiler's ``int8_band_calls``, ``int8_strip_calls`` or
+    ``int8_square_calls``."""
     K4_WALKS[walk] += 1
     _profiler.count(f"int8_{walk}_calls", 1)
 
@@ -573,7 +651,7 @@ def symm_matmat_int8_kernel(x: Tensor, sym: SymmetricBlockedInt8) -> Tensor:
     err = lib.symm_int8(qx.data_ptr(), sym.q.data_ptr(), sym.ii.data_ptr(), sym.jj.data_ptr(),
                         x.data_ptr(), sx.data_ptr(), gq.data_ptr(), dg.data_ptr(),
                         acc.data_ptr(), y.data_ptr(), m, n, sym.b, sym.n_pairs,
-                        int(walk == "band"), _build.stream_handle(x.device))
+                        _WALK_CODES[walk], _build.stream_handle(x.device))
     _build.check(lib, err, "symm_int8")
     LAUNCHES["symm_int8"] += 1
     _record_walk(walk)

@@ -391,6 +391,52 @@ def test_int8_band_walk_equals_plain(cuda, monkeypatch, n, b, tol, m):
     assert torch.equal(symm_int8.symm_matmat_int8_kernel(x, sym), y)
 
 
+# K4's strip walk at small shapes, where int8_walk would pick the square
+# walk (too few strips to fill the card): every b a multiple of 16 of
+# INT8_SHAPES (b = 32 and 96 below a 128-byte line and a stage, b = 512 one
+# whole strip, b = 1024 two), a ragged one (b = 640: 512 + 128 columns;
+# b = 400: a last stage of 16 rows), and tile dropping; m = 33 and 48 leave
+# rows of x past m in the four M tiles
+@pytest.mark.parametrize("m", [33, 48, 64])
+@pytest.mark.parametrize("n,b,tol", [(n, b, None) for n, b in INT8_SHAPES if b % 16 == 0]
+                         + [(1280, 640, None), (1600, 400, None), (4096, 1024, 0.0)])
+def test_int8_strip_walk_equals_plain(cuda, monkeypatch, n, b, tol, m):
+    mat = _sym_matrix(n, 14)
+    if tol is not None:  # zero some whole off-diagonal tiles, which tol drops
+        for i, j in ((1, 0), (3, 1)):
+            mat[i * b:(i + 1) * b, j * b:(j + 1) * b] = 0.0
+            mat[j * b:(j + 1) * b, i * b:(i + 1) * b] = 0.0
+    sym = symm_int8.SymmetricBlockedInt8.from_dense(mat, b=b, tol=tol, device=cuda)
+    monkeypatch.setattr(symm_int8, "int8_walk", lambda *args, **kw: "strip")
+    xh = np.random.default_rng(15).standard_normal((m, sym.shape[0]))
+    xh[m // 2] = 0.0
+    x = torch.as_tensor(xh, dtype=torch.float32, device=cuda)
+    before = dict(symm_int8.K4_WALKS)
+    y = symm_int8.symm_matmat_int8_kernel(x, sym)
+    torch.cuda.synchronize()
+    assert symm_int8.K4_WALKS == {**before, "strip": before["strip"] + 1}
+    assert torch.equal(y, symm_int8.symm_matmat_int8(x, sym))
+    assert torch.equal(symm_int8.symm_matmat_int8_kernel(x, sym), y)
+
+
+def test_int8_strip_walk_taken_on_the_card(cuda):
+    """At 64 rows on 36 tiles of 1024 (72 strips, at least half a strip an
+    SM) the choice is the strip walk: a call counts one strip-walk call,
+    and gives the plain version's bits."""
+    from iterative_solver_torch.models.synthetic_fci import synthetic_packed_int8
+
+    sym, _ = synthetic_packed_int8(8192, b=1024, seed=16, device=cuda)
+    x = torch.as_tensor(np.random.default_rng(17).standard_normal((64, 8192)),
+                        dtype=torch.float32, device=cuda)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert symm_int8.int8_walk(64, 1024, sym.n_pairs, sms) == "strip"
+    before = dict(symm_int8.K4_WALKS)
+    y = symm_int8.symm_matmat_int8_kernel(x, sym)
+    torch.cuda.synchronize()
+    assert symm_int8.K4_WALKS == {**before, "strip": before["strip"] + 1}
+    assert torch.equal(y, symm_int8.symm_matmat_int8(x, sym))
+
+
 def test_int8_walk_taken_on_the_card(cuda):
     """At these sizes the choice is the square walk: a call counts one
     square-walk call and no profiler count."""

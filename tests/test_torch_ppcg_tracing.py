@@ -155,18 +155,19 @@ def test_spans_off_give_the_bits_of_a_solve_without_spans(monkeypatch):
 
 
 def test_square_calls_equal_the_action_spans_of_a_solve():
-    """An action that records K4's square walk once a call through
-    ``_record_walk``, as the wrapper does at 64 rows on the card (on the
-    CPU it takes the plain version and records no walk), counts one
-    ``int8_square_calls`` for each ``ppcg.action`` of a traced solve, and
+    """An action that records the walk K4 takes at 64 rows on the card,
+    the strip walk (the square walk before it, whence the name), once a
+    call through ``_record_walk``, as the wrapper does (on the CPU it takes
+    the plain version and records no walk), counts one
+    ``int8_strip_calls`` for each ``ppcg.action`` of a traced solve, and
     nothing outside the profiler (the warm-up solve)."""
 
     def matvec(x, m):
-        T._record_walk("square")
+        T._record_walk("strip")
         return x @ m
 
     solver, d = _solver(matvec=matvec)
     with profile(activities=[ProfilerActivity.CPU]):
         solver.run_on_device(_guess(d))
     reg = P.snapshot()
-    assert reg["counters"] == {"int8_square_calls": reg["spans"]["ppcg.action"]["count"]}
+    assert reg["counters"] == {"int8_strip_calls": reg["spans"]["ppcg.action"]["count"]}

@@ -246,11 +246,18 @@ def _walk_operand(n, b, tol):
 
 
 # the square walk at every M tiling; K4's band walk (one M tile, b a
-# multiple of 16) at m = 1, 6 and 16
+# multiple of 16) at m = 1, 6 and 16; its strip walk (four M tiles, b a
+# multiple of 16) at m = 33, 48 and 64 on the small operators, 64 on the
+# large (b = 1024: two strips; b = 512: one whole strip) and 33 and 64 on
+# a ragged one (b = 400: a strip of 400 columns, a last stage of 16 rows)
+STRIP_WALKS = [w for w in WALKS if w[1] % 16 == 0] + [(1024, 512, None), (1600, 400, None)]
 WALK_CASES = ([pytest.param(n, b, tol, m, "square", id=f"{n}-{b}-{tol}-{m}")
                for n, b, tol in WALKS for m in (1, 16, 17, 64, 65)]
               + [pytest.param(n, b, tol, m, "band", id=f"{n}-{b}-{tol}-{m}-band")
-                 for n, b, tol in WALKS if b % 16 == 0 for m in (1, 6, 16)])
+                 for n, b, tol in WALKS if b % 16 == 0 for m in (1, 6, 16)]
+              + [pytest.param(n, b, tol, m, "strip", id=f"{n}-{b}-{tol}-{m}-strip")
+                 for n, b, tol in STRIP_WALKS
+                 for m in ((33, 48, 64) if n < 1024 else (33, 64) if b == 400 else (64,))])
 
 
 @pytest.mark.parametrize("n,b,tol,m,walk", WALK_CASES)
@@ -311,6 +318,12 @@ def test_flush_atomics_count_by_numpy(n, b, tol, planes):
     tb = np.repeat(np.arange(ts.n_pairs), bpt)
     band_rows = np.minimum(T.BAND_INT8, b - np.tile(np.arange(bpt), ts.n_pairs) * T.BAND_INT8)
     per_x_row_band = np.sum(band_rows + np.where(ii[tb] != jj[tb], b, 0))
+    # the strip walk: per strip, all b rows of the tile (y_i) and, off the
+    # diagonal, its own columns (y_j)
+    strips = list(T.int8_strip_items(ts.n_pairs, b))
+    strip_cols = np.array([min(T.STRIP_INT8, b - c0) for _, c0 in strips])
+    ts_ = np.array([t for t, _ in strips])
+    per_x_row_strip = np.sum(b + np.where(ii[ts_] != jj[ts_], strip_cols, 0))
     for m in (1, 16, 17, 64):
         sums, reds = T.int8_flush_atomics(ii, jj, b, m, planes=planes)
         assert sums == planes * m * int(per_x_row)
@@ -319,6 +332,9 @@ def test_flush_atomics_count_by_numpy(n, b, tol, planes):
             # one 32-bit red a sum
             assert T.int8_flush_atomics(ii, jj, b, m, walk="band") == (
                 m * int(per_x_row_band),) * 2
+        if planes == 1:
+            assert T.int8_flush_atomics(ii, jj, b, m, walk="strip") == (
+                m * int(per_x_row_strip),) * 2
 
 
 @pytest.mark.parametrize("walk,sums,reds", [("band", 667_942_912, 667_942_912),
@@ -331,6 +347,41 @@ def test_flush_atomics_at_the_benchmark_cell(walk, sums, reds):
     ii, jj = np.tril_indices(128)
     assert ii.size == 8256
     assert T.int8_flush_atomics(ii, jj, 1024, 16, walk=walk) == (sums, reds)
+
+
+def test_strip_flush_atomics_at_the_ppcg_cell():
+    """The PPCG cell's operator (n = 131072, b = 1024: 8256 tile pairs, 128
+    on the diagonal) at 64 rows of x: the strip walk flushes 2 x 1024 sums
+    of y_i a tile and row of x (one per 512-column strip; strips of 256
+    columns would flush 4 x 1024, 2,696,937,472 a call), and 1024 of y_j
+    off the diagonal, each a 32-bit red; the square walk's 4 x 512 a tile
+    go two to a 64-bit red."""
+    ii, jj = np.tril_indices(128)
+    assert T.int8_flush_atomics(ii, jj, 1024, 64, walk="strip") == (1_614_807_040,) * 2
+    assert T.int8_flush_atomics(ii, jj, 1024, 64) == (4_294_967_296, 2_147_483_648)
+
+
+@pytest.mark.parametrize("n,b,tol", STRIP_WALKS)
+def test_strip_items_cover_every_tile_element_once(n, b, tol):
+    """The strips of every tile cover each tile element once, in
+    block-index order (tile by tile, strip by strip), each ``STRIP_INT8``
+    columns wide but the last."""
+    ts = _walk_operand(n, b, tol)
+    cover = np.zeros((ts.n_pairs, b, b), dtype=np.int64)
+    items = list(T.int8_strip_items(ts.n_pairs, b))
+    assert items == sorted(items)
+    assert len(items) == ts.n_pairs * -(-b // T.STRIP_INT8)
+    for t, c0 in items:
+        cover[t, :, c0:c0 + T.STRIP_INT8] += 1
+    assert np.all(cover == 1)
+
+
+@pytest.mark.parametrize("walk,m", [("strip", 65), ("band", 17)])
+def test_walk_emulation_refuses_more_rows_than_its_kernel(walk, m):
+    ts = _walk_operand(96, 32, None)
+    qx = torch.zeros((m, ts.shape[0]), dtype=torch.int8)
+    with pytest.raises(ValueError, match="rows of x"):
+        T.int8_square_walk(qx, ts.q, ts.ii, ts.jj, ts.b, walk=walk)
 
 
 @pytest.mark.parametrize("n,b,tol", WALKS)
@@ -370,13 +421,15 @@ def test_m_tiles_per_block(m, tiles):
 
 
 # (m, b, n_pairs, sms, aligned, planes) -> walk: the benchmark's operator
-# (8256 pairs of 1024) takes the band walk at 16 rows on 132 SMs; 36 pairs
-# (n = 8192) give 144 bands, 528 of 256 (b = 256) 528: under 8 an SM
+# (8256 pairs of 1024) takes the band walk at 16 rows on 132 SMs and the
+# strip walk at 33 to 64; 36 pairs (n = 8192) give 144 bands, 528 of 256
+# (b = 256) 528: under 8 an SM; two M tiles (17 to 32 rows) and more than
+# 64 rows keep the square walk
 WALK_CHOICES = [
     ((16, 1024, 8256, 132, True, 1), "band"),
     ((1, 1024, 8256, 132, True, 1), "band"),
     ((17, 1024, 8256, 132, True, 1), "square"),
-    ((64, 1024, 8256, 132, True, 1), "square"),
+    ((64, 1024, 8256, 132, True, 1), "strip"),
     ((16, 1024, 8256, 132, False, 1), "square"),
     ((16, 1000, 8256, 132, True, 1), "square"),
     ((16, 2048, 8256, 132, True, 1), "square"),
@@ -387,6 +440,25 @@ WALK_CHOICES = [
     ((16, 1024, 263, 132, True, 1), "square"),
     ((16, 1024, 263, 100, True, 1), "band"),
     ((16, 96, 1056, 132, True, 1), "band"),
+    # the strip walk: four M tiles, m <= 64, at least half a strip an SM;
+    # the PPCG flagship (528 pairs, 8 strips an SM), a quarter of it on a
+    # sharded rank (2 an SM), 64 x 8192 (72 strips), not 32 pairs (64)
+    ((33, 1024, 8256, 132, True, 1), "strip"),
+    ((48, 1024, 8256, 132, True, 1), "strip"),
+    ((64, 1024, 528, 132, True, 1), "strip"),
+    ((64, 1024, 132, 132, True, 1), "strip"),
+    ((64, 1024, 36, 132, True, 1), "strip"),
+    ((64, 256, 528, 132, True, 1), "strip"),
+    ((64, 96, 1056, 132, True, 1), "strip"),
+    ((16, 1024, 8256, 132, True, 1), "band"),
+    ((32, 1024, 8256, 132, True, 1), "square"),
+    ((65, 1024, 8256, 132, True, 1), "square"),
+    ((128, 1024, 8256, 132, True, 1), "square"),
+    ((64, 1024, 8256, 132, False, 1), "square"),
+    ((64, 1000, 8256, 132, True, 1), "square"),
+    ((64, 2048, 8256, 132, True, 1), "square"),
+    ((64, 1024, 32, 132, True, 1), "square"),
+    ((64, 1024, 8256, 132, True, 2), "square"),
 ]
 
 
@@ -394,15 +466,17 @@ WALK_CHOICES = [
 def test_walk_choice(args, walk):
     """The band walk only at one M tile, b a multiple of 16 up to 1024 with
     16-byte aligned operands, and at least 8 bands an SM (the SM count
-    passed in); the square walk otherwise, and always for K5."""
+    passed in); the strip walk under the same conditions at four M tiles
+    and at most 64 rows, with at least one strip an SM; the square walk
+    otherwise, and always for K5."""
     assert T.int8_walk(*args) == walk
 
 
-@pytest.mark.parametrize("walk", ["band", "square"])
+@pytest.mark.parametrize("walk", ["band", "square", "strip"])
 def test_walk_counters_count_one_a_call(walk):
     """``K4_WALKS`` counts every call of its walk; the profiler's
-    ``int8_band_calls`` and ``int8_square_calls`` count that walk's calls
-    inside a traced solve only."""
+    ``int8_band_calls``, ``int8_square_calls`` and ``int8_strip_calls``
+    count that walk's calls inside a traced solve only."""
     from torch.profiler import ProfilerActivity, profile
 
     from iterative_solver_torch.utils import profiler as P
