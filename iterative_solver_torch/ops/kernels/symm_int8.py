@@ -77,7 +77,6 @@ import numpy as np
 import torch
 
 from ... import config as _config
-from ...utils import profiler as _profiler
 from . import _build
 from .symm import _check_operands, exactly_symmetric, packed_matvec
 
@@ -624,11 +623,8 @@ _WALK_CODES = {"square": 0, "band": 1, "strip": 2}
 
 
 def _record_walk(walk: str) -> None:
-    """Count one K4 call of ``walk`` in ``K4_WALKS`` and, inside a traced
-    solve, in the profiler's ``int8_band_calls``, ``int8_strip_calls`` or
-    ``int8_square_calls``."""
+    """Count one K4 call of ``walk`` in ``K4_WALKS``."""
     K4_WALKS[walk] += 1
-    _profiler.count(f"int8_{walk}_calls", 1)
 
 
 def symm_matmat_int8_kernel(x: Tensor, sym: SymmetricBlockedInt8) -> Tensor:

@@ -21,6 +21,7 @@ from iterative_solver_tpu.solvers.banded import BandedEigensolver as JBanded
 from iterative_solver_tpu.solvers.banded import (
     make_deflated_davidson_matvec as j_make_deflated,
 )
+from torch_testing import worker_share_of_cores  # noqa: F401 (autouse: this module's share of the cores)
 
 
 def make_matrix(n, nlow=16, seed=0):

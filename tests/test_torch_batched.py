@@ -16,6 +16,7 @@ import torch
 
 from iterative_solver_tpu.solvers import fused_davidson as J
 from iterative_solver_torch.solvers import fused_davidson as T
+from torch_testing import worker_share_of_cores  # noqa: F401 (autouse: this module's share of the cores)
 
 N, NROOTS, M_MAX, POINTS = 256, 3, 18, 6
 

@@ -12,6 +12,7 @@ import os
 import re
 
 from test_fortran_abi import F90, HEADER, parse_c_header, parse_f90_interfaces
+from torch_testing import worker_share_of_cores  # noqa: F401 (autouse: this module's share of the cores)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "iterative_solver_torch", "bindings", "build_embedded.py")

@@ -15,6 +15,7 @@ import iterative_solver_tpu as J
 from iterative_solver_torch import config
 from iterative_solver_torch.bindings import c_api as tc
 from iterative_solver_tpu.bindings import c_api as jc
+from torch_testing import worker_share_of_cores  # noqa: F401 (autouse: this module's share of the cores)
 
 APIS = {"jax": (jc, J), "torch": (tc, T)}
 

@@ -11,6 +11,7 @@ import torch
 
 from iterative_solver_tpu.ops.kernels import chain_pallas as J
 from iterative_solver_torch.ops.kernels import chain as T
+from torch_testing import worker_share_of_cores  # noqa: F401 (autouse: this module's share of the cores)
 
 
 def _setup(nroots=4, m_max=12, n=256, seed=0):

@@ -24,6 +24,7 @@ from iterative_solver_torch.solvers.chebyshev import (
 from iterative_solver_torch.solvers.fused_davidson import FusedDavidson
 from iterative_solver_tpu.solvers import chebyshev as jcheb
 from iterative_solver_tpu.solvers.fused_davidson import FusedDavidson as JFused
+from torch_testing import worker_share_of_cores  # noqa: F401 (autouse: this module's share of the cores)
 
 _PREC = jax.lax.Precision.HIGHEST
 

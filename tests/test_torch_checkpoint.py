@@ -26,6 +26,7 @@ from iterative_solver_tpu.solvers import fused_davidson as J
 from iterative_solver_tpu.utils import checkpoint as JC
 from iterative_solver_torch.solvers import fused_davidson as T
 from iterative_solver_torch.utils import checkpoint as TC
+from torch_testing import worker_share_of_cores  # noqa: F401 (autouse: this module's share of the cores)
 
 N, B, NROOTS, M_MAX = 384, 128, 4, 16
 

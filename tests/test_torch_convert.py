@@ -15,6 +15,7 @@ from iterative_solver_tpu.solvers import fused_davidson as JF
 from iterative_solver_torch import convert
 from iterative_solver_torch.ops.kernels import symm as TS
 from iterative_solver_torch.solvers import fused_davidson as TF
+from torch_testing import worker_share_of_cores  # noqa: F401 (autouse: this module's share of the cores)
 
 N, B, NROOTS, M_MAX = 256, 64, 3, 12
 

@@ -25,6 +25,7 @@ from iterative_solver_tpu.ops import dense as J
 from iterative_solver_tpu.subspace.dimensions import Dimensions as JDimensions
 from iterative_solver_tpu.utils import Logger as JLogger
 from iterative_solver_tpu.utils import Statistics as JStatistics
+from torch_testing import worker_share_of_cores  # noqa: F401 (autouse: this module's share of the cores)
 
 
 def _equal(a, b):

@@ -28,6 +28,7 @@ from iterative_solver_tpu.ops.kernels import dense_int8 as JD
 from iterative_solver_tpu.solvers import fused_nonsym as J
 from iterative_solver_torch.ops.kernels import dense_int8 as TD
 from iterative_solver_torch.solvers import fused_nonsym as T
+from torch_testing import worker_share_of_cores  # noqa: F401 (autouse: this module's share of the cores)
 
 
 def make_op(n=400, strength=0.15, seed=0):

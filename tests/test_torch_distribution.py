@@ -19,6 +19,7 @@ from iterative_solver_tpu.array.distr_array import DistrArray as JDistrArray
 from iterative_solver_tpu.parallel import block_sharding as jblock_sharding
 from iterative_solver_tpu.parallel import collectives as jcoll
 from iterative_solver_tpu.parallel import make_mesh as jmake_mesh
+from torch_testing import worker_share_of_cores  # noqa: F401 (autouse: this module's share of the cores)
 
 WORLD = 4
 CASES = ["distr_array", "collectives"]

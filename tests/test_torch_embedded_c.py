@@ -14,6 +14,8 @@ import sys
 import sysconfig
 
 import pytest
+from torch_testing import child_env
+from torch_testing import worker_share_of_cores  # noqa: F401 (autouse: this module's share of the cores)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -33,8 +35,8 @@ EXAMPLES = {
 
 
 def _env():
-    env = dict(os.environ, ITERATIVE_SOLVER_DEVICE="cpu", OMP_NUM_THREADS="1")
-    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    env = child_env(ITERATIVE_SOLVER_DEVICE="cpu",
+                    PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
     env.pop("JAX_PLATFORMS", None)
     return env
 

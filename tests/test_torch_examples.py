@@ -24,6 +24,8 @@ import sys
 import numpy as np
 import pytest
 import torch
+from torch_testing import child_env
+from torch_testing import worker_share_of_cores  # noqa: F401 (autouse: this module's share of the cores)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TWIN_DIR = os.path.join(REPO, "examples_torch")
@@ -46,8 +48,7 @@ _RUNS = {}
 
 
 def _env(**extra):
-    # one thread a twin: the test workers already share the cores
-    env = dict(os.environ, OMP_NUM_THREADS="1")
+    env = child_env()
     env.pop("EXAMPLES_DEVICE", None)
     env.update(extra)
     return env

@@ -32,20 +32,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+from torch_testing import child_env
+from torch_testing import worker_share_of_cores  # noqa: F401 (autouse: this module's share of the cores)
 
 
 HIGHEST = jax.lax.Precision.HIGHEST
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """The twins run on one thread here: the test workers share the cores
-    with JAX's own pool."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def twin(name: str, *argv) -> dict:
@@ -135,8 +126,8 @@ def test_refine_to_1e8():
     import sys
 
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    env = dict(os.environ, JAX_PLATFORMS="cpu", OMP_NUM_THREADS="1",
-               XLA_FLAGS="--xla_cpu_multi_thread_eigen=false intra_op_parallelism_threads=1")
+    env = child_env(JAX_PLATFORMS="cpu",
+                    XLA_FLAGS="--xla_cpu_multi_thread_eigen=false intra_op_parallelism_threads=1")
     env.pop("JAX_ENABLE_X64", None)
     proc = subprocess.run([sys.executable, os.path.join(root, "examples", "refine_to_1e8.py")],
                           capture_output=True, text=True, timeout=240, env=env, cwd=root)

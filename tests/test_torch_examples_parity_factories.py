@@ -8,16 +8,11 @@ import os
 import jax
 import jax.numpy as jnp
 import numpy as np
-from test_torch_examples_parity import (  # noqa: F401
-    HIGHEST,
-    close,
-    guess,
-    one_torch_thread,
-    twin,
-)
+from test_torch_examples_parity import HIGHEST, close, guess, twin
 
 import iterative_solver_tpu as its_j
 from examples_torch import _cli
+from torch_testing import worker_share_of_cores  # noqa: F401 (autouse: this module's share of the cores)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

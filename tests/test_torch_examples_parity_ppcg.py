@@ -6,7 +6,8 @@ in test_torch_examples_parity.py)."""
 import jax.numpy as jnp
 import numpy as np
 import torch
-from test_torch_examples_parity import close, guess, jmv, one_torch_thread, twin  # noqa: F401
+from test_torch_examples_parity import close, guess, jmv, twin
+from torch_testing import worker_share_of_cores  # noqa: F401 (autouse: this module's share of the cores)
 
 
 def _ppcg_matrix():

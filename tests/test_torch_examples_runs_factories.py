@@ -4,6 +4,7 @@ cpu``, exiting 0 with its JSON line (the rules in test_torch_examples.py)."""
 
 import pytest
 from test_torch_examples import GROUPS, run_twin
+from torch_testing import worker_share_of_cores  # noqa: F401 (autouse: this module's share of the cores)
 
 
 @pytest.mark.parametrize("name", GROUPS["factories"])

@@ -4,21 +4,10 @@ them, on their synthetic operators, each in a fresh subprocess with
 ``--device cpu``, and are held against ``np.linalg.eigvalsh`` of those
 operators (the rules in test_torch_examples.py)."""
 
-import contextlib
-
 import numpy as np
 import pytest
 from test_torch_examples import GROUPS, run_twin
-
-
-def one_blas_thread():
-    """The references' eigvalsh on one BLAS thread: the test workers share
-    the cores, and an oversubscribed eigvalsh takes many times longer."""
-    try:
-        from threadpoolctl import threadpool_limits
-    except ImportError:
-        return contextlib.nullcontext()
-    return threadpool_limits(1)
+from torch_testing import worker_share_of_cores  # noqa: F401 (autouse: this module's share of the cores)
 
 
 @pytest.mark.parametrize("name", GROUPS["hamiltonian"])
@@ -36,9 +25,7 @@ def test_foreign_container_matches_eigvalsh():
     assert [(r["n"], r["nroots"]) for r in out["runs"]] == [(512, 1), (512, 2), (768, 1),
                                                             (768, 2)]
     for run, seed in zip(out["runs"], (0, 0, 1, 1)):
-        with one_blas_thread():
-            ref = np.linalg.eigvalsh(synthetic_fci_dense(run["n"], seed=seed))
-        ref = ref[:run["nroots"]]
+        ref = np.linalg.eigvalsh(synthetic_fci_dense(run["n"], seed=seed))[:run["nroots"]]
         assert run["converged"]
         np.testing.assert_allclose(run["eigenvalues"], ref, rtol=0, atol=2e-9)
 
@@ -47,7 +34,6 @@ def test_multiroot_matches_eigvalsh():
     from iterative_solver_torch.models.synthetic_fci import synthetic_fci_dense
 
     out = run_twin("linear_eigensystem_multiroot")
-    with one_blas_thread():
-        ref = np.linalg.eigvalsh(synthetic_fci_dense(1000, seed=0))[:4]
+    ref = np.linalg.eigvalsh(synthetic_fci_dense(1000, seed=0))[:4]
     assert out["converged"] and out["p_space"] == 6
     np.testing.assert_allclose(out["eigenvalues"], ref, rtol=0, atol=1e-9)

@@ -5,6 +5,7 @@ user runs them: each in a fresh subprocess with ``--device cpu``, exiting
 
 import pytest
 from test_torch_examples import GROUPS, run_twin
+from torch_testing import worker_share_of_cores  # noqa: F401 (autouse: this module's share of the cores)
 
 
 @pytest.mark.parametrize("name", GROUPS["solvers"])

@@ -11,6 +11,7 @@ import subprocess
 import sys
 
 import pytest
+from torch_testing import worker_share_of_cores  # noqa: F401 (autouse: this module's share of the cores)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 SUBPACKAGES = ("solvers", "array", "subspace", "native", "ops", "ops.kernels", "models",

@@ -17,6 +17,7 @@ from iterative_solver_tpu.solvers import fused_cg as J
 from iterative_solver_tpu.solvers import fused_linear as JL
 from iterative_solver_torch.solvers import fused_cg as T
 from iterative_solver_torch.solvers import fused_linear as TL
+from torch_testing import worker_share_of_cores  # noqa: F401 (autouse: this module's share of the cores)
 
 N = 384
 

@@ -13,6 +13,7 @@ import torch
 
 from iterative_solver_tpu.solvers.fused_diis import FusedDIIS as JDIIS
 from iterative_solver_torch import FusedDIIS as TDIIS
+from torch_testing import worker_share_of_cores  # noqa: F401 (autouse: this module's share of the cores)
 
 _PREC = jax.lax.Precision.HIGHEST
 

@@ -13,6 +13,7 @@ import torch
 
 from iterative_solver_tpu.solvers.fused_lbfgs import FusedLBFGS as JLBFGS
 from iterative_solver_torch import FusedLBFGS as TLBFGS
+from torch_testing import worker_share_of_cores  # noqa: F401 (autouse: this module's share of the cores)
 
 _PREC = jax.lax.Precision.HIGHEST
 

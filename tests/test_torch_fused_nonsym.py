@@ -30,6 +30,7 @@ import torch
 
 from iterative_solver_tpu.solvers import fused_nonsym as J
 from iterative_solver_torch.solvers import fused_nonsym as T
+from torch_testing import worker_share_of_cores  # noqa: F401 (autouse: this module's share of the cores)
 
 
 def reference_matrix(n, param=1.0, strength=0.0):

@@ -21,6 +21,7 @@ import torch
 from iterative_solver_torch import convert
 from iterative_solver_torch.solvers import fused_ppcg as T
 from iterative_solver_tpu.solvers import fused_ppcg as J
+from torch_testing import worker_share_of_cores  # noqa: F401 (autouse: this module's share of the cores)
 
 N, NROOTS, RR_EVERY = 256, 6, 4
 

@@ -19,6 +19,7 @@ import torch
 
 from iterative_solver_tpu.solvers import fused_davidson as J
 from iterative_solver_torch.solvers import fused_davidson as T
+from torch_testing import worker_share_of_cores  # noqa: F401 (autouse: this module's share of the cores)
 
 N, B, NROOTS, M_MAX, NP = 384, 128, 4, 28, 8
 

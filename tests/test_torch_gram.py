@@ -17,6 +17,7 @@ import torch
 
 from iterative_solver_torch.ops.kernels import gram as T
 from iterative_solver_tpu.ops.kernels import masked_gram_pallas
+from torch_testing import worker_share_of_cores  # noqa: F401 (autouse: this module's share of the cores)
 
 TOL = 1e-5
 

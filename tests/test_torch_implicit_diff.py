@@ -18,6 +18,7 @@ from iterative_solver_tpu.ops.kernels import symm_pallas as jsymm
 from iterative_solver_tpu.solvers import implicit_diff as jdiff
 from iterative_solver_torch.ops.kernels import symm as tsymm
 from iterative_solver_torch.solvers import implicit_diff as tdiff
+from torch_testing import worker_share_of_cores  # noqa: F401 (autouse: this module's share of the cores)
 
 _PREC = jax.lax.Precision.HIGHEST
 

@@ -1,8 +1,9 @@
 """The port imports nothing of JAX: no module of iterative_solver_torch/ or
 examples_torch/, not chip_smoke.py, calibrate_sparse_cpu.py, calibrate_nonlinear_cpu.py,
 calibrate_nonsym_cpu.py, calibrate_spill_cpu.py, calibrate_sharded_cpu.py,
-calibrate_examples_cpu.py or
-the sharded tests' worker (tests/torch_shard_worker.py) imports ``jax``, ``jaxlib``
+calibrate_examples_cpu.py,
+the sharded tests' worker (tests/torch_shard_worker.py) or the port tests' thread
+owner (tests/torch_testing.py, which the card's test file imports) imports ``jax``, ``jaxlib``
 or ``iterative_solver_tpu`` (which would run iterative_solver_tpu/__init__.py
 and import JAX)."""
 
@@ -12,6 +13,7 @@ import subprocess
 import sys
 
 import pytest
+from torch_testing import worker_share_of_cores  # noqa: F401 (autouse: this module's share of the cores)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "iterative_solver_tpu"}
@@ -20,7 +22,8 @@ PORT_FILES = sorted((ROOT / "iterative_solver_torch").rglob("*.py")) + sorted(
     ROOT / "chip_smoke.py", ROOT / "calibrate_sparse_cpu.py", ROOT / "compare_kernels.py",
     ROOT / "calibrate_nonlinear_cpu.py", ROOT / "calibrate_nonsym_cpu.py",
     ROOT / "calibrate_spill_cpu.py", ROOT / "calibrate_sharded_cpu.py",
-    ROOT / "calibrate_examples_cpu.py", ROOT / "tests" / "torch_shard_worker.py"]
+    ROOT / "calibrate_examples_cpu.py", ROOT / "tests" / "torch_shard_worker.py",
+    ROOT / "tests" / "torch_testing.py"]
 
 
 def _imported_roots(path):

@@ -25,6 +25,7 @@ import pytest
 import torch
 
 from iterative_solver_torch.ops.kernels import chain, gram, spmv, symm, symm_int8
+from torch_testing import worker_share_of_cores  # noqa: F401 (autouse: this module's share of the cores)
 
 pytestmark = pytest.mark.cuda
 TOL = 1e-5

@@ -24,6 +24,7 @@ from iterative_solver_torch.models.synthetic_fci import synthetic_fci_bsr as t_f
 from iterative_solver_torch.ops.kernels import spmv as tspmv
 from iterative_solver_tpu.models.synthetic_fci import synthetic_fci_bsr as j_fci_bsr
 from iterative_solver_tpu.ops.kernels import spmv_pallas as jspmv
+from torch_testing import worker_share_of_cores  # noqa: F401 (autouse: this module's share of the cores)
 
 
 def _sym(n, seed, scale=0.05):

@@ -15,6 +15,7 @@ import iterative_solver_tpu as J
 import iterative_solver_torch as T
 from iterative_solver_tpu.solvers.interpolate import Interpolate as JInterpolate
 from iterative_solver_tpu.solvers.interpolate import Point as JPoint
+from torch_testing import worker_share_of_cores  # noqa: F401 (autouse: this module's share of the cores)
 
 
 def _quadratic(mod, n, eps=0.05):

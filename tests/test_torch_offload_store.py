@@ -20,6 +20,7 @@ from iterative_solver_torch.array.basis_store import BasisStore
 from iterative_solver_torch.array.offload_store import OffloadBasisStore, StreamedOffloadStore
 from iterative_solver_tpu.array.offload_store import OffloadBasisStore as JOffload
 from iterative_solver_tpu.array.offload_store import StreamedOffloadStore as JStreamed
+from torch_testing import worker_share_of_cores  # noqa: F401 (autouse: this module's share of the cores)
 
 CPU = "cpu"
 

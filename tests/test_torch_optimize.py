@@ -10,6 +10,7 @@ import torch
 
 import iterative_solver_tpu as J
 import iterative_solver_torch as T
+from torch_testing import worker_share_of_cores  # noqa: F401 (autouse: this module's share of the cores)
 
 
 def make_hessian(n, rho=0.1):

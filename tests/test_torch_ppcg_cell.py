@@ -17,6 +17,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from iterative_solver_torch.utils import profiler
 from portbench import harness, ppcg_spans
+from torch_testing import worker_share_of_cores  # noqa: F401 (autouse: this module's share of the cores)
 
 CPU = torch.device("cpu")
 NAME = "fci-ppcg-r64"

@@ -19,6 +19,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from iterative_solver_torch.solvers import fused_ppcg as fp
+from torch_testing import worker_share_of_cores  # noqa: F401 (autouse: this module's share of the cores)
 
 N, NROOTS, RR_EVERY = 2048, 8, 2
 

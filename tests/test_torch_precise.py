@@ -14,6 +14,7 @@ from iterative_solver_tpu.ops import precise as J
 from iterative_solver_tpu.solvers import fused_davidson as JD
 from iterative_solver_torch.ops import precise as T
 from iterative_solver_torch.solvers import fused_davidson as TD
+from torch_testing import worker_share_of_cores  # noqa: F401 (autouse: this module's share of the cores)
 
 
 def make_gapped(n, nroots, seed=0, noise=0.05):

@@ -16,6 +16,7 @@ import torch
 
 from iterative_solver_tpu.solvers import refine as J
 from iterative_solver_torch.solvers import refine as T
+from torch_testing import worker_share_of_cores  # noqa: F401 (autouse: this module's share of the cores)
 
 
 def make_gapped(n, nroots, seed=0, noise=0.05):

@@ -20,6 +20,7 @@ from iterative_solver_tpu.ops.kernels.spmv_pallas import BSRMatrix, BSRMatrixInt
 from iterative_solver_tpu.parallel import block_sharding, make_mesh
 from iterative_solver_tpu.parallel.sharded_bsr import ShardedBSR, ShardedBSRInt8
 from iterative_solver_tpu.solvers.fused_davidson import FusedDavidson
+from torch_testing import worker_share_of_cores  # noqa: F401 (autouse: this module's share of the cores)
 
 WORLD = 4
 CASES = ["bsr_arrays", "bsr_int8", "bsr_davidson"]

@@ -31,6 +31,7 @@ import scipy.linalg
 import iterative_solver_tpu as its
 import torch_shard_worker as W
 from iterative_solver_tpu.parallel import block_sharding, make_mesh, matrix_row_sharding
+from torch_testing import worker_share_of_cores  # noqa: F401 (autouse: this module's share of the cores)
 
 WORLD = 4
 CASES = ["family_vector_ops", "family_lbfgs", "family_diis", "family_refine",

@@ -25,6 +25,7 @@ import torch_shard_worker as W
 from iterative_solver_tpu.parallel import block_sharding, make_mesh, matrix_row_sharding
 from iterative_solver_tpu.solvers.fused_davidson import FusedDavidson
 from iterative_solver_tpu.solvers.fused_ppcg import FusedPPCG
+from torch_testing import worker_share_of_cores  # noqa: F401 (autouse: this module's share of the cores)
 
 WORLD = 4
 CASES = ["dense_davidson", "dense_davidson_rr", "ppcg", "parity_eigen", "parity_lineq",

@@ -23,6 +23,7 @@ from iterative_solver_tpu.ops.kernels.symm_pallas import SymmetricBlocked, Symme
 from iterative_solver_tpu.parallel import make_mesh
 from iterative_solver_tpu.parallel.sharded_symm import ShardedSymmetric
 from iterative_solver_tpu.solvers.fused_davidson import FusedDavidson
+from torch_testing import worker_share_of_cores  # noqa: F401 (autouse: this module's share of the cores)
 
 WORLD = 4
 CASES = ["symm_f64", "symm_split", "symm_int8", "symm_int8_split", "symm_int8_diag_once",

@@ -28,6 +28,7 @@ from iterative_solver_torch.solvers.fused_davidson import FusedDavidson as TDavi
 from iterative_solver_tpu.models import synthetic_fci as JS
 from iterative_solver_tpu.ops.kernels import spmv_pallas as J
 from iterative_solver_tpu.solvers.fused_davidson import FusedDavidson as JDavidson
+from torch_testing import worker_share_of_cores  # noqa: F401 (autouse: this module's share of the cores)
 
 FIELDS = ("values", "col_idx", "row_idx", "row_ptr", "diagonal")
 INT8_FIELDS = ("q", "rq", "cq", "col_idx", "row_idx", "row_ptr")

@@ -15,6 +15,7 @@ import torch
 
 from iterative_solver_tpu.ops.kernels import symm_pallas as J
 from iterative_solver_torch.ops.kernels import symm as T
+from torch_testing import worker_share_of_cores  # noqa: F401 (autouse: this module's share of the cores)
 
 _TDTYPE = {"f64": torch.float64, "f32": torch.float32, "bf16": torch.bfloat16}
 _JDTYPE = {"f64": jnp.float64, "f32": jnp.float32, "bf16": jnp.bfloat16}

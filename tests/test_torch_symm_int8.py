@@ -19,6 +19,7 @@ import torch
 from iterative_solver_torch import convert
 from iterative_solver_torch.ops.kernels import symm_int8 as T
 from iterative_solver_tpu.ops.kernels import symm_int8 as J
+from torch_testing import worker_share_of_cores  # noqa: F401 (autouse: this module's share of the cores)
 
 TIERS = {"int8": ("SymmetricBlockedInt8", ("q",)),
          "int8_split": ("SymmetricBlockedInt8Split", ("q1", "q2"))}
@@ -474,9 +475,8 @@ def test_walk_choice(args, walk):
 
 @pytest.mark.parametrize("walk", ["band", "square", "strip"])
 def test_walk_counters_count_one_a_call(walk):
-    """``K4_WALKS`` counts every call of its walk; the profiler's
-    ``int8_band_calls``, ``int8_square_calls`` and ``int8_strip_calls``
-    count that walk's calls inside a traced solve only."""
+    """``K4_WALKS`` counts every call of its walk, inside a trace or not;
+    it is the one count of K4's walks, and the profiler keeps none."""
     from torch.profiler import ProfilerActivity, profile
 
     from iterative_solver_torch.utils import profiler as P
@@ -488,5 +488,5 @@ def test_walk_counters_count_one_a_call(walk):
         T._record_walk(walk)
         T._record_walk(walk)
     assert T.K4_WALKS == {**before, walk: before[walk] + 3}
-    assert P.snapshot()["counters"] == {f"int8_{walk}_calls": 2}
+    assert P.snapshot()["counters"] == {}
     P.reset()

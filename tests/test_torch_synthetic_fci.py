@@ -9,6 +9,7 @@ import torch
 
 from iterative_solver_torch.models import synthetic_fci as T
 from iterative_solver_tpu.models import synthetic_fci as J
+from torch_testing import worker_share_of_cores  # noqa: F401 (autouse: this module's share of the cores)
 
 
 @pytest.mark.parametrize("n,b,seed", [(256, 64, 0), (512, 128, 1), (384, 128, 7),

@@ -26,6 +26,7 @@ from torch.profiler import ProfilerActivity, profile
 from iterative_solver_torch.solvers import fused_davidson as fd
 from iterative_solver_torch.utils import Profiler
 from iterative_solver_torch.utils import profiler as P
+from torch_testing import worker_share_of_cores  # noqa: F401 (autouse: this module's share of the cores)
 
 N, B, NROOTS, M_MAX = 256, 128, 4, 16
 SPANS = ("davidson.solve", "davidson.upload", "davidson.iteration", "davidson.rr",

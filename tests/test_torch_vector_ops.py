@@ -9,6 +9,7 @@ import torch
 
 from iterative_solver_tpu.array import vector_ops as J
 from iterative_solver_torch.array import vector_ops as T
+from torch_testing import worker_share_of_cores  # noqa: F401 (autouse: this module's share of the cores)
 
 _RNG = np.random.default_rng(21)
 X = _RNG.standard_normal((4, 50))

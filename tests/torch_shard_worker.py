@@ -78,7 +78,9 @@ def run_workers(out_dir, world: int, cases, timeout: float = 240.0) -> None:
     if a rank fails or runs past ``timeout`` seconds."""
     out_dir = str(out_dir)
     store = os.path.join(out_dir, f"store_w{world}")
-    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=ROOT, SHARD_OUT=out_dir)
+    from torch_testing import child_env  # here, so that the ranks import no pytest
+
+    env = child_env(PYTHONPATH=ROOT, SHARD_OUT=out_dir)
     env.pop("JAX_PLATFORMS", None)
     procs = [subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), str(rank), str(world), store, out_dir,
