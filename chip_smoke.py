@@ -39,7 +39,10 @@ Phases, one JSON line each:
    and their ``torch._int_mm`` yardstick (one call per int8 product against
    the dense int8 plane the tiles imply, column-major as cuBLASLt's int8
    path takes it, and row-major beside it; each equal to the plain
-   accumulator bit for bit) reads its device ms too.
+   accumulator bit for bit) reads its device ms too. K8 (PPCG's per-root
+   3x3 RR) at 64 x 131072, all directions live and every p dead: given its
+   own dots, coefficients and blocks to the eager chain's bits; the dots
+   within float32 rounding of float64 and the same bits on a second call.
    Times from CUDA events, kernel and plain timed in turns (plain, kernel,
    kernel, plain);
 4. the headline solve: tier "fast", rr "window", fused chain, tol 2e-4;
@@ -330,7 +333,8 @@ against the implied operator (applied tile by tile on the card), the
 orthonormality of X, how far the sorted Rayleigh quotients lie from the 64
 lowest diagonal entries (a skipped root would be 0.079 off), and K4's
 launches, which must equal init + probe + iterations + re-anchors
-(iterations // rr_every).
+(iterations // rr_every), and K8's, one of each of its two kernels an
+iteration (on every rank of the sharded flagship too).
 
 Every solve also counts the launches of K7 (the masked Gram), which must be
 0: no solver calls it, in either package. Every device time from the
@@ -1124,6 +1128,91 @@ def check_int8_kernels(matrix: np.ndarray, flagship, device) -> list:
     return results
 
 
+def check_rr3_kernels(device) -> list:
+    """K8 (PPCG's per-root 3x3 RR, ops/kernels/rr3.py) at the PPCG cell's
+    64 x 131072, on six float32 blocks x, ax, w, aw, p, ap of unit rows
+    (the actions a diagonal), once with every direction live and once with
+    every p dead (a solve's first step). Checks: given the dots kernel's
+    own dots, the update kernel's coefficients and four blocks carry the
+    bits of the eager chain (``_rr3_coeffs``, ``rr3_update_plain``); the
+    dots lie within float32 rounding of float64 dots (2^-24 of each value
+    plus 1e-13 of the sum of |products|: K8 adds in float64 and rounds
+    once) and repeat to the bit. The plain version timed in turns is the
+    eager chain from the einsum row dots on, in CUDA-event ms only: of its
+    ~2,000 kernels a call the profiler drops a few. The bound is the
+    bytes of both kernels: 6 blocks read by the dots, 6 read and 4 written
+    by the update."""
+    import torch
+
+    from iterative_solver_torch.ops.kernels import rr3
+    from iterative_solver_torch.solvers import fused_ppcg as fp
+
+    r, n = FLAGSHIP_ROOTS, INT8_CELL_N
+    rng = np.random.default_rng(3)
+    f32 = {"dtype": torch.float32, "device": device}
+    d = torch.linspace(-2.0, 50.0, n, **f32)
+    x, w, p = (v / torch.linalg.norm(v, dim=1, keepdim=True) for v in (
+        torch.as_tensor(rng.standard_normal((r, n)), **f32) for _ in range(3)))
+    live = torch.ones(r, dtype=torch.bool, device=device)
+    zero = torch.zeros_like(p)
+    cases = {"live": ((x, x * d, w, w * d, p, p * d), live, live),
+             "p_dead": ((x, x * d, w, w * d, zero, zero), live, ~live)}
+    worst_abs = worst_rel = 0.0
+    for case, (blocks, live_w, live_p) in cases.items():
+        dots = rr3.rr3_dots(*blocks)
+        *new, c = rr3.rr3_update(dots, live_w, live_p, *blocks)
+        again = rr3.rr3_dots(*blocks)
+        ref_c = fp._rr3_coeffs(dots, live_w, live_p, r)
+        ref = rr3.rr3_update_plain(ref_c, *blocks)
+        b64 = [b.double() for b in blocks]
+        dots64 = torch.stack([(b64[i] * b64[j]).sum(1) for i, j in rr3.RR3_PAIRS])
+        scale = torch.stack([(b64[i] * b64[j]).abs().sum(1) for i, j in rr3.RR3_PAIRS])
+        err = (dots.double() - dots64).abs()
+        torch.cuda.synchronize(device)
+        if not (torch.equal(c, ref_c) and all(torch.equal(a, b) for a, b in zip(new, ref))):
+            raise AssertionError(f"K8 ({case}): the update differs from the eager chain's bits")
+        if not torch.equal(again, dots):
+            raise AssertionError(f"K8 ({case}): a second call of the dots gave other bits")
+        if not bool(torch.all(err <= 2.0 ** -24 * dots64.abs() + 1e-13 * scale)):
+            raise AssertionError(f"K8 ({case}): dots off float64 by {float(err.max()):.3e}")
+        worst_abs = max(worst_abs, float(err.max()))
+        worst_rel = max(worst_rel, float((err / dots64.abs().clamp_min(1e-300)).max()))
+        del new, ref, again, b64, dots64, scale, err
+    blocks, live_w, live_p = cases["live"]
+
+    def kernel():
+        return rr3.rr3_update(rr3.rr3_dots(*blocks), live_w, live_p, *blocks)
+
+    def plain():
+        return rr3.rr3_update_plain(
+            fp._rr3_coeffs(rr3.rr3_dots_plain(*blocks), live_w, live_p, r), *blocks)
+
+    kernel_ms, plain_ms = in_turns(plain, kernel, device)
+    kernel_device_ms, call_device_ms, _ = device_ms(kernel, device, "rr3_", 2)
+    dots_device_ms = device_ms(kernel, device, "rr3_dots", 1)[0]
+    nbytes = 16 * 4 * r * n
+    bound_ms, bound_by = bound(nbytes, 0.0, "f32")
+    rec = {
+        "name": "K8", "route": "cuda",
+        "source": "iterative_solver_torch/ops/kernels/csrc/rr3.cu",
+        "replaces": "iterative_solver_tpu/solvers/fused_ppcg.py:130",
+        "max_abs_err": 0.0, "bit_identical_given_dots": True, "same_bits": True,
+        "dots_max_abs_err_f64": worst_abs, "dots_max_rel_err_f64": worst_rel,
+        "ms": kernel_ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "bound_bytes": nbytes, "library_ms": None,
+        "library_note": "none: the JAX package leaves the step to XLA",
+        "kernel_device_ms": kernel_device_ms, "dots_device_ms": dots_device_ms,
+        "update_device_ms": kernel_device_ms - dots_device_ms,
+        "call_device_ms": call_device_ms, "share_of_bound": bound_ms / kernel_device_ms,
+        "shapes": {"r": r, "n": n, "chunks": rr3.rr3_chunks(r, n)}, "cases": list(cases),
+    }
+    emit({"phase": "kernel_check_k8", **rec})
+    del cases, blocks, x, w, p, zero, d
+    torch.cuda.empty_cache()
+    return [rec]
+
+
 def expected_restarts(iters: int, nroots: int, m_max: int, n_p: int = 0) -> int:
     """Restarts of a solve that steps ``iters`` times, restarting whenever
     the next append would overflow (the frozen P slots stay)."""
@@ -1137,9 +1226,10 @@ def expected_restarts(iters: int, nroots: int, m_max: int, n_p: int = 0) -> int:
 
 def launch_counters() -> tuple:
     """Every kernel wrapper's launch counts (the keys are distinct)."""
-    from iterative_solver_torch.ops.kernels import chain, gram, spmv, symm, symm_int8
+    from iterative_solver_torch.ops.kernels import chain, gram, rr3, spmv, symm, symm_int8
 
-    return symm.LAUNCHES, symm_int8.LAUNCHES, chain.LAUNCHES, spmv.LAUNCHES, gram.LAUNCHES
+    return (symm.LAUNCHES, symm_int8.LAUNCHES, chain.LAUNCHES, spmv.LAUNCHES, gram.LAUNCHES,
+            rr3.LAUNCHES)
 
 
 def reset_launches() -> None:
@@ -1152,12 +1242,31 @@ def read_launches(key: str) -> int:
     return next(d[key] for d in launch_counters() if key in d)
 
 
+# K8's two kernels' launch counters (ops/kernels/rr3.py)
+RR3_KEYS = ("rr3_dots", "rr3_update")
+
+
 def solve_launches(action_key: str) -> dict:
     """The launches a solve made: its action's kernel, the fused chain (K2),
     and the masked Gram (K7), which no solver calls, so that a solve that
-    did would show."""
-    return {"action": read_launches(action_key), "chain": read_launches("chain"),
-            "gram": read_launches("gram")}
+    did would show; and PPCG's 3x3 RR kernels (K8, ``rr3_dots`` and
+    ``rr3_update``) where either ran, so that a PPCG phase expects them
+    (``ppcg_expected_launches``) and any other solve that took one differs
+    from its expected launches."""
+    launches = {"action": read_launches(action_key), "chain": read_launches("chain"),
+                "gram": read_launches("gram")}
+    rr3 = {key: read_launches(key) for key in RR3_KEYS}
+    return {**launches, **rr3} if any(rr3.values()) else launches
+
+
+def ppcg_expected_launches(iters: int, device) -> dict:
+    """A flagship PPCG solve's launches: K4 for the init (1), the symmetry
+    probe (2), each step and each full RR's re-anchoring; no K2 and no K7;
+    on the card each step's two K8 kernels."""
+    expected = {"action": 1 + 2 + iters + iters // FLAGSHIP_RR_EVERY, "chain": 0, "gram": 0}
+    if device.type == "cuda":
+        expected.update({key: iters for key in RR3_KEYS})
+    return expected
 
 
 def solve_phase(matrix, ref_evals, device, tier, rr, tol, res_limit, rq_limit,
@@ -1301,8 +1410,7 @@ def solve_ppcg_flagship(sym, diag, gen_s, device, tol=FLAGSHIP_TOL,
     torch.cuda.synchronize(device)
     wall2 = time.perf_counter() - t0
 
-    # PPCG takes no expand chain
-    expected = {"action": 1 + 2 + iters + iters // FLAGSHIP_RR_EVERY, "chain": 0, "gram": 0}
+    expected = ppcg_expected_launches(iters, device)
     converged = bool(np.max(errors) <= tol)
     # the implied operator diag(d) + gq gq^T * unpack(q), tile by tile
     checks = quality(x, lambda xs: implied_matmat_int8(xs, sym, diag), diag, FLAGSHIP_ROOTS)
@@ -4181,7 +4289,7 @@ EXAMPLE_KERNELS = ("K1-f32", "K3", "K2", "K4", "K5")
 # the kernels line's names by the launch counters' keys
 LAUNCH_NAMES = {"symm_bf16": "K1-bf16", "symm_f32": "K1-f32", "symm_split": "K3",
                 "chain": "K2", "symm_int8": "K4", "symm_int8_split": "K5", "bsr": "K6",
-                "gram": "K7"}
+                "gram": "K7", "rr3_dots": "K8", "rr3_update": "K8"}
 
 
 def example_counts(out, prefix: str = "") -> dict:
@@ -4715,7 +4823,7 @@ def shard_ppcg(mesh, device, flagship) -> dict:
     wall = time.perf_counter() - t0
     launches = solve_launches("symm_int8")
     staged, traffic = dict(collectives.STAGED), dict(collectives.TRAFFIC)
-    expected = {"action": 1 + 2 + iters + iters // FLAGSHIP_RR_EVERY, "chain": 0, "gram": 0}
+    expected = ppcg_expected_launches(iters, device)
     rec = {"phase": "solve_sharded_ppcg", "rank": mesh.rank, "world": mesh.size, "n": n,
            "nroots": FLAGSHIP_ROOTS, "b": sym.b, "pairs": ssym.n_local_pairs,
            "tol": FLAGSHIP_TOL, "iterations": iters,
@@ -5646,6 +5754,7 @@ def main() -> int:
     kernels = check_kernels(matrix, device)
     flagship, flagship_diag, gen_s = make_flagship(device)
     kernels += check_int8_kernels(matrix, flagship, device)
+    kernels += check_rr3_kernels(device)
     kernels.append(check_symm_adjoint(matrix, device))
     emit({"phase": "kernel_checks", "kernels": kernels})
 
@@ -5750,6 +5859,7 @@ def main() -> int:
         "K5": action(int8_precise, linear["int8_precise"]),
         "K6": action(sparse, parity, phenol_rec, parity_linear, *offload_parity),
         "K7": sum(p["launches"]["gram"] for p in solves) + sum(r["gram"] for r in resumable),
+        "K8": sum(p["launches"][key] for p in (ppcg, ppcg_rr) for key in RR3_KEYS),
     }
     off_path = {"K7"}   # no solver calls it, in either package
     if any(launches[k] for k in off_path):

@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """Time the packed actions (K1, K3), the expand chain (K2), the int8
-actions (K4, K5), the block-sparse action (K6) and the masked Gram (K7) of
-one source tree on a CUDA card, so that two trees can be compared in one
-run.
+actions (K4, K5), the block-sparse action (K6), the masked Gram (K7) and
+PPCG's per-root Rayleigh-Ritz (K8) of one source tree on a CUDA card, so
+that two trees can be compared in one run.
 
-    python3 compare_kernels.py <tree> <tag> [k1] [k2] [k4] [k5] [k6] [k7]
+    python3 compare_kernels.py <tree> <tag> [k1] [k2] [k4] [k5] [k6] [k7] [k8]
 
 ``<tree>`` is the root of a checkout (this one, or another commit unpacked
 with ``git archive`` into a directory under ``build/``); its
@@ -29,8 +29,14 @@ call over back-to-back calls, the device time per call of the kernels the
 wrapper launches (K4, K5: the products kernel and its epilogue) and their
 number, from torch.profiler over 20 calls, and library yardsticks in both
 times (K4, K5: ``torch._int_mm`` per int8 product on the dense matrix the
-tiles imply, x padded to 32 rows; K7: the bare ``v @ w.T``). Also the
-card's name and power limit and the compiler's register report.
+tiles imply, x padded to 32 rows; K7: the bare ``v @ w.T``). K8 at 64 x
+131072 and 8 x 2048 (unit rows, a diagonal action, every direction live):
+its two kernels (each kernel's device time apart too) beside the byte
+bound, the eager chain (row dots, ``_rr3_coeffs``, the update), the same
+chain with ``_rr3_coeffs`` replayed from one CUDA graph, and K8's dots
+kernel alone before that graph; whether the coefficients and blocks equal
+the eager chain's given the kernel's dots. Also the card's name and power
+limit and the compiler's register report.
 """
 
 import json
@@ -42,7 +48,7 @@ import time
 
 def main() -> int:
     root, tag = sys.argv[1], sys.argv[2]
-    which = set(sys.argv[3:]) or {"k1", "k2", "k4", "k5", "k6", "k7"}
+    which = set(sys.argv[3:]) or {"k1", "k2", "k4", "k5", "k6", "k7", "k8"}
     sys.path.insert(0, os.path.abspath(root))
     import numpy as np
     import torch
@@ -59,7 +65,8 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True).stdout
     t0 = time.perf_counter()
-    sources = {"k1": "symm_packed", "k2": "chain", "k4": "symm_int8", "k5": "symm_int8", "k6": "spmv", "k7": "gram"}
+    sources = {"k1": "symm_packed", "k2": "chain", "k4": "symm_int8", "k5": "symm_int8", "k6": "spmv",
+               "k7": "gram", "k8": "rr3"}
     logs = _build.build(sorted({sources[k] for k in which}))
     out = {"tag": tag, "root": root, "card": card.strip(), "build_s": time.perf_counter() - t0,
            "ptxas": [ln.strip() for log in logs.values() for ln in log.splitlines()
@@ -181,6 +188,59 @@ def main() -> int:
                          "device_ms": cs.device_ms(fn, dev, "gram", None, calls=20)[0],
                          "library_ms": cs.time_ms(lib, dev),
                          "library_device_ms": cs.device_ms(lib, dev, "", None)[0]}
+    if "k8" in which:
+        from iterative_solver_torch.ops.kernels import rr3
+        from iterative_solver_torch.solvers import fused_ppcg as fp
+
+        for name, r, n in (("K8", 64, 131072), ("K8@8x2048", 8, 2048)):
+            d = torch.linspace(-2.0, 50.0, n, **f32)
+            x, w, p = (v / torch.linalg.norm(v, dim=1, keepdim=True) for v in (
+                torch.as_tensor(rng.standard_normal((r, n)), **f32) for _ in range(3)))
+            blocks = (x, x * d, w, w * d, p, p * d)
+            live = torch.ones(r, dtype=torch.bool, device=dev)
+            # the step's former form: _rr3_coeffs captured once in a CUDA graph
+            dots_in = fp._rr3_dots(*blocks)
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                fp._rr3_coeffs(dots_in, live, live, r)
+            torch.cuda.current_stream(dev).wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                c_out = fp._rr3_coeffs(dots_in, live, live, r)
+
+            def graphed(dots):
+                dots_in.copy_(dots)
+                graph.replay()
+                return rr3.rr3_update_plain(c_out, *blocks)
+
+            kernels = lambda: rr3.rr3_update(rr3.rr3_dots(*blocks), live, live, *blocks)  # noqa: E731
+            eager = lambda: rr3.rr3_update_plain(  # noqa: E731
+                fp._rr3_coeffs(fp._rr3_dots(*blocks), live, live, r), *blocks)
+            graph_chain = lambda: graphed(fp._rr3_dots(*blocks))  # noqa: E731
+            dots_only = lambda: graphed(rr3.rr3_dots(*blocks))  # noqa: E731
+            dots = rr3.rr3_dots(*blocks)
+            *new, c = rr3.rr3_update(dots, live, live, *blocks)
+            ref_c = fp._rr3_coeffs(dots, live, live, r)
+            ref = rr3.rr3_update_plain(ref_c, *blocks)
+            byte = 4 * r * n / 3.35e9
+            out[name] = {
+                "same_bits_given_dots": bool(torch.equal(c, ref_c)) and all(
+                    torch.equal(a, b) for a, b in zip(new, ref)),
+                "dots_repeat": bool(torch.equal(rr3.rr3_dots(*blocks), dots)),
+                "dots_rel": cs.rel_err(dots, fp._rr3_dots(*blocks))[1],
+                "bound_ms": 16 * byte, "dots_bound_ms": 6 * byte, "update_bound_ms": 10 * byte,
+                **timed(kernels, "rr3_", 2),
+                "dots_device_ms": cs.device_ms(kernels, dev, "rr3_dots", 1, calls=20)[0],
+                "update_device_ms": cs.device_ms(kernels, dev, "rr3_update", 1, calls=20)[0],
+                "eager_event_ms": cs.time_ms(eager, dev),
+                "eager_device_ms": cs.device_ms(eager, dev, "", None)[0],
+                "graph_event_ms": cs.time_ms(graph_chain, dev),
+                "graph_device_ms": cs.device_ms(graph_chain, dev, "", None)[0],
+                "dots_only_event_ms": cs.time_ms(dots_only, dev),
+                "dots_only_device_ms": cs.device_ms(dots_only, dev, "", None)[0]}
+            del graph, blocks, x, w, p, new, ref
+        torch.cuda.empty_cache()
     print(json.dumps(out), flush=True)
     os.makedirs("chiprun_out", exist_ok=True)
     with open(f"chiprun_out/compare_{tag}.json", "w") as f:

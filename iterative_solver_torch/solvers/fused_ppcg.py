@@ -17,10 +17,13 @@ Rayleigh-Ritz, the update and the Cholesky-QR), ``.full_rr`` (with its
 re-anchoring ``.action`` inside) and ``.wait``, which record only while a
 ``torch.profiler`` session does.
 
-On a CUDA device the per-root Rayleigh-Ritz after its row dots
-(``_rr3_coeffs``: two packed 3x3 Jacobi eigensolves, elementwise on (r,)
-vectors) is captured once into a CUDA graph and replayed each iteration
-(``_Replay``), the same kernels at one launch; the guess is copied to the
+On a CUDA device in float32 the per-root Rayleigh-Ritz runs as two
+hand-written kernels (K8, ``ops/kernels/rr3.py``): the nine row dots in one
+pass, then each root's coefficients and the four-block update in one
+launch, with the eager chain's bits given the same dots. Everywhere else
+(the CPU, float64) the step runs the eager chain: the row dots
+(``_rr3_dots``), ``_rr3_coeffs`` (two packed 3x3 Jacobi eigensolves,
+elementwise on (r,) vectors) and the update. The guess is copied to the
 device at its own dtype and narrowed there.
 
 Differences from the JAX package, each kept to the same semantics:
@@ -47,7 +50,6 @@ replicated eigenvalues and errors and the gathered Ritz vectors.
 
 from __future__ import annotations
 
-import functools
 from typing import Callable, NamedTuple, Optional
 
 import numpy as np
@@ -56,6 +58,7 @@ import torch
 from .. import config
 from ..array.vector_ops import chol_jitter, to_device
 from ..array.vector_ops import dots_rows as _rows_dot
+from ..ops.kernels import rr3
 from ..ops.kernels.chain import _cholesky_nan, lower_solve
 from ..parallel.collectives import pmax, psum
 from ..parallel.mesh import check_sharding
@@ -163,16 +166,14 @@ def _batched_eigh3(a: Tensor, sweeps: int = 6):
 def _batched_rr3(x, ax, w, aw, p, ap, live_w, live_p, nroots: int,
                  sharding=None) -> Tensor:
     """The JAX package's ``_batched_rr3``: ``_rr3_coeffs`` of ``_rr3_dots``
-    (the step calls the two apart, to replay the second from a graph)."""
+    (the step calls the two apart, with the all-reduce between them)."""
     return _rr3_coeffs(_rr3_dots(x, ax, w, aw, p, ap, sharding), live_w, live_p, nroots)
 
 
 def _rr3_dots(x, ax, w, aw, p, ap, sharding=None) -> Tensor:
     """The nine row dots over N of the per-root Rayleigh-Ritz, a (9, r)
     block, in one all-reduce under sharding."""
-    return psum(torch.stack([_rows_dot(a, c) for a, c in (
-        (x, w), (x, p), (w, p), (x, ax), (w, ax), (p, ax), (w, aw), (p, aw), (p, ap))]),
-        sharding)
+    return psum(rr3.rr3_dots_plain(x, ax, w, aw, p, ap), sharding)
 
 
 def _rr3_coeffs(dots: Tensor, live_w: Tensor, live_p: Tensor, nroots: int) -> Tensor:
@@ -229,55 +230,15 @@ def _rr3_coeffs(dots: Tensor, live_w: Tensor, live_p: Tensor, nroots: int) -> Te
                         for i in range(3)], dim=-1)
 
 
-class _Replay:
-    """``fn`` of tensors, replayed on a CUDA device from one CUDA graph per
-    set of argument shapes, so that its launches cost the host one. The
-    first call of each set runs ``fn`` once on a side stream, then captures
-    it; every call copies its arguments into the graph's own buffers and
-    returns the graph's output buffer, which the next call overwrites. The
-    kernels are those that ``fn`` launches, so the bits are too. Off CUDA
-    ``fn`` runs as it is."""
-
-    def __init__(self, fn: Callable[..., Tensor]):
-        self.fn = fn
-        self.graphs = {}
-
-    def __call__(self, *args: Tensor) -> Tensor:
-        if not args[0].is_cuda:
-            return self.fn(*args)
-        key = tuple((a.shape, a.dtype, a.device) for a in args)
-        if key not in self.graphs:
-            self.graphs[key] = self._capture(args)
-        graph, inputs, out = self.graphs[key]
-        for buf, a in zip(inputs, args):
-            buf.copy_(a)
-        graph.replay()
-        return out
-
-    def _capture(self, args):
-        inputs = [a.clone() for a in args]
-        stream = torch.cuda.current_stream(args[0].device)
-        side = torch.cuda.Stream(args[0].device)
-        side.wait_stream(stream)
-        with torch.cuda.stream(side):
-            self.fn(*inputs)     # loads the kernels outside the capture
-        stream.wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.device(args[0].device), \
-                torch.cuda.graph(graph, capture_error_mode="thread_local"):
-            out = self.fn(*inputs)
-        return graph, inputs, out
-
-
 def _step_body(matvec: Callable[..., Tensor], nroots: int, rr_every: int,
                sharding=None):
     """One PPCG iteration (fused_ppcg.py:198-290). ``sharding``: the blocks
-    and the diagonal are this rank's slices of N. On CUDA the per-root
-    Rayleigh-Ritz after its dots is one graph launch (``_Replay``): launched
-    one by one, its ~1,900 small operations held the card idle behind the
-    host."""
+    and the diagonal are this rank's slices of N. The per-root
+    Rayleigh-Ritz and its update take K8's two launches where
+    ``rr3.rr3_auto`` says so (float32 on CUDA), with the dots' all-reduce
+    between them, and the eager chain elsewhere: launched one by one, the
+    chain's ~1,970 small operations held the card idle behind the host."""
     sh = sharding
-    rr3_coeffs = _Replay(functools.partial(_rr3_coeffs, nroots=nroots))
 
     def step(state: PPCGState, operand, diag: Tensor) -> PPCGState:
         x, ax, p, ap = state.x, state.ax, state.p, state.ap
@@ -312,11 +273,15 @@ def _step_body(matvec: Callable[..., Tensor], nroots: int, rr_every: int,
         aw = _act(matvec, w, operand)   # the action of the iteration
 
         with span("ppcg.rr3"):
-            c = rr3_coeffs(_rr3_dots(x, ax, w, aw, p, ap, sh), live_w, live_p)
-            x_new = c[:, 0:1] * x + c[:, 1:2] * w + c[:, 2:3] * p
-            ax_new = c[:, 0:1] * ax + c[:, 1:2] * aw + c[:, 2:3] * ap
-            p_new = c[:, 1:2] * w + c[:, 2:3] * p
-            ap_new = c[:, 1:2] * aw + c[:, 2:3] * ap
+            if rr3.rr3_auto(x.device, dtype):
+                # no name holds the dots or the coefficients past this
+                # statement: they add nothing to the solve's peak memory
+                x_new, ax_new, p_new, ap_new = rr3.rr3_update(
+                    psum(rr3.rr3_dots(x, ax, w, aw, p, ap), sh), live_w, live_p,
+                    x, ax, w, aw, p, ap)[:4]
+            else:
+                c = _rr3_coeffs(_rr3_dots(x, ax, w, aw, p, ap, sh), live_w, live_p, nroots)
+                x_new, ax_new, p_new, ap_new = rr3.rr3_update_plain(c, x, ax, w, aw, p, ap)
 
             # Cholesky-QR keeps the block orthonormal; AX gets the same
             # transform. L^-1 is formed once against the small identity.

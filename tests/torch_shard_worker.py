@@ -5,7 +5,8 @@ Each test file spawns its ranks once (``run_workers``): every rank is a
 separate Python process that imports torch and the port only (never JAX),
 joins a gloo group through a ``file://`` store in the test's temporary
 directory (no port to collide on under xdist), runs the named cases on the
-CPU in float64 and writes each case's arrays to ``<out>/<case>_r<rank>.npz``.
+CPU in float64 (``CARD_CASES`` on the card in float32) and writes each
+case's arrays to ``<out>/<case>_r<rank>.npz``.
 The test process then compares them with the JAX package's sharded results
 on the same seed-made inputs (the functions below that make them use numpy
 only, so both sides share them).
@@ -525,6 +526,46 @@ def ppcg(mesh):
         out[f"{tag}_evals"], out[f"{tag}_errors"] = evals, errors
         out[f"{tag}_iters"], out[f"{tag}_x"] = np.array([iters]), x.numpy()
     return out
+
+
+@case
+def ppcg_card(mesh):
+    """test_torch_ppcg_rr3.py's sharded card solve: ``ppcg``'s problem in
+    float32 on the card, K8 on every rank, beside the one-card eager chain."""
+    import torch
+
+    from iterative_solver_torch.ops.kernels import rr3
+    from iterative_solver_torch.parallel import block_sharding, matrix_row_sharding
+    from iterative_solver_torch.parallel.collectives import row_sharded_matvec
+    from iterative_solver_torch.solvers.fused_ppcg import FusedPPCG
+
+    n, r = 256, 4
+    mat = ppcg_matrix(n, seed=10)
+    v0 = unit_guess(np.diag(mat), r)
+    rows = matrix_row_sharding(mesh).shard(mat, torch.float32)
+    sharded = FusedPPCG(row_sharded_matvec(mesh), np.diag(mat), n, r, rr_every=5,
+                        convergence_threshold=1e-4, max_iter=300, operand=rows,
+                        sharding=block_sharding(mesh))
+    before = dict(rr3.LAUNCHES)
+    evals, _, _, iters = sharded.run(v0)
+    out = {"sharded_evals": evals, "sharded_iters": np.array([iters]),
+           "launches": np.array([rr3.LAUNCHES[k] - before[k] for k in ("rr3_dots", "rr3_update")])}
+    auto = rr3.rr3_auto
+    rr3.rr3_auto = lambda device, dtype: False
+    try:
+        single = FusedPPCG(lambda x, op: x @ op.T, np.diag(mat), n, r, rr_every=5,
+                           convergence_threshold=1e-4, max_iter=300,
+                           operand=torch.as_tensor(mat, dtype=torch.float32, device=mesh.device),
+                           device=mesh.device)
+        evals, _, _, iters = single.run(v0)
+    finally:
+        rr3.rr3_auto = auto
+    out["eager_evals"], out["eager_iters"] = evals, np.array([iters])
+    return out
+
+
+# the cases that run on the card (the others on the CPU)
+CARD_CASES = {"ppcg_card"}
 
 
 @case
@@ -1201,7 +1242,8 @@ def main() -> None:
     torch.set_num_threads(1)
     from iterative_solver_torch.parallel import init_process_group
 
-    mesh = init_process_group(f"file://{store}", world, rank, backend="gloo", device="cpu")
+    device = "cuda:0" if CARD_CASES & set(sys.argv[5:]) else "cpu"
+    mesh = init_process_group(f"file://{store}", world, rank, backend="gloo", device=device)
     try:
         for name in sys.argv[5:]:
             result = CASES[name](mesh)
